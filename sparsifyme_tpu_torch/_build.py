@@ -1,0 +1,165 @@
+"""Builder and loader of the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, and loaded with ``ctypes``
+(pointers and the CUDA stream passed as ``c_void_p``). No source includes
+PyTorch's headers, so a build takes seconds, not minutes.
+
+Libraries are built at first use into ``_build/<hash>/``, keyed by a hash
+of the sources and flags, one ``nvcc`` process per source, all started
+together. A missing ``nvcc`` or a failed build raises
+:class:`KernelBuildError`: there is no fallback to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+SOURCES = ("prune_nm", "compress24", "spmm24", "ell_spmm")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+_lock = threading.Lock()
+_entries: Dict[str, "ctypes._CFuncPtr"] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """Dispatch rule of every kernel wrapper: True for a CUDA tensor (the
+    Hopper kernel runs), False for a CPU tensor (the plain version runs,
+    because the caller put the data on the CPU); any other device
+    raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}; use cuda or cpu")
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points that create tensors: ``None`` means the GPU. With no
+    GPU this raises instead of moving to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then
+    ``/usr/local/cuda/bin``."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append(DEFAULT_NVCC)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built, and the "
+        "port does not fall back to the plain versions for CUDA tensors")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / source_hash()
+
+
+def _compile(nvcc: str, name: str, out: Path) -> None:
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+
+
+def build_all() -> None:
+    """Compile every source not yet built for the current hash, one
+    ``nvcc`` process each, in parallel."""
+    out_dir = build_dir()
+    todo = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        futs = [pool.submit(_compile, nvcc, n, out_dir / f"lib{n}.so")
+                for n in todo]
+        for f in futs:
+            f.result()
+
+
+def load(name: str, entry: str, spec: str):
+    """The C entry point ``entry`` of ``lib<name>.so`` with its argument
+    types set from ``spec`` (see :func:`argtypes`), building all sources
+    first if needed."""
+    with _lock:
+        fn = _entries.get(name)
+        if fn is None:
+            build_all()
+            path = build_dir() / f"lib{name}.so"
+            try:
+                fn = getattr(ctypes.CDLL(str(path)), entry)
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path}: {e}") from e
+            fn.argtypes = argtypes(spec)
+            fn.restype = ctypes.c_int
+            _entries[name] = fn
+        return fn
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if status != 0:
+        raise RuntimeError(
+            f"{what}: CUDA launch failed with cudaError {status}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def argtypes(spec: str) -> List:
+    """ctypes argument types from a compact spec, one letter each: ``p``
+    pointer or stream, ``i`` int, ``l`` int64, ``f`` float."""
+    table = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "l": ctypes.c_longlong, "f": ctypes.c_float}
+    return [table[k] for k in spec]

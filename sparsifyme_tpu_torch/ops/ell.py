@@ -1,0 +1,110 @@
+"""Blocked-ELL format: build, densify, and batched SpMM.
+
+Counterpart of ``sparsifyme_tpu.ops.ell``. :func:`spmm_ell` runs kernel K4
+on CUDA tensors and its plain version on CPU tensors; building and
+densifying the format is plain PyTorch on either device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..containers import BlockedEll
+from .kernels.ell_kernel import ell_spmm_cuda, ell_spmm_plain
+from .prune import prune_block_topk
+
+
+def ell_from_dense(w: torch.Tensor, block_size: int, ell_blocks: int,
+                   block_k: int = 0) -> BlockedEll:
+    """Keep the top ``ell_blocks`` blocks (Frobenius norm) of every
+    block-row of ``w (..., m, k)`` and pack them; indices sorted
+    ascending."""
+    pruned, cols = prune_block_topk(w, block_size, ell_blocks, block_k)
+    values = ell_pack(pruned, cols, block_size, block_k)
+    return BlockedEll(values=values, col_indices=cols, shape=tuple(w.shape),
+                      block_size=block_size, block_k=block_k)
+
+
+def ell_pack(w: torch.Tensor, col_indices: torch.Tensor, block_size: int,
+             block_k: int = 0) -> torch.Tensor:
+    """Gather the blocks of ``w (..., m, k)`` named by ``col_indices
+    (..., m_blocks, ell)`` into packed values ``(..., m, ell*block_k)``."""
+    *lead, m, k = w.shape
+    bs, bk = block_size, block_k or block_size
+    mb, kb = m // bs, k // bk
+    ell = col_indices.shape[-1]
+    blocks = w.reshape(*lead, mb, bs, kb, bk)
+    idx = col_indices.to(torch.int64)[..., :, None, :, None].expand(
+        *lead, mb, bs, ell, bk)
+    return torch.gather(blocks, -2, idx).reshape(*lead, m, ell * bk)
+
+
+def ell_to_dense(e: BlockedEll) -> torch.Tensor:
+    """Scatter packed ELL values back to dense (repeated block columns
+    add, as in the JAX op)."""
+    *lead, m, k = e.shape
+    bs, bk = e.block_size, e.bk
+    mb, kb = m // bs, k // bk
+    ell = e.ell_blocks
+    vals = e.values.reshape(*lead, mb, bs, ell, bk)
+    idx = e.col_indices.to(torch.int64)[..., :, None, :, None].expand(
+        *lead, mb, bs, ell, bk)
+    dense = torch.zeros((*lead, mb, bs, kb, bk), dtype=e.values.dtype,
+                        device=e.values.device)
+    dense.scatter_add_(-2, idx, vals)
+    return dense.reshape(*lead, m, k)
+
+
+def spmm_ell_reference(e: BlockedEll, b: torch.Tensor, *,
+                       out_dtype=None) -> torch.Tensor:
+    """Dense-oracle SpMM: densify, then an f32 product."""
+    a = ell_to_dense(e)
+    out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(torch.float32),
+                        b.to(torch.float32)).to(out_dtype)
+
+
+def spmm_ell(
+    e: BlockedEll,
+    b: torch.Tensor,
+    *,
+    out_dtype=None,
+    alpha: float = 1.0,
+    beta: float = 0.0,
+    c: Optional[torch.Tensor] = None,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    transpose_out: bool = False,
+) -> torch.Tensor:
+    """Batched Blocked-ELL SpMM ``alpha * ell_to_dense(e) @ b + beta * c``
+    with the zero blocks skipped.
+
+    Batch dims of ``e`` share one ``b (k, n)``, folded into rows.
+    ``transpose_out`` returns C^T ``[n, M]`` (batch folded); ``c`` then has
+    that layout, else ``(..., m, n)`` or ``[M, n]``. Accumulation is f32;
+    ``out_dtype`` defaults to the promoted type of ``e`` and ``b``.
+    """
+    if transpose_a:
+        raise NotImplementedError(
+            "transpose_a is unsupported for Blocked-ELL SpMM: the block "
+            "column indices address the contraction axis; densify and use "
+            "batched_gemm(transpose_a=True) instead")
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    *lead, m, k = e.shape
+    n = b.shape[-1]
+    out_dtype = out_dtype or torch.promote_types(e.dtype, b.dtype)
+    values = e.values.reshape(-1, e.values.shape[-1])
+    cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
+    if c is not None and beta != 0.0 and not transpose_out:
+        c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
+    fn = ell_spmm_cuda if _build.use_kernel(values) else ell_spmm_plain
+    out = fn(values, cols, b, block_size=e.block_size, block_k=e.block_k,
+             out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
+             transpose_out=transpose_out)
+    if transpose_out:
+        return out
+    return out.reshape(*lead, m, n)

@@ -1,0 +1,100 @@
+"""Wrapper of kernel K4 (Blocked-ELL SpMM), beside its plain PyTorch
+version.
+
+K4 ``csrc/ell_spmm.cu`` replaces
+``sparsifyme_tpu/ops/kernels/ell_kernel.py:ell_spmm_pallas`` (the gather
+formulation). At 50% block sparsity it does half the dense operations and
+reads half the A bytes; on the H100 wide-n layers are bound by
+tensor-core operations and n=64 layers by device-memory bytes. The source
+says how its design meets that.
+
+Contract (batch folded into rows): ``values [M, ell*bk]``, ``cols
+[M/bs, ell]`` int32, ``b [kb, n]``; block-row ``r`` of C is
+``sum_e values[r-rows, e-th bk slab] @ b[cols[r, e]*bk : +bk]`` with rows
+of ``b`` past ``kb`` read as zero, f32 accumulation, ``alpha * C + beta *
+c`` and, with ``transpose_out``, C^T ``[n, M]``. Unlike the TPU kernel,
+which needed ``block_size % 128 == 0``, K4 takes any block size that is a
+multiple of 16 and ``block_k`` in {16, 32, 64, 128}.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ... import _build
+from .prune_kernel import DTYPE_CODES
+from .spmm24_kernel import _epilogue_plain
+
+BLOCK_KS = (16, 32, 64, 128)
+
+
+def ell_spmm_plain(values, cols, b, *, block_size: int, block_k: int,
+                   out_dtype: torch.dtype, alpha: float = 1.0,
+                   beta: float = 0.0, c: Optional[torch.Tensor] = None,
+                   transpose_out: bool = False) -> torch.Tensor:
+    """Plain version of K4: gather each block-row's B slabs, one batched
+    f32 product."""
+    bs, bk = block_size, block_k or block_size
+    m, ellk = values.shape
+    ell = ellk // bk
+    kb, n = b.shape
+    kblocks = -(-kb // bk)
+    bp = F.pad(b.to(torch.float32), (0, 0, 0, kblocks * bk - kb))
+    slabs = bp.reshape(kblocks, bk, n)[cols.to(torch.int64)]  # [Mb,ell,bk,n]
+    acc = torch.bmm(values.to(torch.float32).reshape(m // bs, bs, ellk),
+                    slabs.reshape(m // bs, ellk, n)).reshape(m, n)
+    return _epilogue_plain(acc, alpha, beta, c, transpose_out, out_dtype)
+
+
+def ell_spmm_cuda(values, cols, b, *, block_size: int, block_k: int,
+                  out_dtype: torch.dtype, alpha: float = 1.0,
+                  beta: float = 0.0, c: Optional[torch.Tensor] = None,
+                  transpose_out: bool = False) -> torch.Tensor:
+    """Launch K4. ``values`` and ``b`` are brought to their promoted type;
+    ``c`` goes to the kernel as f32."""
+    bs, bk = block_size, block_k or block_size
+    m, ellk = values.shape
+    kb, n = b.shape
+    if not (values.is_cuda and cols.is_cuda and b.is_cuda):
+        raise ValueError("ell_spmm_cuda needs CUDA tensors")
+    if bs <= 0 or bs % 16:
+        raise ValueError(f"block_size {bs} must be a positive multiple of 16")
+    if bk not in BLOCK_KS:
+        raise ValueError(f"block_k {bk} must be one of {BLOCK_KS}")
+    if m % bs or ellk % bk:
+        raise ValueError(f"values {tuple(values.shape)} do not tile into "
+                         f"{bs}x{bk} blocks")
+    ell = ellk // bk
+    if tuple(cols.shape) != (m // bs, ell):
+        raise ValueError(f"col_indices {tuple(cols.shape)} != "
+                         f"{(m // bs, ell)}")
+    dtype = torch.promote_types(values.dtype, b.dtype)
+    if dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
+        raise TypeError(f"ell_spmm kernel takes float32/bfloat16, not "
+                        f"{dtype} -> {out_dtype}")
+    values = values.to(dtype).contiguous()
+    b = b.to(dtype).contiguous()
+    cols = cols.to(torch.int32).contiguous()
+    out_shape = (n, m) if transpose_out else (m, n)
+    c32 = None
+    if c is not None and beta != 0.0:
+        c32 = c.to(torch.float32).reshape(out_shape).contiguous()
+    out = torch.empty(out_shape, dtype=out_dtype, device=values.device)
+    # (values, cols, b, c, out, M, N, Kb, bs, bk, ell, alpha, beta, tout,
+    #  dtype, out_dtype, stream)
+    launch = _build.load("ell_spmm", "ell_spmm_launch",
+                         "ppppp" "iiiiii" "ff" "iii" "p")
+    _build.check(launch(
+        values.data_ptr(), cols.data_ptr(), b.data_ptr(), _build.ptr(c32),
+        out.data_ptr(), m, n, kb, bs, bk, ell, float(alpha),
+        float(beta) if c32 is not None else 0.0, int(transpose_out),
+        DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+        _build.stream_ptr(values)), "ell_spmm")
+    ell_spmm_cuda.launches += 1
+    return out
+
+
+ell_spmm_cuda.launches = 0

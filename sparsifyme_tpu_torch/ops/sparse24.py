@@ -1,0 +1,115 @@
+"""2:4 structured sparsity: compress, decompress and SpMM entry points.
+
+Counterpart of ``sparsifyme_tpu.ops.sparse24`` (the prune -> compress ->
+matmul pipeline of the reference's cusparseLt spmma). :func:`compress_24`
+runs kernel K2 and :func:`spmm_24` kernel K3 on CUDA tensors, and their
+plain versions on CPU tensors.
+
+Compressed layout (see :class:`~sparsifyme_tpu_torch.containers.Sparse24`):
+k-major, batch-folded planes ``[k4, M]``, k padded to a multiple of 64.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..containers import Sparse24
+from .kernels.prune_kernel import compress_24_cuda, compress_24_plain
+from .kernels.spmm24_kernel import expand_planes, spmm24_cuda, spmm24_plain
+
+_FOLD_MSG = ("fold=2 operands need spmm24_fold_pallas, which is not ported "
+             "yet; build the operand with fold=1")
+
+
+def compress_24(w: torch.Tensor) -> Sparse24:
+    """Compress a (2:4-pruned) matrix ``(..., m, k)`` into
+    :class:`Sparse24`. The two largest-magnitude elements of every group of
+    4 are kept (ties to the later position, as in
+    :func:`~.prune.prune_nm`), so an exactly 2:4 input keeps precisely its
+    nonzeros."""
+    k = w.shape[-1]
+    w2 = w.reshape(-1, k)
+    if _build.use_kernel(w):
+        v0, v1, codes = compress_24_cuda(w2)
+    else:
+        v0, v1, codes = compress_24_plain(w2)
+    return Sparse24(values0=v0, values1=v1, codes=codes,
+                    shape=tuple(w.shape))
+
+
+def decompress_24(s: Sparse24) -> torch.Tensor:
+    """Expand a :class:`Sparse24` back to its dense logical shape."""
+    if s.fold != 1:
+        raise NotImplementedError(_FOLD_MSG)
+    k = s.shape[-1]
+    dense = expand_planes(s.values0, s.values1, s.codes).T[:, :k]
+    return dense.reshape(s.shape)
+
+
+def spmm_24_reference(s: Sparse24, b: torch.Tensor, *,
+                      out_dtype=None) -> torch.Tensor:
+    """Dense-oracle SpMM: decompress, then an f32 product."""
+    a = decompress_24(s)
+    out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(torch.float32),
+                        b.to(torch.float32)).to(out_dtype)
+
+
+def spmm_24(
+    s: Sparse24,
+    b: torch.Tensor,
+    *,
+    out_dtype=None,
+    alpha: float = 1.0,
+    beta: float = 0.0,
+    c: Optional[torch.Tensor] = None,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    transpose_out: bool = False,
+    packed_codes: bool = False,
+) -> torch.Tensor:
+    """Structured-sparse matmul ``alpha * decompress(s) @ b + beta * c``.
+
+    Batch dims of ``s`` share one ``b (k, n)`` (the reference's shared-B
+    convention), folded into rows. ``transpose_out`` returns C^T ``[n, M]``
+    (batch folded); ``c`` then has that layout, else ``(..., m, n)`` or
+    ``[M, n]``. ``packed_codes`` hands the kernel split-half packed codes
+    (:func:`pack_codes_fp`, packed per call here). Accumulation is f32;
+    ``out_dtype`` defaults to the promoted type of ``s`` and ``b``.
+    """
+    if transpose_a:
+        raise NotImplementedError(
+            "transpose_a is unsupported for 2:4 SpMM: the compression axis "
+            "must be the contraction axis (cusparseLt has the same "
+            "restriction)")
+    if s.fold != 1:
+        raise NotImplementedError(_FOLD_MSG)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    *lead, m, k = s.shape
+    n = b.shape[-1]
+    out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
+    codes = pack_codes_fp(s.codes) if packed_codes else s.codes
+    if c is not None and beta != 0.0 and not transpose_out:
+        c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
+    fn = spmm24_cuda if _build.use_kernel(s.values0) else spmm24_plain
+    out = fn(s.values0, s.values1, codes, b, k_logical=k,
+             out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
+             transpose_out=transpose_out, packed_codes=packed_codes)
+    if transpose_out:
+        return out
+    return out.reshape(*lead, m, n)
+
+
+def pack_codes_fp(codes: torch.Tensor) -> torch.Tensor:
+    """Split-half packed codes ``[k4/2, M]``: byte ``j`` holds group ``j``
+    in the low nibble and group ``j + k4/2`` in the high nibble."""
+    k4 = codes.shape[-2]
+    if k4 % 2:
+        raise ValueError(f"k4 {k4} must be even")
+    half = k4 // 2
+    return (codes[..., :half, :] | (codes[..., half:, :] << 4)).to(
+        torch.uint8)
