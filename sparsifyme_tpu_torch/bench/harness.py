@@ -7,13 +7,15 @@ matmul (kernels K1, K2, K3) and Blocked-ELL at 50% block sparsity (K4),
 and reports speedups as paired ratios against the dense baseline.
 
 It follows the JAX harness's untuned path: the dense baseline races
-``fold`` True/False, the 2:4 SpMM races ``transpose_out`` False/True, and
-the ELL gather kernel races both output layouts with ``block_size=128``,
-``block_k`` 32/64/128 by k and the ``fold_first`` heuristic. Not yet
-ported, and so not measured: the fused prune+compress kernel
-(``fused_ms`` and ``fused_frac_sol`` stay NaN, printed as null), the
-small-k ELL expand formulation, and the per-shape tuning table (the TPU's
-winners mean nothing on an H100).
+``fold`` True/False; the fused prune+compress (the K2 route that
+:func:`~..ops.sparse24.prune_compress_24` takes) is timed on the dense
+operand as ``fused_ms``; the 2:4 SpMM races ``transpose_out`` False/True;
+Blocked-ELL is built with ``block_size=128``, ``block_k`` 32/64/128 by k
+and the ``fold_first`` heuristic, and races the gather kernel (K4) in both
+output layouts plus, on layers with k < 512, the expand kernel (K5) in
+both layouts, so ``ell_ms`` is the fastest of four candidates there. The
+per-shape tuning table is not read (the TPU's winners mean nothing on an
+H100, and the port has no table yet).
 """
 
 from __future__ import annotations
@@ -29,14 +31,16 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..models.resnet_shapes import resnet_conv_shapes
-from ..ops.ell import ell_from_dense, spmm_ell
+from ..ops.ell import ell_from_dense, ell_values_kmajor, spmm_ell
 from ..ops.gemm import batched_gemm
+from ..ops.kernels.ell_kernel import (ell_expand_spmm_cuda,
+                                      ell_expand_spmm_plain)
 from ..ops.prune import prune_nm
-from ..ops.sparse24 import compress_24, spmm_24
+from ..ops.sparse24 import compress_24, prune_compress_24, spmm_24
 from ..utils.shapes import LayerShape
 from ..utils.timing import time_kernel, time_kernel_pair
 from .roofline import (compress_sol_ms, dense_sol_ms, ell_sol_ms,
-                       prune_sol_ms, spmm24_sol_ms)
+                       fused_sol_ms, prune_sol_ms, spmm24_sol_ms)
 
 
 @dataclasses.dataclass
@@ -49,7 +53,7 @@ class ShapeResult:
     gemm_ms: float = math.nan
     prune_ms: float = math.nan
     compress_ms: float = math.nan
-    fused_ms: float = math.nan        # fused prune+compress: not ported yet
+    fused_ms: float = math.nan        # fused prune+compress (dense in)
     spmm24_ms: float = math.nan       # 2:4 matmul phase
     ell_ms: float = math.nan          # blocked-ELL SpMM @50% block sparsity
     gemm_tflops: float = math.nan
@@ -67,7 +71,7 @@ class ShapeResult:
     spmm24_frac_sol: float = math.nan
     ell_sol_ms: float = math.nan
     ell_frac_sol: float = math.nan
-    fused_sol_ms: float = math.nan    # fused kernel not ported: NaN
+    fused_sol_ms: float = math.nan
     fused_frac_sol: float = math.nan
     prune_sol_ms: float = math.nan
     compress_sol_ms: float = math.nan
@@ -174,6 +178,10 @@ def bench_shape(
         out["compress_ms"] = time_kernel(compress_24, (pruned,),
                                          iters=max(4, iters // 2),
                                          reps=reps).ms
+        mark("fused")
+        out["fused_ms"] = time_kernel(prune_compress_24, (a,),
+                                      iters=max(4, iters // 2),
+                                      reps=reps).ms
         s = compress_24(pruned)
         mark("spmm24")
         cands = [(lambda ss, y, _t=tr: spmm_24(ss, y, out_dtype=dtype,
@@ -198,6 +206,16 @@ def bench_shape(
         cands = [(lambda ee, y, _t=tr: spmm_ell(ee, y, out_dtype=dtype,
                                                 transpose_out=_t), (e, bp))
                  for tr in (False, True)]
+        if k < 512:
+            # The expand formulation, as the JAX harness races it on small
+            # k; the k-major values are built once, outside the timing.
+            vkm = ell_values_kmajor(e)
+            cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
+            expand = (ell_expand_spmm_cuda if _build.use_kernel(vkm)
+                      else ell_expand_spmm_plain)
+            cands += [(lambda v, y, c, _t=tr: expand(
+                v, c, y, block_size=128, block_k=bkb, out_dtype=dtype,
+                transpose_out=_t), (vkm, bp, cols)) for tr in (False, True)]
         fne, opse = cands[_race(cands, iters, reps)]
         mse, gpe, spe, spreade = paired(fne, opse)
         out.update(ell_ms=mse, gemmell_pair_ms=gpe, pair_spreadell=spreade)
@@ -208,9 +226,13 @@ def bench_shape(
     sol_dense = dense_sol_ms(m, n, k, b)
     sol24 = spmm24_sol_ms(m, n, k, b)
     sol_ell = ell_sol_ms(m, n, k, b)
+    sol_fused = fused_sol_ms(m, k, b)
     out.update(sol24_ms=sol24, sol_speedup=sol_dense / sol24,
                ell_sol_ms=sol_ell, prune_sol_ms=prune_sol_ms(m, k, b),
-               compress_sol_ms=compress_sol_ms(m, k, b))
+               compress_sol_ms=compress_sol_ms(m, k, b),
+               fused_sol_ms=sol_fused)
+    if out.get("fused_ms", 0) > 0:
+        out["fused_frac_sol"] = sol_fused / out["fused_ms"]
     if out.get("spmm24_ms", 0) > 0:
         out["spmm24_frac_sol"] = sol24 / out["spmm24_ms"]
     if out.get("ell_ms", 0) > 0:

@@ -73,6 +73,16 @@ def compress_sol_ms(m: int, k: int, b: int, mc: Machine = H100) -> float:
     return 3.25 * m * b * k / (mc.hbm_gbps * 1e9) * 1e3
 
 
+def fused_sol_ms(m: int, k: int, b: int, mc: Machine = H100) -> float:
+    """Fused prune+compress: one dense read (2 B) plus the compact writes
+    (1.25 B) per element, the same 3.25 B as :func:`compress_sol_ms`. The
+    JAX bound adds a ranking term for the TPU's vector unit; on the H100
+    the magnitude ranking (a few compares per element on the CUDA cores)
+    has no engine term that binds, so the bound equals the compress
+    bound."""
+    return compress_sol_ms(m, k, b, mc)
+
+
 def bound_by(flops: float, tflops: float, byts: float,
              mc: Machine = H100) -> str:
     """Which of the two terms sets a bound: ``"operations"`` or

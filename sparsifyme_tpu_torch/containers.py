@@ -7,7 +7,8 @@ packages (see :mod:`.convert`):
 * :class:`Sparse24` — 2:4 structured sparsity along the contraction axis,
   stored as k-major, batch-folded planes ``values0``/``values1``/``codes``
   of shape ``[k4, M]`` (``M = prod(batch) * m``; k padded to a multiple of
-  64, so ``k4`` is a multiple of 16; codes are uint8 ``i0 * 4 + i1``).
+  64, so ``k4`` is a multiple of 16; codes are uint8 ``i0 * 4 + i1``), or
+  row-folded ``[2*k4, M/2]`` with ``fold=2``.
 * :class:`BlockedEll` — ``ell_blocks`` kept dense blocks per block-row:
   values ``[..., m, ell_blocks * block_k]`` and int32 ``col_indices``
   ``[..., m_blocks, ell_blocks]``, sorted ascending per block-row.
@@ -30,9 +31,11 @@ class Sparse24:
       values1: ``[k4, M]`` — second kept value (higher index).
       codes:   ``[k4, M]`` uint8 — ``i0 * 4 + i1`` with ``0 <= i0 < i1 < 4``.
       shape:   the logical (unpadded) dense shape, batch dims included.
-      fold:    row-fold factor of the plane layout. Only ``fold=1`` is
-               ported; the fold=2 layout belongs to the unported
-               ``spmm24_fold_pallas`` kernel.
+      fold:    row-fold factor of the plane layout. ``fold=2`` planes are
+               ``[2*k4, M/2]``: column ``j`` holds original row ``2j`` in
+               plane rows ``[0, k4)`` and row ``2j+1`` in ``[k4, 2*k4)``
+               (the compress of the free ``[M, kp] -> [M/2, 2*kp]``
+               reshape).
     """
 
     values0: torch.Tensor

@@ -36,10 +36,6 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def sparse24_from_numpy(values0, values1, codes, shape, fold: int = 1,
                         device=None) -> Sparse24:
-    if fold != 1:
-        raise NotImplementedError(
-            "fold=2 planes belong to spmm24_fold_pallas, which is not "
-            "ported yet")
     return Sparse24(
         values0=tensor_from_numpy(values0, device),
         values1=tensor_from_numpy(values1, device),

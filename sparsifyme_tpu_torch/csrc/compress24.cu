@@ -2,7 +2,11 @@
 //
 // Replaces sparsifyme_tpu/ops/kernels/prune_kernel.py: compress_24_pallas
 // (body _compress_kernel), together with the transposed copy the JAX op
-// makes before calling it.
+// makes before calling it; and prune_compress_24_pallas (:577, the fused
+// prune+compress, fold=2 included through the [rows/2, 2*kp] view). The
+// kernel ranks every group itself, and a kept element always outranks what
+// pruning zeroes, so on unpruned input it writes the planes of the pruned
+// matrix: one dense read, compact writes, no pruned copy.
 //
 // Input w [M, k] row-major. k is padded to kp = K4 * 4 (a multiple of 64)
 // inside the kernel: padded positions read as zero. Each group of 4 keeps

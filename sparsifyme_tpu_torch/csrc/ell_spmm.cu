@@ -82,7 +82,8 @@ ell_kernel(const T* __restrict__ values, const int* __restrict__ cols,
   }
   mma.store(Cs, LDC);
   __syncthreads();
-  smt::epilogue<O, BM>(Cs, LDC, out, c, M, N, m0, n0, alpha, beta, tout != 0);
+  smt::epilogue<O, BM>(Cs, LDC, out, c, M, N, m0, n0, alpha, beta, tout != 0,
+                       N);
 }
 
 // bf16 fast path (bs a multiple of 128, bk a multiple of 32, N a multiple of
@@ -160,7 +161,7 @@ ell_fast_kernel(const bf16* __restrict__ values, const int* __restrict__ cols,
   ld.ellk = (size_t)ell * bk;
   smt::pipelined_tile<128, BN, BK, false>(ld, ell * (bk / BK), smem_dyn, out,
                                           c, M, N, ld.m0, ld.n0, alpha, beta,
-                                          tout != 0);
+                                          tout != 0, N);
 }
 
 template <typename O, int BN, int BK>

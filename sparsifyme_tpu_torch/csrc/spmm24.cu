@@ -1,12 +1,20 @@
 // K3: 2:4 SpMM, C[M, N] = decompress24(v0, v1, codes)[:, :K] @ B[K, N].
 //
 // Replaces sparsifyme_tpu/ops/kernels/spmm24_kernel.py: spmm24_pallas (the
-// classic grid) and spmm24_pallas_fp (fused alpha/beta/c epilogue, split-half
-// packed codes). One kernel serves both.
+// classic grid), spmm24_pallas_fp (fused alpha/beta/c epilogue, split-half
+// packed codes) and spmm24_fold_pallas (:925, fold=2 planes). One kernel
+// serves all three.
 //
 // Operands: k-major, batch-folded planes v0/v1/codes [K4, M] (K4 groups of
 // 4 along k; 4*K4 >= K), B [K, N] row-major, optional f32 c in the layout of
 // the output. Output C [M, N] or, with tout, C^T [N, M].
+//
+// fold=2 planes are [2*K4, M] for a product of 2*M rows: column j holds row
+// 2j in plane rows [0, K4) and row 2j+1 in [K4, 2*K4). The grid gets a
+// z-dimension of 2; half h reads plane rows [h*K4, (h+1)*K4) (column stride
+// M, as for fold=1 planes) and writes C rows 2j+h: row-major C at offset
+// h*N with row stride 2N. Neither the planes nor C are copied or
+// un-folded, and loads keep their 16-byte width along M.
 //
 // What bounds it on the H100: for the bf16 ResNet-50 layers, tensor-core
 // operations on wide-n layers and device-memory bytes (A at 1.25 B per
@@ -44,7 +52,7 @@ __global__ void __launch_bounds__(kThreads)
 spmm24_kernel(const T* __restrict__ v0, const T* __restrict__ v1,
               const uint8_t* __restrict__ codes, const T* __restrict__ B,
               const float* __restrict__ c, O* __restrict__ out, int M, int N,
-              int K, int K4, float alpha, float beta, int tout) {
+              int K, int K4, float alpha, float beta, int tout, int ldo) {
   constexpr int AB_BYTES = (BK * LDA + BK * LDB) * (int)sizeof(T);
   constexpr int C_BYTES = BM * LDC * (int)sizeof(float);
   __shared__ __align__(128) unsigned char smem[AB_BYTES > C_BYTES ? AB_BYTES
@@ -56,6 +64,12 @@ spmm24_kernel(const T* __restrict__ v0, const T* __restrict__ v1,
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * kBN;
   const int half = K4 / 2;
+  const size_t zp = (size_t)blockIdx.z * K4 * M;  // fold=2 half
+  v0 += zp;
+  v1 += zp;
+  codes += zp;
+  out += (size_t)blockIdx.z * N;
+  if (c != nullptr) c += (size_t)blockIdx.z * N;
   smt::Mma<T, BM, BK, true> mma;
   mma.init();
 
@@ -95,7 +109,8 @@ spmm24_kernel(const T* __restrict__ v0, const T* __restrict__ v1,
   }
   mma.store(Cs, LDC);
   __syncthreads();
-  smt::epilogue<O, BM>(Cs, LDC, out, c, M, N, m0, n0, alpha, beta, tout != 0);
+  smt::epilogue<O, BM>(Cs, LDC, out, c, M, N, m0, n0, alpha, beta, tout != 0,
+                       ldo);
 }
 
 // bf16 fast path (M, N multiples of 8, 16-byte aligned operands): 128 x BN
@@ -192,12 +207,13 @@ spmm24_fast_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
                    const uint8_t* __restrict__ codes,
                    const bf16* __restrict__ B, const float* __restrict__ c,
                    O* __restrict__ out, int M, int N, int K, int K4,
-                   float alpha, float beta, int tout) {
+                   float alpha, float beta, int tout, int ldo) {
   extern __shared__ __align__(128) unsigned char smem_dyn[];
+  const size_t zp = (size_t)blockIdx.z * K4 * M;  // fold=2 half
   Sp24Loader<BN, PACKED> ld;
-  ld.v0 = v0;
-  ld.v1 = v1;
-  ld.codes = codes;
+  ld.v0 = v0 + zp;
+  ld.v1 = v1 + zp;
+  ld.codes = codes + zp;
   ld.B = B;
   ld.M = M;
   ld.N = N;
@@ -205,16 +221,18 @@ spmm24_fast_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
   ld.K4 = K4;
   ld.m0 = blockIdx.x * BM;
   ld.n0 = blockIdx.y * BN;
-  smt::pipelined_tile<BM, BN, 64, true>(ld, (K + 63) / 64, smem_dyn, out, c,
-                                        M, N, ld.m0, ld.n0, alpha, beta,
-                                        tout != 0);
+  const size_t zo = (size_t)blockIdx.z * N;
+  smt::pipelined_tile<BM, BN, 64, true>(ld, (K + 63) / 64, smem_dyn, out + zo,
+                                        c == nullptr ? c : c + zo, M, N,
+                                        ld.m0, ld.n0, alpha, beta, tout != 0,
+                                        ldo);
 }
 
 template <typename O, int BN, bool PACKED>
 cudaError_t launch_fast(const void* v0, const void* v1, const void* codes,
                         const void* b, const void* c, void* out, int M, int N,
                         int K, int K4, float alpha, float beta, int tout,
-                        cudaStream_t stream) {
+                        int fold, cudaStream_t stream) {
   constexpr int smem = smt::PipeShape<BM, BN, 64, true>::SMEM;
   auto kern = spmm24_fast_kernel<O, BN, PACKED>;
   static bool ready = false;
@@ -223,12 +241,12 @@ cudaError_t launch_fast(const void* v0, const void* v1, const void* codes,
     if (e != cudaSuccess) return e;
     ready = true;
   }
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, fold);
   kern<<<grid, smt::kFastThreads, smem, stream>>>(
       static_cast<const bf16*>(v0), static_cast<const bf16*>(v1),
       static_cast<const uint8_t*>(codes), static_cast<const bf16*>(b),
       static_cast<const float*>(c), static_cast<O*>(out), M, N, K, K4, alpha,
-      beta, tout);
+      beta, tout, fold * N);
   return cudaGetLastError();
 }
 
@@ -236,64 +254,66 @@ template <typename O>
 cudaError_t launch_fast_bn(const void* v0, const void* v1, const void* codes,
                            const void* b, const void* c, void* out, int M,
                            int N, int K, int K4, float alpha, float beta,
-                           int tout, int packed, cudaStream_t stream) {
-  if (N >= 128)
-    return packed ? launch_fast<O, 128, true>(v0, v1, codes, b, c, out, M, N,
-                                              K, K4, alpha, beta, tout, stream)
-                  : launch_fast<O, 128, false>(v0, v1, codes, b, c, out, M, N,
-                                               K, K4, alpha, beta, tout,
-                                               stream);
-  return packed ? launch_fast<O, 64, true>(v0, v1, codes, b, c, out, M, N, K,
-                                           K4, alpha, beta, tout, stream)
-                : launch_fast<O, 64, false>(v0, v1, codes, b, c, out, M, N, K,
-                                            K4, alpha, beta, tout, stream);
+                           int tout, int packed, int fold,
+                           cudaStream_t stream) {
+#define SMT_SP24_FAST(BNv, PKv)                                              \
+  return launch_fast<O, BNv, PKv>(v0, v1, codes, b, c, out, M, N, K, K4,     \
+                                  alpha, beta, tout, fold, stream)
+  if (N >= 128) {
+    if (packed) SMT_SP24_FAST(128, true);
+    SMT_SP24_FAST(128, false);
+  }
+  if (packed) SMT_SP24_FAST(64, true);
+  SMT_SP24_FAST(64, false);
+#undef SMT_SP24_FAST
 }
 
 template <typename T, typename O>
 cudaError_t launch(const void* v0, const void* v1, const void* codes,
                    const void* b, const void* c, void* out, int M, int N,
                    int K, int K4, float alpha, float beta, int tout,
-                   int packed, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, (N + kBN - 1) / kBN);
+                   int packed, int fold, cudaStream_t stream) {
+  dim3 grid((M + BM - 1) / BM, (N + kBN - 1) / kBN, fold);
   auto kern = packed ? spmm24_kernel<T, O, true> : spmm24_kernel<T, O, false>;
   kern<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(v0), static_cast<const T*>(v1),
       static_cast<const uint8_t*>(codes), static_cast<const T*>(b),
       static_cast<const float*>(c), static_cast<O*>(out), M, N, K, K4, alpha,
-      beta, tout);
+      beta, tout, fold * N);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// M is the plane width: the output has M rows, or 2*M with fold=2 (row-major
+// C only, unpacked codes).
 extern "C" int spmm24_launch(const void* v0, const void* v1, const void* codes,
                              const void* b, const void* c, void* out, int M,
                              int N, int K, int K4, float alpha, float beta,
-                             int tout, int packed, int dtype, int out_dtype,
-                             void* stream) {
+                             int tout, int packed, int fold, int dtype,
+                             int out_dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (!(fold == 1 || (fold == 2 && !tout && !packed)))
+    return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaSuccess;
   const bool fast = dtype == smt::kBF16 && M % 8 == 0 && N % 8 == 0 &&
                     smt::aligned16(v0) && smt::aligned16(v1) &&
                     smt::aligned16(codes) && smt::aligned16(b) &&
                     smt::aligned16(out) && (c == nullptr || smt::aligned16(c));
+#define SMT_SP24_ARGS \
+  v0, v1, codes, b, c, out, M, N, K, K4, alpha, beta, tout, packed, fold, s
   if (fast && out_dtype == smt::kBF16)
-    return launch_fast_bn<bf16>(v0, v1, codes, b, c, out, M, N, K, K4, alpha,
-                                beta, tout, packed, s);
+    return launch_fast_bn<bf16>(SMT_SP24_ARGS);
   if (fast && out_dtype == smt::kF32)
-    return launch_fast_bn<float>(v0, v1, codes, b, c, out, M, N, K, K4, alpha,
-                                 beta, tout, packed, s);
+    return launch_fast_bn<float>(SMT_SP24_ARGS);
   if (dtype == smt::kBF16 && out_dtype == smt::kBF16)
-    return launch<bf16, bf16>(v0, v1, codes, b, c, out, M, N, K, K4, alpha,
-                              beta, tout, packed, s);
+    return launch<bf16, bf16>(SMT_SP24_ARGS);
   if (dtype == smt::kBF16 && out_dtype == smt::kF32)
-    return launch<bf16, float>(v0, v1, codes, b, c, out, M, N, K, K4, alpha,
-                               beta, tout, packed, s);
+    return launch<bf16, float>(SMT_SP24_ARGS);
   if (dtype == smt::kF32 && out_dtype == smt::kBF16)
-    return launch<float, bf16>(v0, v1, codes, b, c, out, M, N, K, K4, alpha,
-                               beta, tout, packed, s);
+    return launch<float, bf16>(SMT_SP24_ARGS);
   if (dtype == smt::kF32 && out_dtype == smt::kF32)
-    return launch<float, float>(v0, v1, codes, b, c, out, M, N, K, K4, alpha,
-                                beta, tout, packed, s);
+    return launch<float, float>(SMT_SP24_ARGS);
+#undef SMT_SP24_ARGS
   return (int)cudaErrorInvalidValue;
 }

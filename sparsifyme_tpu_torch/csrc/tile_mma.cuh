@@ -1,4 +1,5 @@
-// Shared pieces of the port's matmul kernels (spmm24.cu, ell_spmm.cu).
+// Shared pieces of the port's matmul kernels (spmm24.cu, ell_spmm.cu,
+// ell_expand.cu).
 //
 // A thread block of kThreads threads computes a BM x kBN tile of C in f32.
 // Each k-step stages an A slab and a B slab in shared memory; Mma<T, ...>
@@ -136,12 +137,13 @@ struct Mma<float, BM, BK, A_KMAJOR> {
 };
 
 // out = alpha * Cs + beta * c for rows [m0, m0 + BM) and columns
-// [n0, n0 + kBN), masked to M x N. Row-major C is [M, N]; with tout, C^T
-// is [N, M]. c (f32, same layout as out) may be null.
+// [n0, n0 + kBN), masked to M x N. Row-major C is [M, N] with row stride
+// ldo (N, or 2N for the two interleaved halves of a fold=2 product); with
+// tout, C^T is [N, M]. c (f32, same layout as out) may be null.
 template <typename O, int BM>
 __device__ void epilogue(const float* Cs, int ldc, O* out, const float* c,
                          int M, int N, int m0, int n0, float alpha, float beta,
-                         bool tout) {
+                         bool tout, int ldo) {
   for (int idx = threadIdx.x; idx < BM * kBN; idx += kThreads) {
     int r, cc;
     if (tout) {  // consecutive threads walk m: coalesced C^T rows
@@ -153,7 +155,7 @@ __device__ void epilogue(const float* Cs, int ldc, O* out, const float* c,
     }
     const int gm = m0 + r, gn = n0 + cc;
     if (gm >= M || gn >= N) continue;
-    const size_t off = tout ? (size_t)gn * M + gm : (size_t)gm * N + gn;
+    const size_t off = tout ? (size_t)gn * M + gm : (size_t)gm * ldo + gn;
     float v = alpha * Cs[r * ldc + cc];
     if (c != nullptr) v += beta * c[off];
     out[off] = from_f<O>(v);
@@ -264,7 +266,7 @@ __device__ __forceinline__ void store8<float>(float* dst, const float* v) {
 template <typename O, int BM, int BN>
 __device__ void epilogue_vec(const float* Cs, int ldc, O* out, const float* c,
                              int M, int N, int m0, int n0, float alpha,
-                             float beta, bool tout) {
+                             float beta, bool tout, int ldo) {
   for (int idx = threadIdx.x; idx < BM * BN / 8; idx += kFastThreads) {
     int r, cc;
     if (tout) {  // 8 consecutive m of one column of C^T
@@ -276,7 +278,7 @@ __device__ void epilogue_vec(const float* Cs, int ldc, O* out, const float* c,
     }
     const int gm = m0 + r, gn = n0 + cc;
     if (gm >= M || gn >= N) continue;
-    const size_t off = tout ? (size_t)gn * M + gm : (size_t)gm * N + gn;
+    const size_t off = tout ? (size_t)gn * M + gm : (size_t)gm * ldo + gn;
     float v[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -314,7 +316,8 @@ __device__ __forceinline__ void pipelined_tile(Loader& ld, int stages,
                                                unsigned char* smem, O* out,
                                                const float* c, int M, int N,
                                                int m0, int n0, float alpha,
-                                               float beta, bool tout) {
+                                               float beta, bool tout,
+                                               int ldo) {
   using S = PipeShape<BM, BN, BK, A_KMAJOR>;
   bf16* base = reinterpret_cast<bf16*>(smem);
   WarpMma<BM, BN, BK, A_KMAJOR> mma;
@@ -333,7 +336,7 @@ __device__ __forceinline__ void pipelined_tile(Loader& ld, int stages,
   mma.store(Cs, S::LDC);
   __syncthreads();
   epilogue_vec<O, BM, BN>(Cs, S::LDC, out, c, M, N, m0, n0, alpha, beta,
-                          tout);
+                          tout, ldo);
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory (once).

@@ -1,8 +1,9 @@
 """Blocked-ELL format: build, densify, and batched SpMM.
 
 Counterpart of ``sparsifyme_tpu.ops.ell``. :func:`spmm_ell` runs kernel K4
-on CUDA tensors and its plain version on CPU tensors; building and
-densifying the format is plain PyTorch on either device.
+and :func:`spmm_ell_expand` kernel K5 on CUDA tensors, and their plain
+versions on CPU tensors; building and densifying the format is plain
+PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import torch
 
 from .. import _build
 from ..containers import BlockedEll
-from .kernels.ell_kernel import ell_spmm_cuda, ell_spmm_plain
+from .kernels.ell_kernel import (ell_expand_spmm_cuda,
+                                 ell_expand_spmm_plain, ell_spmm_cuda,
+                                 ell_spmm_plain)
 from .prune import prune_block_topk
 
 
@@ -105,6 +108,44 @@ def spmm_ell(
     out = fn(values, cols, b, block_size=e.block_size, block_k=e.block_k,
              out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
              transpose_out=transpose_out)
+    if transpose_out:
+        return out
+    return out.reshape(*lead, m, n)
+
+
+def ell_values_kmajor(e: BlockedEll) -> torch.Tensor:
+    """Batch-folded k-major packed values ``[ell*bk, M]``, the layout K5
+    reads. Build it once with the format, not inside the hot call."""
+    return e.values.reshape(-1, e.values.shape[-1]).T.contiguous()
+
+
+def spmm_ell_expand(
+    e: BlockedEll,
+    b: torch.Tensor,
+    *,
+    out_dtype=None,
+    transpose_out: bool = False,
+    values_km: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Blocked-ELL SpMM in the expand formulation, the small-k
+    counterpart of :func:`spmm_ell` (forward only).
+
+    Reads k-major values (pass ``values_km`` from :func:`ell_values_kmajor`
+    to keep the relayout out of the hot path). Where two slots of a
+    block-row name the same block column, the last slot's block is the one
+    multiplied, as in the JAX expand kernel (:func:`spmm_ell` sums them).
+    ``transpose_out`` returns C^T ``[n, M]`` (batch folded).
+    """
+    *lead, m, k = e.shape
+    n = b.shape[-1]
+    out_dtype = out_dtype or torch.promote_types(e.dtype, b.dtype)
+    if values_km is None:
+        values_km = ell_values_kmajor(e)
+    cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
+    fn = (ell_expand_spmm_cuda if _build.use_kernel(values_km)
+          else ell_expand_spmm_plain)
+    out = fn(values_km, cols, b, block_size=e.block_size, block_k=e.block_k,
+             out_dtype=out_dtype, transpose_out=transpose_out)
     if transpose_out:
         return out
     return out.reshape(*lead, m, n)

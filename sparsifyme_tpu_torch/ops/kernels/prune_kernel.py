@@ -3,9 +3,14 @@ its plain PyTorch version.
 
 K1 ``csrc/prune_nm.cu`` replaces
 ``sparsifyme_tpu/ops/kernels/prune_kernel.py:prune_nm_pallas``; K2
-``csrc/compress24.cu`` replaces ``compress_24_pallas`` from the same file.
-Both are bound by device-memory bytes on the H100; the sources say how
-their designs meet that bound.
+``csrc/compress24.cu`` replaces ``compress_24_pallas`` from the same file
+and also ``prune_compress_24_pallas`` (``:577``), the fused
+prune+compress: K2 ranks the dense rows itself, and a kept element always
+outranks what pruning zeroes, so compressing unpruned input gives the
+planes of ``compress_24(prune_nm(w))`` bit for bit. The fused route
+(:func:`prune_compress_24_cuda`) launches K2 on the dense rows and keeps
+its own launch count. Both kernels are bound by device-memory bytes on
+the H100; the sources say how their designs meet that bound.
 
 Ranking semantics (shared with the JAX package): order by
 (|value|, position), later positions win magnitude ties; keep the top
@@ -100,11 +105,18 @@ def compress_24_plain(
     return (v0.T.contiguous(), v1.T.contiguous(), codes.T.contiguous())
 
 
-def compress_24_cuda(
+def prune_compress_24_plain(
         w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2 on a CUDA tensor ``w2 [M, k]``; returns the planes."""
+    """Plain version of the fused route: :func:`compress_24_plain` on the
+    dense (unpruned) rows."""
+    return compress_24_plain(w2)
+
+
+def _compress_launch(
+        w2: torch.Tensor,
+        what: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if not w2.is_cuda:
-        raise ValueError("compress_24_cuda needs a CUDA tensor")
+        raise ValueError(f"{what} needs a CUDA tensor")
     if w2.dtype not in DTYPE_CODES:
         raise TypeError(f"compress_24 kernel takes float32 or bfloat16, not "
                         f"{w2.dtype}")
@@ -120,9 +132,28 @@ def compress_24_cuda(
                          "pppp" "iiii" "p")
     _build.check(launch(  # (w, v0, v1, codes, M, k, K4, dtype, stream)
         w2.data_ptr(), v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), rows,
-        k, k4, DTYPE_CODES[w2.dtype], _build.stream_ptr(w2)), "compress_24")
-    compress_24_cuda.launches += 1
+        k, k4, DTYPE_CODES[w2.dtype], _build.stream_ptr(w2)), what)
     return v0, v1, codes
 
 
+def compress_24_cuda(
+        w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K2 on a CUDA tensor ``w2 [M, k]``; returns the planes."""
+    out = _compress_launch(w2, "compress_24_cuda")
+    compress_24_cuda.launches += 1
+    return out
+
+
 compress_24_cuda.launches = 0
+
+
+def prune_compress_24_cuda(
+        w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused prune+compress route: launch K2 on the dense rows
+    ``w2 [M, k]``; returns the planes of the pruned matrix."""
+    out = _compress_launch(w2, "prune_compress_24_cuda")
+    prune_compress_24_cuda.launches += 1
+    return out
+
+
+prune_compress_24_cuda.launches = 0

@@ -1,16 +1,18 @@
-"""Wrapper of kernel K3 (2:4 SpMM), beside its plain PyTorch version.
+"""Wrappers of kernel K3 (2:4 SpMM), beside their plain PyTorch versions.
 
-K3 ``csrc/spmm24.cu`` replaces both
-``sparsifyme_tpu/ops/kernels/spmm24_kernel.py:spmm24_pallas`` and
+K3 ``csrc/spmm24.cu`` replaces
+``sparsifyme_tpu/ops/kernels/spmm24_kernel.py:spmm24_pallas``,
 ``spmm24_pallas_fp`` (the fused alpha/beta/c epilogue and split-half packed
-codes). On the H100 it is bound by tensor-core operations on wide-n
+codes) and, through :func:`spmm24_fold_cuda`, ``spmm24_fold_pallas`` (fold=2
+planes). On the H100 it is bound by tensor-core operations on wide-n
 layers and by device-memory bytes on n=64 layers; the source says how its
 design meets that.
 
 Contract: ``C[M, n] = decompress24(v0, v1, codes)[:, :k_logical] @ b`` with
 planes ``[k4, M]`` (or split-half packed codes ``[k4/2, M]``), ``b
 [k_logical, n]``, f32 accumulation, ``alpha * C + beta * c`` and, with
-``transpose_out``, C^T ``[n, M]``. The TPU scheduling knobs (tiles,
+``transpose_out``, C^T ``[n, M]``. The fold route takes planes ``[2*k4,
+M/2]`` and returns row-major C ``[M, n]``. The TPU scheduling knobs (tiles,
 ``pipeline``, chunking, VMEM budgets) have no counterpart.
 """
 
@@ -28,6 +30,15 @@ def unpack_codes_fp(packed: torch.Tensor, k4: int) -> torch.Tensor:
     """Inverse of ``ops.sparse24.pack_codes_fp``: byte ``j`` holds group
     ``j`` in its low nibble and group ``j + k4/2`` in its high nibble."""
     return torch.cat([packed & 0xF, packed >> 4], dim=-2)[..., :k4, :]
+
+
+def unfold_planes(p: torch.Tensor, fold: int, k4: int,
+                  rows: int) -> torch.Tensor:
+    """Standard planes ``[k4, rows]`` from row-folded ones ``[fold*k4,
+    rows/fold]``, where plane row ``h*k4 + g`` of column ``j`` belongs to
+    original row ``fold*j + h``. A compact-size copy."""
+    return p.reshape(fold, k4, rows // fold).permute(1, 2, 0).reshape(
+        k4, rows)
 
 
 def expand_planes(v0: torch.Tensor, v1: torch.Tensor,
@@ -70,23 +81,45 @@ def spmm24_plain(v0, v1, codes, b, *, k_logical: int,
     return _epilogue_plain(acc, alpha, beta, c, transpose_out, out_dtype)
 
 
-def spmm24_cuda(v0, v1, codes, b, *, k_logical: int,
-                out_dtype: torch.dtype, alpha: float = 1.0,
-                beta: float = 0.0, c: Optional[torch.Tensor] = None,
-                transpose_out: bool = False,
-                packed_codes: bool = False) -> torch.Tensor:
-    """Launch K3. Planes and ``b`` are brought to their promoted type (the
-    kernel multiplies like types); ``c`` goes to the kernel as f32."""
+def spmm24_fold_plain(v0, v1, codes, b, *, k_logical: int,
+                      out_dtype: torch.dtype, alpha: float = 1.0,
+                      beta: float = 0.0,
+                      c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the fold route: un-fold the planes, then
+    :func:`spmm24_plain`."""
+    _check_fold(v0, k_logical)
+    k4, rows = v0.shape[0] // 2, 2 * v0.shape[1]
+    v0, v1, codes = (unfold_planes(p, 2, k4, rows) for p in (v0, v1, codes))
+    return spmm24_plain(v0, v1, codes, b, k_logical=k_logical,
+                        out_dtype=out_dtype, alpha=alpha, beta=beta, c=c)
+
+
+def _check_fold(v0: torch.Tensor, k_logical: int) -> None:
+    """The contract of ``spmm24_fold_pallas``, so both packages refuse the
+    same calls."""
+    fk4 = v0.shape[0]
+    if fk4 % 2:
+        raise ValueError(f"folded planes need even row count, got {fk4}")
+    k4 = fk4 // 2
+    if k_logical > 4 * k4:
+        raise ValueError(f"k_logical {k_logical} > 4*k4 {4 * k4}")
+    if k4 > 256:
+        raise ValueError(f"fold=2 requires a single k-step (k4 {k4} <= 256)")
+
+
+def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
+            transpose_out, packed_codes, fold, what) -> torch.Tensor:
     k4, m = v0.shape
+    k4 //= fold
     kb, n = b.shape
     if not (v0.is_cuda and b.is_cuda):
-        raise ValueError("spmm24_cuda needs CUDA tensors")
+        raise ValueError(f"{what} needs CUDA tensors")
     if kb != k_logical or k_logical > 4 * k4:
         raise ValueError(f"b has {kb} rows for k_logical {k_logical} and "
                          f"{k4} groups")
     if v1.shape != v0.shape or codes.dtype != torch.uint8:
         raise ValueError("planes must share a shape and codes be uint8")
-    want_codes = ((k4 + 1) // 2, m) if packed_codes else (k4, m)
+    want_codes = ((k4 + 1) // 2, m) if packed_codes else (fold * k4, m)
     if tuple(codes.shape) != want_codes:
         raise ValueError(f"codes {tuple(codes.shape)} != {want_codes}")
     if packed_codes and k4 % 2:
@@ -99,23 +132,53 @@ def spmm24_cuda(v0, v1, codes, b, *, k_logical: int,
     v1 = v1.to(dtype).contiguous()
     b = b.to(dtype).contiguous()
     codes = codes.contiguous()
-    out_shape = (n, m) if transpose_out else (m, n)
+    out_shape = (n, m) if transpose_out else (fold * m, n)
     c32 = None
     if c is not None and beta != 0.0:
         c32 = c.to(torch.float32).reshape(out_shape).contiguous()
     out = torch.empty(out_shape, dtype=out_dtype, device=v0.device)
     # (v0, v1, codes, b, c, out, M, N, K, K4, alpha, beta, tout, packed,
-    #  dtype, out_dtype, stream)
+    #  fold, dtype, out_dtype, stream)
     launch = _build.load("spmm24", "spmm24_launch",
-                         "pppppp" "iiii" "ff" "iiii" "p")
+                         "pppppp" "iiii" "ff" "iiiii" "p")
     _build.check(launch(
         v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), b.data_ptr(),
         _build.ptr(c32), out.data_ptr(), m, n, k_logical, k4, float(alpha),
         float(beta) if c32 is not None else 0.0, int(transpose_out),
-        int(packed_codes), DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
-        _build.stream_ptr(v0)), "spmm24")
+        int(packed_codes), fold, DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+        _build.stream_ptr(v0)), what)
+    return out
+
+
+def spmm24_cuda(v0, v1, codes, b, *, k_logical: int,
+                out_dtype: torch.dtype, alpha: float = 1.0,
+                beta: float = 0.0, c: Optional[torch.Tensor] = None,
+                transpose_out: bool = False,
+                packed_codes: bool = False) -> torch.Tensor:
+    """Launch K3. Planes and ``b`` are brought to their promoted type (the
+    kernel multiplies like types); ``c`` goes to the kernel as f32."""
+    out = _launch(v0, v1, codes, b, k_logical=k_logical, out_dtype=out_dtype,
+                  alpha=alpha, beta=beta, c=c, transpose_out=transpose_out,
+                  packed_codes=packed_codes, fold=1, what="spmm24_cuda")
     spmm24_cuda.launches += 1
     return out
 
 
 spmm24_cuda.launches = 0
+
+
+def spmm24_fold_cuda(v0, v1, codes, b, *, k_logical: int,
+                     out_dtype: torch.dtype, alpha: float = 1.0,
+                     beta: float = 0.0,
+                     c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K3 on fold=2 planes ``[2*k4, M/2]``; returns row-major
+    ``C [M, n]``."""
+    _check_fold(v0, k_logical)
+    out = _launch(v0, v1, codes, b, k_logical=k_logical, out_dtype=out_dtype,
+                  alpha=alpha, beta=beta, c=c, transpose_out=False,
+                  packed_codes=False, fold=2, what="spmm24_fold_cuda")
+    spmm24_fold_cuda.launches += 1
+    return out
+
+
+spmm24_fold_cuda.launches = 0

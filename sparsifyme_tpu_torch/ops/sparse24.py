@@ -2,11 +2,12 @@
 
 Counterpart of ``sparsifyme_tpu.ops.sparse24`` (the prune -> compress ->
 matmul pipeline of the reference's cusparseLt spmma). :func:`compress_24`
-runs kernel K2 and :func:`spmm_24` kernel K3 on CUDA tensors, and their
-plain versions on CPU tensors.
+and :func:`prune_compress_24` run kernel K2 and :func:`spmm_24` kernel K3
+on CUDA tensors, and their plain versions on CPU tensors.
 
 Compressed layout (see :class:`~sparsifyme_tpu_torch.containers.Sparse24`):
-k-major, batch-folded planes ``[k4, M]``, k padded to a multiple of 64.
+k-major, batch-folded planes ``[k4, M]``, k padded to a multiple of 64, or
+row-folded ``[2*k4, M/2]`` (``fold=2``).
 """
 
 from __future__ import annotations
@@ -14,14 +15,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from ..containers import Sparse24
-from .kernels.prune_kernel import compress_24_cuda, compress_24_plain
-from .kernels.spmm24_kernel import expand_planes, spmm24_cuda, spmm24_plain
-
-_FOLD_MSG = ("fold=2 operands need spmm24_fold_pallas, which is not ported "
-             "yet; build the operand with fold=1")
+from .kernels.prune_kernel import (compress_24_cuda, compress_24_plain,
+                                   prune_compress_24_cuda,
+                                   prune_compress_24_plain)
+from .kernels.spmm24_kernel import (expand_planes, spmm24_cuda,
+                                    spmm24_fold_cuda, spmm24_fold_plain,
+                                    spmm24_plain, unfold_planes)
 
 
 def compress_24(w: torch.Tensor) -> Sparse24:
@@ -40,12 +43,52 @@ def compress_24(w: torch.Tensor) -> Sparse24:
                     shape=tuple(w.shape))
 
 
+def prune_compress_24(w: torch.Tensor, rank_mxu: bool = False,
+                      block_rows: Optional[int] = None,
+                      block_k: Optional[int] = None, pad128: bool = True,
+                      pack_rank: bool = False, fold_rows: bool = False,
+                      fold: int = 1) -> Sparse24:
+    """Fused prune+compress: dense ``w (..., m, k)`` to :class:`Sparse24`
+    in one kernel pass (one read of the dense weights, compact writes).
+
+    The planes are bit-identical to ``compress_24(prune_nm(w)[0])``.
+    ``fold=2`` pads k to a multiple of 64, compresses the free row-major
+    view ``[rows, kp] -> [rows/2, 2*kp]`` and keeps the planes folded
+    (``[2*k4, rows/2]``, ``Sparse24.fold = 2``); :func:`spmm_24` contracts
+    them directly. ``rank_mxu``, ``block_rows``, ``block_k``, ``pad128``,
+    ``pack_rank`` and ``fold_rows`` are TPU formulations and tilings of the
+    same selection: accepted and ignored (``fold_rows`` returns the standard
+    planes, as it does in the JAX package).
+    """
+    k = w.shape[-1]
+    w2 = w.reshape(-1, k)
+    if fold > 1:
+        if fold != 2:
+            raise ValueError(f"fold {fold} unsupported (use 2)")
+        rows = w2.shape[0]
+        if rows % fold:
+            raise ValueError(f"rows {rows} % fold {fold} != 0")
+        kp = -(-k // 64) * 64  # compress_24's k padding quantum
+        w2 = F.pad(w2, (0, kp - k)) if kp != k else w2
+        w2 = w2.reshape(rows // fold, fold * kp)
+    if _build.use_kernel(w):
+        v0, v1, codes = prune_compress_24_cuda(w2)
+    else:
+        v0, v1, codes = prune_compress_24_plain(w2)
+    return Sparse24(values0=v0, values1=v1, codes=codes,
+                    shape=tuple(w.shape), fold=fold)
+
+
 def decompress_24(s: Sparse24) -> torch.Tensor:
-    """Expand a :class:`Sparse24` back to its dense logical shape."""
-    if s.fold != 1:
-        raise NotImplementedError(_FOLD_MSG)
+    """Expand a :class:`Sparse24` back to its dense logical shape; fold=2
+    planes are un-folded first (a compact-size copy)."""
+    v0, v1, codes = s.values0, s.values1, s.codes
+    if s.fold > 1:
+        k4, rows = s.k4, v0.shape[1] * s.fold
+        v0, v1, codes = (unfold_planes(p, s.fold, k4, rows)
+                         for p in (v0, v1, codes))
     k = s.shape[-1]
-    dense = expand_planes(s.values0, s.values1, s.codes).T[:, :k]
+    dense = expand_planes(v0, v1, codes).T[:, :k]
     return dense.reshape(s.shape)
 
 
@@ -85,13 +128,23 @@ def spmm_24(
             "transpose_a is unsupported for 2:4 SpMM: the compression axis "
             "must be the contraction axis (cusparseLt has the same "
             "restriction)")
-    if s.fold != 1:
-        raise NotImplementedError(_FOLD_MSG)
     if transpose_b:
         b = b.transpose(-1, -2)
     *lead, m, k = s.shape
     n = b.shape[-1]
     out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
+    if s.fold > 1:
+        if transpose_out:
+            raise NotImplementedError(
+                "transpose_out is unsupported for folded operands (the "
+                "[Mf, 2n] -> [M, n] un-fold is only free in row-major C)")
+        if c is not None and beta != 0.0:
+            c = c.reshape(-1, c.shape[-1])
+        fn = (spmm24_fold_cuda if _build.use_kernel(s.values0)
+              else spmm24_fold_plain)
+        out = fn(s.values0, s.values1, s.codes, b, k_logical=k,
+                 out_dtype=out_dtype, alpha=alpha, beta=beta, c=c)
+        return out.reshape(*lead, m, n)
     codes = pack_codes_fp(s.codes) if packed_codes else s.codes
     if c is not None and beta != 0.0 and not transpose_out:
         c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)

@@ -98,3 +98,62 @@ def test_spmm_ell_rejects_transpose_a():
     f = te.ell_from_dense(torch.randn(32, 64), 16, 1, 32)
     with pytest.raises(NotImplementedError):
         te.spmm_ell(f, torch.randn(64, 8), transpose_a=True)
+
+
+@pytest.mark.parametrize("shape,bs,bk", [
+    ((1, 128, 256), 128, 32),
+    ((2, 32, 128), 16, 64),
+    ((1, 256, 192), 128, 32),
+])
+@pytest.mark.parametrize("tout", [False, True])
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_spmm_ell_expand_matches_jax(rng, shape, bs, bk, tout, jdt, tdt):
+    """The expand formulation against the JAX op (its Pallas kernel
+    interpreted), C and exactly-shaped C^T, with the k-major values built
+    by both packages."""
+    k, n = shape[-1], 24
+    jw, tw = _both(rng.normal(size=shape), jdt)
+    jb, tb = _both(rng.normal(size=(k, n)), jdt)
+    ell = (k // bk) // 2
+    e = je.ell_from_dense(jw, bs, ell, bk)
+    f = te.ell_from_dense(tw, bs, ell, bk)
+    vkm = te.ell_values_kmajor(f)
+    assert _eq(je.ell_values_kmajor(e), vkm)
+    want = je.spmm_ell_expand(e, jb, transpose_out=tout, interpret=True)
+    got = te.spmm_ell_expand(f, tb, transpose_out=tout, values_km=vkm)
+    rows = int(np.prod(shape[:-1]))
+    assert tuple(got.shape) == ((n, rows) if tout else shape[:-1] + (n,))
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    assert _rel(want, got) < TOL[tdt]
+    gather = te.spmm_ell(f, tb, transpose_out=tout)
+    assert _rel(np.asarray(gather.float()), got) < TOL[tdt]
+
+
+@pytest.mark.parametrize("tout", [False, True])
+def test_ell_expand_repeated_column_last_slot_wins(rng, tout):
+    """With a block column named twice, the expand kernel multiplies the
+    last slot's block (JAX's scatter overwrites); the gather kernel sums."""
+    from sparsifyme_tpu.ops.kernels.ell_kernel import (ell_expand_spmm_pallas,
+                                                       ell_spmm_pallas)
+    from sparsifyme_tpu_torch.ops.kernels import ell_kernel as tk
+
+    vals = rng.normal(size=(32, 32)).astype(np.float32)
+    cols = np.array([[0, 0], [2, 2]], np.int32)
+    b = rng.normal(size=(64, 8)).astype(np.float32)
+    kw = dict(block_size=16, block_k=16, transpose_out=tout)
+    want = np.asarray(ell_expand_spmm_pallas(
+        jnp.asarray(vals.T), jnp.asarray(cols), jnp.asarray(b),
+        out_dtype=jnp.float32, interpret=True, **kw))
+    got = tk.ell_expand_spmm_plain(
+        torch.from_numpy(vals.T.copy()), torch.from_numpy(cols),
+        torch.from_numpy(b), out_dtype=torch.float32, **kw)
+    assert np.allclose(tensor_to_numpy(got), want, rtol=1e-5, atol=1e-5)
+    rows0 = want.T[:16] if tout else want[:16]  # block-row 0: cols [0, 0]
+    assert np.allclose(rows0, vals[:16, 16:] @ b[:16], atol=1e-4)
+    summed = np.asarray(ell_spmm_pallas(
+        jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(b),
+        out_dtype=jnp.float32, interpret=True, **kw))
+    assert np.abs(summed - want).max() > 1.0
+    assert np.allclose(tensor_to_numpy(tk.ell_spmm_plain(
+        torch.from_numpy(vals), torch.from_numpy(cols), torch.from_numpy(b),
+        out_dtype=torch.float32, **kw)), summed, rtol=1e-5, atol=1e-5)

@@ -1,6 +1,7 @@
 """Port parity: shape data, the benchmark harness on the CPU, and the
-whole slice (prune -> compress -> 2:4 SpMM, ELL build -> ELL SpMM) end to
-end against the JAX package."""
+whole port so far (prune -> compress -> 2:4 SpMM, the plan's spmma and the
+fold=2 route, ELL build -> gather and expand SpMM) end to end against the
+JAX package."""
 
 import csv
 import json
@@ -12,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from sparsifyme_tpu import plan as jplan
 from sparsifyme_tpu.models import resnet_shapes as jshapes
 from sparsifyme_tpu.ops import ell as je
 from sparsifyme_tpu.ops import prune as jprune
 from sparsifyme_tpu.ops import sparse24 as js
+from sparsifyme_tpu_torch import plan as tplan
 from sparsifyme_tpu_torch.bench import harness, roofline
 from sparsifyme_tpu_torch.convert import tensor_from_numpy, tensor_to_numpy
 from sparsifyme_tpu_torch.models import resnet_shapes as tshapes
@@ -67,14 +70,18 @@ def test_sweep_and_summary_on_cpu(tmp_path):
     assert [r.layer for r in results] == [0, 1, 2]
     assert results[0].gemm_ms == results[2].gemm_ms  # deduplicated
     for r in results:
-        for f in ("gemm_ms", "prune_ms", "compress_ms", "spmm24_ms",
-                  "ell_ms", "spmm24_speedup", "ell_speedup", "sol24_ms"):
+        for f in ("gemm_ms", "prune_ms", "compress_ms", "fused_ms",
+                  "spmm24_ms", "ell_ms", "spmm24_speedup", "ell_speedup",
+                  "sol24_ms", "fused_sol_ms", "fused_frac_sol"):
             assert getattr(r, f) > 0, f
-        assert math.isnan(r.fused_ms) and math.isnan(r.fused_frac_sol)
+        assert r.fused_sol_ms == r.compress_sol_ms
+        assert math.isfinite(r.fused_ms) and math.isfinite(r.fused_frac_sol)
     summary = harness.summarize(results)
     line = harness.headline("tiny", summary, "CPU surface check")
     assert set(line) == BENCH_KEYS
-    assert line["fused_frac_sol_geomean"] is None
+    assert line["fused_frac_sol_geomean"] is not None  # rounded: tiny on CPU
+    assert summary["fused_frac_sol_geomean"] > 0
+    assert math.isfinite(summary["fused_ms_geomean"])
     assert line["best_sparse_speedup_geomean"] > 0
     json.dumps(line)
     harness.write_csv(str(tmp_path / "r.csv"), results)
@@ -84,6 +91,24 @@ def test_sweep_and_summary_on_cpu(tmp_path):
     assert rows[0] == ["layer", "m", "n", "k", "b", "gemm", "prune", "spmm",
                        "spmm24"]
     assert float(rows[1][7]) == results[0].ell_ms
+
+
+@pytest.mark.parametrize("k,expand", [(147, True), (512, False)])
+def test_ell_race_adds_expand_below_k512(monkeypatch, k, expand):
+    """As in the JAX harness: layers with k < 512 race the expand kernel in
+    both output layouts beside the two gather candidates."""
+    calls = []
+    real = harness.ell_expand_spmm_plain
+
+    def spy(*args, **kw):
+        calls.append(kw["transpose_out"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(harness, "ell_expand_spmm_plain", spy)
+    out = harness.bench_shape(tsh.LayerShape(128, 16, k, 1), kernels=("ell",),
+                              iters=1, reps=1, device="cpu")
+    assert out["ell_ms"] > 0
+    assert sorted(set(calls)) == ([False, True] if expand else [])
 
 
 def test_entry_points_default_to_the_gpu():
@@ -119,6 +144,7 @@ def test_roofline_h100_bounds():
         6.0 * rows * k / 3350e9 * 1e3)
     assert roofline.compress_sol_ms(m, k, b) == pytest.approx(
         3.25 * rows * k / 3350e9 * 1e3)
+    assert roofline.fused_sol_ms(m, k, b) == roofline.compress_sol_ms(m, k, b)
     assert roofline.ell_sol_ms(m, n, k, b) < roofline.dense_sol_ms(m, n, k, b)
     assert roofline.bound_by(1e12, 989.0, 1e3) == "operations"
     assert roofline.bound_by(1.0, 989.0, 1e9) == "bytes"
@@ -163,3 +189,19 @@ def test_slice_end_to_end_matches_jax(rng, jdt, tdt, tol):
     want_e = np.asarray(je.spmm_ell(e, jb, interpret=True), np.float32)
     got_e = tensor_to_numpy(te.spmm_ell(f, tb))
     assert np.abs(got_e - want_e).max() / np.abs(want_e).max() < tol
+    want_x = np.asarray(je.spmm_ell_expand(e, jb, interpret=True),
+                        np.float32)
+    got_x = tensor_to_numpy(te.spmm_ell_expand(f, tb))
+    assert np.abs(got_x - want_x).max() / np.abs(want_x).max() < tol
+
+    # The plan path: spmma's fused prune+compress and the fold=2 route.
+    want_p = np.asarray(jplan.spmma(ja, jb), np.float32)
+    got_p = tensor_to_numpy(tplan.spmma(ta, tb))
+    assert got_p.shape == want_p.shape == (2, 64, 32)
+    assert np.abs(got_p - want_p).max() / np.abs(want_p).max() < tol
+    sf, qf = js.prune_compress_24(ja, fold=2), ts.prune_compress_24(ta,
+                                                                    fold=2)
+    assert np.array_equal(np.asarray(sf.codes), tensor_to_numpy(qf.codes))
+    want_f = np.asarray(js.spmm_24(sf, jb), np.float32)
+    got_f = tensor_to_numpy(ts.spmm_24(qf, tb))
+    assert np.abs(got_f - want_f).max() / np.abs(want_f).max() < tol

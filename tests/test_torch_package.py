@@ -100,6 +100,15 @@ def test_device_none_means_gpu():
         torch.zeros(16, 32), torch.zeros(1, 1, dtype=torch.int32),
         torch.zeros(32, 8), block_size=16, block_k=32,
         out_dtype=torch.float32),
+    lambda: prune_kernel.prune_compress_24_cuda(torch.zeros(4, 8)),
+    lambda: spmm24_kernel.spmm24_fold_cuda(
+        torch.zeros(32, 4), torch.zeros(32, 4),
+        torch.zeros(32, 4, dtype=torch.uint8), torch.zeros(64, 8),
+        k_logical=64, out_dtype=torch.float32),
+    lambda: ell_kernel.ell_expand_spmm_cuda(
+        torch.zeros(32, 16), torch.zeros(1, 1, dtype=torch.int32),
+        torch.zeros(32, 8), block_size=16, block_k=32,
+        out_dtype=torch.float32),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -131,3 +140,31 @@ def test_converters_round_trip_jax_containers(rng, jdt):
     assert (shape, bs, bk) == (e.shape, e.block_size, e.block_k)
     assert np.array_equal(vals, np.asarray(e.values, np.float32))
     assert np.array_equal(cols, np.asarray(e.col_indices))
+
+
+@pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])
+def test_converters_round_trip_fold2_containers(rng, jdt):
+    w = jnp.asarray(rng.normal(size=(2, 16, 147)), jdt)
+    s = js.prune_compress_24(w, fold=2)
+    q = convert.sparse24_from_numpy(np.asarray(s.values0),
+                                    np.asarray(s.values1),
+                                    np.asarray(s.codes), s.shape, fold=2,
+                                    device="cpu")
+    assert (q.fold, q.k4, tuple(q.values0.shape)) == (2, s.k4,
+                                                       s.values0.shape)
+    v0, v1, codes, shape, fold = convert.sparse24_to_numpy(q)
+    assert (shape, fold) == (s.shape, 2)
+    assert np.array_equal(v0, np.asarray(s.values0, np.float32))
+    assert np.array_equal(v1, np.asarray(s.values1, np.float32))
+    assert np.array_equal(codes, np.asarray(s.codes))
+    assert np.array_equal(np.asarray(js.decompress_24(s), np.float32),
+                          convert.tensor_to_numpy(sp.decompress_24(q)))
+
+
+def test_no_tuning_table_is_shipped():
+    """The TPU's winners mean nothing on the card: the port ships no
+    table, so plans and the harness use their defaults."""
+    from sparsifyme_tpu_torch.bench import tuning
+
+    assert not pathlib.Path(tuning.TABLE_PATH).exists()
+    assert tuning.lookup(12544, 64, 147, 32) is None
