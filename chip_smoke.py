@@ -6,14 +6,18 @@ kernels from ``sparsifyme_tpu_torch/csrc`` with nvcc at first use)
 
 Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
-  2. build the five Hopper kernels (one nvcc per source, in parallel);
+  2. build the six Hopper kernels (one nvcc per source, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
      at full ResNet-50 width (b=32): K1 prune, K2 compress and the fused
      prune+compress route (K2 on dense input) exactly equal; K3 2:4 SpMM,
      its fold=2 route, K4 Blocked-ELL gather SpMM and K5 Blocked-ELL expand
-     SpMM within a relative error of 2e-2 in bf16 and 1e-4 in f32; plus the
-     2:4, ELL and plan pipelines on the card against the same pipelines on
-     the CPU at a small size;
+     SpMM within a relative error of 2e-2 in bf16 and 1e-4 in f32; K6
+     segmented COO SpMM within 1e-4 (f32 sums in another order) at three
+     ResNet-101 shapes (b=32) and sparsities 0.5 / 0.9 / 0.995 with bf16
+     and f32 B, at a ragged m, and exactly on duplicate entries, with the
+     COO planes packed on the card equal to those packed on the CPU; plus
+     the 2:4, ELL, plan and COO pipelines on the card against the same
+     pipelines on the CPU at a small size;
   4. the bench path: ``run_model_sweep("resnet50")`` over all 49 layers,
      with every launch counter set to 0 just before and read just after;
      prints the sweep's JSON line and fails unless every kernel of the
@@ -25,14 +29,24 @@ Phases, each raising on failure:
      ``plan.matmul(plan.compress(plan.prune(a)), b)``, and the fold=2 route
      ``spmm_24(prune_compress_24(a, fold=2), b)`` within 2e-2 of the fold=1
      route where ``k4 <= 256``;
-  6. one ``{"kernels": [...]}`` line: each route's time at a main-path
+  6. the COO path: ``config2_coo_resnet101()`` (BASELINE config 2) over all
+     17 unique ResNet-101 shapes x 6 sparsities (102 points, b=32), counters
+     set to 0 just before and read just after; one JSON line per point,
+     then the summary line; fails unless K6 launched and every point's
+     ``coo_seg_ms`` is finite and positive;
+  7. the drivers: each of the five (``sparsify gemm spmm spmma
+     batched_coo``) once at a ResNet-50 shape, held to its stdout contract,
+     and configs 1 and 3 with ``quick=True``;
+  8. one ``{"kernels": [...]}`` line: each route's time at a main-path
      shape beside its plain version, a PyTorch library call computing the
      same function (where one exists) and its bound, with its launches on
-     the two paths and its error against the plain version there (the
+     the three paths and its error against the plain version there (the
      K5 entry also times K4 on the same operand, ``gather_ms``);
-  7. the card line again, then ``{"ok": true, "device": {...}}`` last.
+  9. the card line again, then ``{"ok": true, "device": {...}}`` last.
 """
 
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -48,6 +62,10 @@ ALL_SHAPES = list(dict.fromkeys(SHAPES + EXPAND_SHAPES + FOLD_SHAPES))
 BATCH = 32
 NAMED = (3136, 128, 1152)  # main-path shape of the kernels line
 NAMED_FOLD = (12544, 64, 576)  # fold needs k4 <= 256
+COO_SHAPES = [(12544, 64, 576), (196, 512, 4608), (3136, 128, 1152)]
+COO_SPARSITIES = (0.5, 0.9, 0.995)
+COO_RAGGED = (784, 256, 2304)  # m = 784 is not a multiple of 128
+NAMED_COO_SPARSITY = 0.9  # with NAMED, the COO entry of the kernels line
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 REPLACES = {
     "prune_nm": "sparsifyme_tpu/ops/kernels/prune_kernel.py:81 "
@@ -64,6 +82,8 @@ REPLACES = {
                 "ell_spmm_pallas",
     "spmm_ell_expand": "sparsifyme_tpu/ops/kernels/ell_kernel.py:448 "
                        "ell_expand_spmm_pallas",
+    "spmm_coo": "sparsifyme_tpu/ops/kernels/coo_kernel.py:169 "
+                "spmm_coo_pallas",
 }
 SOURCES = {
     "prune_nm": "sparsifyme_tpu_torch/csrc/prune_nm.cu",
@@ -73,11 +93,14 @@ SOURCES = {
     "spmm_24_fold": "sparsifyme_tpu_torch/csrc/spmm24.cu",
     "spmm_ell": "sparsifyme_tpu_torch/csrc/ell_spmm.cu",
     "spmm_ell_expand": "sparsifyme_tpu_torch/csrc/ell_expand.cu",
+    "spmm_coo": "sparsifyme_tpu_torch/csrc/coo_spmm.cu",
 }
 SWEEP_ROUTES = ("prune_nm", "compress_24", "prune_compress_24", "spmm_24",
                 "spmm_ell", "spmm_ell_expand")
 PLAN_ROUTES = ("prune_nm", "compress_24", "prune_compress_24", "spmm_24",
                "spmm_24_fold")
+COO_ROUTES = ("spmm_coo",)
+PATHS = ("bench", "plan", "coo")
 
 
 def card_line() -> str:
@@ -230,10 +253,61 @@ def phase_kernels() -> None:
                 del s
             del a, b
             torch.cuda.empty_cache()
+    phase_kernels_coo(gen)
     counts = launch_counts()
     for name in REPLACES:
         if counts[name] <= counts0[name]:
             raise AssertionError(f"{name}: launch counter did not move")
+
+
+def coo_operand(m, k, sparsity, gen):
+    """A ``[m, k]`` f32 matrix on the card, threshold-pruned to
+    ``sparsity``, as a Coo (entries in row-major order)."""
+    from sparsifyme_tpu_torch import coo_from_dense, prune_threshold
+
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    thr = float(torch.quantile(a.abs().flatten(), sparsity))
+    return coo_from_dense(prune_threshold(a, thr)[0])
+
+
+def phase_kernels_coo(gen) -> None:
+    """K6 against its plain version at ResNet-101 widths; the packer on
+    the card against the packer on the CPU."""
+    from sparsifyme_tpu_torch.containers import Coo
+    from sparsifyme_tpu_torch.ops.coo import pack_coo, spmm_coo_segmented
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    cases = [(sh, sp) for sh in COO_SHAPES for sp in COO_SPARSITIES]
+    cases.append((COO_RAGGED, 0.9))
+    for (m, n, k), sp in cases:
+        coo = coo_operand(m, k, sp, gen)
+        packed = pack_coo(coo)
+        cpu = Coo(coo.rows.cpu(), coo.cols.cpu(), coo.values.cpu(),
+                  coo.shape)
+        exact("pack_coo", tuple(p.cpu() for p in packed), pack_coo(cpu),
+              f"{m}x{k} sp={sp} E={packed[0].shape[1]} (card vs CPU)")
+        for dtype in (torch.bfloat16, torch.float32):
+            b = torch.randn((BATCH, k, n), generator=gen,
+                            device="cuda").to(dtype)
+            close("spmm_coo",
+                  coo_kernel.spmm_coo_cuda(*packed, b, m=m),
+                  coo_kernel.spmm_coo_plain(*packed, b, m=m), torch.float32,
+                  f"{m}x{n}x{k}x{BATCH} sp={sp} B {str(dtype)[6:]}")
+            del b
+        del coo, packed, cpu
+        torch.cuda.empty_cache()
+    i32 = dict(dtype=torch.int32, device="cuda")
+    dup = Coo(rows=torch.tensor([0, 0, 5, 5], **i32),
+              cols=torch.tensor([1, 1, 2, 2], **i32),
+              values=torch.tensor([1.0, 2.0, 3.0, 4.0], device="cuda"),
+              shape=(8, 8))
+    for dtype in (torch.bfloat16, torch.float32):
+        b = torch.eye(8, device="cuda").to(dtype)[None].repeat(BATCH, 1, 1)
+        want = torch.zeros((BATCH, 8, 8))
+        want[:, 0, 1], want[:, 5, 2] = 3.0, 7.0
+        exact("spmm_coo", (spmm_coo_segmented(dup, b,
+                                              out_dtype=torch.float32).cpu(),),
+              (want,), f"duplicate entries, B {str(dtype)[6:]}")
 
 
 def phase_pipeline() -> None:
@@ -262,10 +336,28 @@ def phase_pipeline() -> None:
         if o_gpu.shape != (2, 256, 64) or not err <= 2e-2:
             raise AssertionError(f"{what}: card disagrees with CPU")
 
+    # The COO path: threshold prune -> COO -> the oracle, K6 and the ELL
+    # conversion (whose repeated padding column only spmm_ell sums right).
+    w = torch.randn((256, 160), generator=gen)
+    bb = torch.randn((2, 160, 64), generator=gen)
+    coo_outs = {}
+    for dev in ("cpu", "cuda"):
+        coo = sp.coo_from_dense(sp.prune_threshold(w.to(dev), 1.5)[0])
+        bd = bb.to(dev)
+        coo_outs[dev] = (sp.spmm_coo_segmented(coo, bd), sp.spmm_coo(coo, bd),
+                         sp.spmm_ell(sp.coo_to_ell(coo, 32), bd[0]))
+    for what, o_gpu, o_cpu in zip(
+            ("COO segmented", "COO oracle", "COO -> ELL"), coo_outs["cuda"],
+            coo_outs["cpu"]):
+        err = errors(o_gpu.cpu(), o_cpu)[1]
+        print(f"  {what:17s} card vs CPU rel_err={err:.3e}", flush=True)
+        if o_gpu.shape != o_cpu.shape or not err <= 1e-4:
+            raise AssertionError(f"{what}: card disagrees with CPU")
+
 
 def _wrappers():
-    from sparsifyme_tpu_torch.ops.kernels import (ell_kernel, prune_kernel,
-                                                  spmm24_kernel)
+    from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
+                                                  prune_kernel, spmm24_kernel)
     return {
         "prune_nm": prune_kernel.prune_nm_cuda,
         "compress_24": prune_kernel.compress_24_cuda,
@@ -274,6 +366,7 @@ def _wrappers():
         "spmm_24_fold": spmm24_kernel.spmm24_fold_cuda,
         "spmm_ell": ell_kernel.ell_spmm_cuda,
         "spmm_ell_expand": ell_kernel.ell_expand_spmm_cuda,
+        "spmm_coo": coo_kernel.spmm_coo_cuda,
     }
 
 
@@ -377,17 +470,88 @@ def phase_plan_path():
     return counts
 
 
+def phase_coo_path():
+    """BASELINE config 2 at full ResNet-101 width through its entry point;
+    every point's K6 time must be finite and positive."""
+    from sparsifyme_tpu_torch.bench.configs import config2_coo_resnet101
+
+    reset_counts()
+    t0 = time.perf_counter()
+    result = config2_coo_resnet101()
+    counts = launch_counts()
+    seconds = time.perf_counter() - t0
+    rows = result.pop("rows")
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    print(json.dumps(result), flush=True)
+    print(f"coo path: {len(rows)} points (shape stride "
+          f"{result['shape_subset_stride']}) in {seconds:.1f} s; launches "
+          f"{counts}", flush=True)
+    if len(rows) != 102 or result["points"] != 102:
+        raise AssertionError(f"expected 102 points, got {len(rows)}")
+    bad = [r for r in rows if not (math.isfinite(r["coo_seg_ms"])
+                                   and r["coo_seg_ms"] > 0)]
+    if bad:
+        raise AssertionError(f"coo_seg_ms not finite and positive: {bad}")
+    check_launched(counts, COO_ROUTES, "coo")
+    return counts
+
+
+def phase_drivers() -> None:
+    """Each driver once on the card at a ResNet-50 shape, held to its
+    stdout contract; configs 1 and 3 in their quick form."""
+    from sparsifyme_tpu_torch.bench import configs, drivers
+
+    m, n, k = NAMED
+    # batched_coo runs the unchunked oracle, whose [b, nnz, n] f32 gather
+    # would take 30 GB at b=32: it runs at b=4.
+    calls = [("sparsify", (m, k)), ("gemm", (m, n, k, BATCH)),
+             ("spmm", (m, n, k, BATCH)), ("spmma", (m, n, k, BATCH)),
+             ("batched_coo", (m, n, k, 4))]
+    for kernel, args in calls:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            drivers.run(kernel, *args)
+        lines = buf.getvalue().strip().splitlines()
+        if kernel == "spmma":
+            labels = [ln.split(":")[0] for ln in lines]
+            vals = [float(ln.split(":")[1]) for ln in lines]
+            ok = labels == ["Prune time", "Compress time", "Matmul time"]
+        else:
+            vals = [float(ln) for ln in lines]
+            ok = len(lines) == 1
+        if not ok or not all(math.isfinite(v) and v > 0 for v in vals):
+            raise AssertionError(f"driver {kernel}: stdout {lines}")
+        print(f"  driver {kernel} {' '.join(map(str, args))}: "
+              + " | ".join(lines), flush=True)
+    for cfg, key in ((1, "spmm24_speedup_geomean"), (3, "mul_ms_geomean")):
+        out = configs.RUNNERS[cfg](quick=True)
+        v = out[key]
+        if out["backend"] != "cuda" or not (math.isfinite(v) and v > 0):
+            raise AssertionError(f"config {cfg} quick: {out}")
+        print(f"  config {cfg} quick: {out['layers']} layers, {key}={v:.4f}",
+              flush=True)
+
+
 def _bound(flops, tflops, byts):
     from sparsifyme_tpu_torch.bench import roofline as rl
     ms = max(flops / (tflops * 1e12), byts / (rl.H100.hbm_gbps * 1e9)) * 1e3
     return ms, rl.bound_by(flops, tflops, byts)
 
 
-def phase_kernel_line(sweep_counts, plan_counts, expand_per_shape) -> dict:
+def _coo_bound(nnz, slots, m, k, n):
+    """K6: this run's nonzeros, f32 on the CUDA cores, bf16 B."""
     from sparsifyme_tpu_torch.bench import roofline as rl
+    flops, byts = rl.coo_spmm_work(nnz, slots, m, k, n, BATCH)
+    return _bound(flops, rl.H100.f32_tflops, byts)
+
+
+def phase_kernel_line(path_counts, expand_per_shape) -> dict:
+    from sparsifyme_tpu_torch.bench import roofline as rl
+    from sparsifyme_tpu_torch.ops.coo import pack_coo
     from sparsifyme_tpu_torch.ops.ell import ell_to_dense, ell_values_kmajor
-    from sparsifyme_tpu_torch.ops.kernels import (ell_kernel, prune_kernel,
-                                                  spmm24_kernel)
+    from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
+                                                  prune_kernel, spmm24_kernel)
     from sparsifyme_tpu_torch.ops.sparse24 import (decompress_24,
                                                    prune_compress_24)
     from sparsifyme_tpu_torch.utils.timing import time_kernel
@@ -477,6 +641,25 @@ def phase_kernel_line(sweep_counts, plan_counts, expand_per_shape) -> dict:
                2.0 * live * 128 * bkb + 4 * cols.numel() + 2 * kp * n
                + 2 * vkm.shape[1] * n)))
 
+    # K6 at the named shape and 90% sparsity, B bf16 as in config 2. Its
+    # library yardstick is cuSPARSE through torch.sparse.mm, in f32: the
+    # sparse CUDA product refuses bf16 ("addmm_sparse_cuda" not implemented
+    # for 'BFloat16'), so values and the folded [k, b*n] B are f32 there.
+    m, n, k = NAMED
+    coo = coo_operand(m, k, NAMED_COO_SPARSITY, gen)
+    packed = pack_coo(coo)
+    bb = torch.randn((BATCH, k, n), generator=gen, device="cuda").to(dt)
+    a_sp = torch.sparse_coo_tensor(
+        torch.stack([coo.rows.long(), coo.cols.long()]), coo.values,
+        (m, k)).coalesce()
+    b_fold = bb.float().permute(1, 0, 2).reshape(k, BATCH * n).contiguous()
+    specs.append((
+        "spmm_coo", f"{m}x{n}x{k}x{BATCH} sp={NAMED_COO_SPARSITY} B bf16",
+        lambda *x, m=m: coo_kernel.spmm_coo_cuda(*x, m=m),
+        lambda *x, m=m: coo_kernel.spmm_coo_plain(*x, m=m),
+        (*packed, bb), (torch.sparse.mm, (a_sp, b_fold)),
+        _coo_bound(coo.nnz, packed[0].numel(), m, k, n)))
+
     out = []
     for name, shape, kern, plain, ops, lib, (bound, by) in specs:
         got, want = kern(*ops), plain(*ops)
@@ -484,28 +667,31 @@ def phase_kernel_line(sweep_counts, plan_counts, expand_per_shape) -> dict:
             exact(name, got, want, f"{shape} (kernels line)")
             abs_err = rel_err = 0.0
         else:
-            abs_err, rel_err = close(name, got, want, dt,
-                                     f"{shape} (kernels line)")
+            abs_err, rel_err = close(
+                name, got, want, torch.float32 if name == "spmm_coo" else dt,
+                f"{shape} (kernels line)")
         del got, want
         ms = time_kernel(kern, ops, iters=20, reps=5).ms
         plain_ms = time_kernel(plain, ops, iters=3, reps=3).ms
         lib_ms = (time_kernel(lib[0], lib[1], iters=20, reps=5).ms
                   if lib else None)
+        by_path = {p: path_counts[p][name] for p in PATHS}
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": shape,
-            "launches": sweep_counts[name] + plan_counts[name],
-            "launches_by_path": {"bench": sweep_counts[name],
-                                 "plan": plan_counts[name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": abs_err, "max_err": rel_err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
         })
     # K4 on K5's operand: the two ELL formulations side by side
-    out[-1]["gather_ms"] = time_kernel(
+    gather_ms = time_kernel(
         lambda *x: ell_kernel.ell_spmm_cuda(*x, **kwx),
         (e.values.reshape(-1, e.values.shape[-1]), cols, bp), iters=20,
         reps=5).ms
+    next(o for o in out if o["name"] == "spmm_ell_expand")["gather_ms"] = \
+        gather_ms
     return {"kernels": out}
 
 
@@ -528,10 +714,14 @@ def main() -> int:
     print("kernels against their plain versions:", flush=True)
     phase_kernels()
     phase_pipeline()
-    sweep_counts, expand_per_shape = phase_main_path()
-    plan_counts = phase_plan_path()
-    print(json.dumps(phase_kernel_line(sweep_counts, plan_counts,
-                                       expand_per_shape)), flush=True)
+    counts = {}
+    counts["bench"], expand_per_shape = phase_main_path()
+    counts["plan"] = phase_plan_path()
+    counts["coo"] = phase_coo_path()
+    print("drivers and quick configs:", flush=True)
+    phase_drivers()
+    print(json.dumps(phase_kernel_line(counts, expand_per_shape)),
+          flush=True)
     print(line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

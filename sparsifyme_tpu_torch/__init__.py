@@ -9,16 +9,20 @@ a CUDA tensor whose kernel cannot be built or launched raises.
 This package imports torch, numpy and the standard library only.
 """
 
-from .containers import BlockedEll, Sparse24
+from .containers import BlockedEll, Coo, Sparse24
+from .ops.coo import (coo_from_dense, coo_to_dense, coo_to_ell, pack_coo,
+                      spmm_coo, spmm_coo_segmented)
 from .ops.ell import (ell_from_dense, ell_pack, ell_to_dense,
                       ell_values_kmajor, spmm_ell, spmm_ell_expand)
 from .ops.gemm import batched_gemm, gemm_bf16, gemm_f32, gemm_f64
 from .ops.prune import (
     prune_24,
+    prune_block_magnitude,
     prune_block_topk,
     prune_check_24,
     prune_check_nm,
     prune_nm,
+    prune_threshold,
 )
 from .ops.sparse24 import (
     compress_24,
@@ -35,12 +39,16 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BlockedEll",
+    "Coo",
     "LayerShape",
     "Sparse24",
     "SpmmaConfig",
     "SpmmaPlan",
     "batched_gemm",
     "compress_24",
+    "coo_from_dense",
+    "coo_to_dense",
+    "coo_to_ell",
     "decompress_24",
     "ell_from_dense",
     "ell_pack",
@@ -51,15 +59,20 @@ __all__ = [
     "gemm_f64",
     "get_plan",
     "pack_codes_fp",
+    "pack_coo",
     "prune_24",
+    "prune_block_magnitude",
     "prune_block_topk",
     "prune_check_24",
     "prune_check_nm",
     "prune_compress_24",
     "prune_nm",
+    "prune_threshold",
     "read_shapes",
     "spmm_24",
     "spmm_24_reference",
+    "spmm_coo",
+    "spmm_coo_segmented",
     "spmm_ell",
     "spmm_ell_expand",
     "spmma",

@@ -1,0 +1,288 @@
+"""The BASELINE.json benchmark configurations, runnable by number.
+
+Counterpart of ``sparsifyme_tpu.bench.configs``; each runner returns (and
+``main`` prints) a dict with the keys of the JAX runner:
+
+0. ResNet-18 shapes: magnitude-threshold prune + dense GEMM reference,
+   fp32, on the CPU (BASELINE mandates the CPU).
+1. 2:4 structured prune + SpMM on ResNet-50 shapes, bf16 (the harness
+   sweep).
+2. Batched COO SpMM across the ResNet-101 layers, one shared sparse A,
+   50-99.5% sparsity: the gather/segment-sum oracle and kernel K6 against
+   the dense GEMM, with the dense->COO conversion cost and the crossover
+   sparsity per shape.
+3. The fused prune->compress->matmul plan on ResNet-152 shapes.
+4. Row-partitioned 2:4 SpMM with a ring exchange across devices: needs the
+   ring kernels, not ported yet.
+
+Runners take ``device``: ``None`` is the GPU (config 0: the CPU). With
+``--cpu`` the plain versions run on the CPU; their times mean nothing.
+
+Usage: python -m sparsifyme_tpu_torch.bench.configs <0..4> [--quick] [--cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..models.resnet_shapes import resnet_conv_shapes
+from ..utils.timing import time_kernel
+from .harness import geomean as _geomean
+from .harness import run_model_sweep
+
+
+def config0_threshold_gemm_cpu(quick: bool = False, device="cpu") -> Dict:
+    """ResNet-18: magnitude-threshold prune + dense GEMM, fp32."""
+    from ..ops.gemm import gemm_f32
+    from ..ops.prune import prune_threshold
+
+    dev = _build.resolve_device(device)
+    shapes = resnet_conv_shapes("resnet18")
+    if quick:
+        shapes = shapes[:4]
+    rows = []
+    for s in sorted(set(shapes)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        a = torch.randn((s.b, s.m, s.k), generator=gen, device=dev)
+        bm = torch.randn((s.k, s.n), generator=gen, device=dev)
+        ap, mask = prune_threshold(a, 0.6745)  # |N(0,1)| median: ~50%
+        sparsity = 1.0 - float(mask.mean())
+        tp = time_kernel(lambda x: prune_threshold(x, 0.6745), (a,),
+                         iters=4, reps=3)
+        t = time_kernel(gemm_f32, (ap, bm), iters=4, reps=3)
+        rows.append((s, sparsity, t.ms, tp.ms))
+    return {
+        "config": 0,
+        "backend": dev.type,
+        "layers": len(rows),
+        "sparsity_mean": float(np.mean([r[1] for r in rows])),
+        "gemm_ms_geomean": _geomean([r[2] for r in rows]),
+        "prune_ms_geomean": _geomean([r[3] for r in rows]),
+        "rows": [
+            {"m": s.m, "n": s.n, "k": s.k, "b": s.b, "sparsity": sp,
+             "gemm_ms": g, "prune_ms": p}
+            for s, sp, g, p in rows
+        ],
+    }
+
+
+def config1_spmm24_resnet50(quick: bool = False, device=None) -> Dict:
+    """The harness sweep (gemm, prune, 2:4) over ResNet-50."""
+    dev = _build.resolve_device(device)
+    _, summary = run_model_sweep(
+        "resnet50", kernels=("gemm", "prune", "spmm24"),
+        max_layers=8 if quick else None, device=dev, verbose=False)
+    return {"config": 1, "backend": dev.type, **summary}
+
+
+def _coo_crossovers(rows) -> Dict:
+    """Per-shape crossover sparsity: where batched COO (kernel only, and
+    with the conversion) first beats dense, interpolated linearly in
+    log-speedup between adjacent sweep points. When no crossing is
+    bracketed, the last two points fit log(speedup) against log(1 - sp)
+    and are solved for a speedup of 1 (capped at 0.9999, marked
+    ``"..._extrapolated"``)."""
+    out = {}
+    by_shape = {}
+    for r in rows:
+        by_shape.setdefault((r["m"], r["n"], r["k"], r["b"]), []).append(r)
+    for key, rs in by_shape.items():
+        rs.sort(key=lambda r: r["sparsity"])
+        entry = {}
+        for col in ("speedup_vs_dense", "speedup_vs_dense_incl_conv"):
+            cross = None
+            extrapolated = False
+            for lo, hi in zip(rs, rs[1:]):
+                a, b = lo.get(col), hi.get(col)
+                if a is None or b is None or a != a or b != b:
+                    continue
+                if a <= 1.0 < b:
+                    la, lb = math.log(max(a, 1e-12)), math.log(b)
+                    frac = (0.0 - la) / (lb - la)
+                    cross = (lo["sparsity"]
+                             + frac * (hi["sparsity"] - lo["sparsity"]))
+                    break
+            if cross is None and rs and (rs[0].get(col) or 0) > 1.0:
+                cross = rs[0]["sparsity"]  # already winning at the start
+            if cross is None and len(rs) >= 2:
+                lo, hi = rs[-2], rs[-1]
+                a, b = lo.get(col), hi.get(col)
+                if (a and b and a == a and b == b and 0 < a < b < 1.0
+                        and hi["sparsity"] < 1.0):
+                    xa = math.log(1.0 - lo["sparsity"])
+                    xb = math.log(1.0 - hi["sparsity"])
+                    ya, yb = math.log(a), math.log(b)
+                    if yb != ya:
+                        x1 = xb + (0.0 - yb) * (xb - xa) / (yb - ya)
+                        cross = min(1.0 - math.exp(x1), 0.9999)
+                        extrapolated = True
+            entry[col] = round(cross, 4) if cross is not None else None
+            if extrapolated:
+                entry[col + "_extrapolated"] = True
+        out["x".join(str(v) for v in key)] = entry
+    return out
+
+
+def config2_coo_resnet101(quick: bool = False, subset_stride: int = 1,
+                          device=None) -> Dict:
+    """Batched COO SpMM over the ResNet-101 layers, 50-99.5% sparsity.
+
+    One sparse A shared by the batch (the reference's stride-0 strided
+    batch). Per point: the dense GEMM (``dense_ms``: the repeated bf16 A
+    times ``B[0]``, as the JAX config defines it), the gather/segment-sum
+    oracle (``coo_xla_ms``, ``spmm_coo`` in batch chunks of 4), kernel K6
+    on pre-packed planes (``coo_seg_ms``), the host-side dense->COO build
+    (``conversion_ms``, median of three), nonzeros per second and both
+    speedups; per shape the crossover sparsity. The port has one segmented
+    formulation, so ``coo_seg_slices_ms`` is NaN.
+    """
+    from ..ops.coo import coo_from_dense, pack_coo, spmm_coo, \
+        spmm_coo_segmented
+    from ..ops.gemm import batched_gemm
+    from ..ops.prune import prune_threshold
+
+    dev = _build.resolve_device(device)
+    shapes = sorted(set(resnet_conv_shapes("resnet101")))
+    if quick:
+        shapes = shapes[:3]
+    elif subset_stride > 1:
+        shapes = shapes[::subset_stride]
+    sweeps = (0.5, 0.7, 0.9, 0.95, 0.99, 0.995)
+    rows = []
+    for s in shapes:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        a = torch.randn((s.m, s.k), generator=gen, device=dev)
+        bm = torch.randn((s.b, s.k, s.n), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        ad = a.to(torch.bfloat16)[None].repeat(s.b, 1, 1)
+        t_dense = time_kernel(
+            lambda x, y: batched_gemm(x, y, out_dtype=torch.bfloat16),
+            (ad, bm[0]), iters=4, reps=3)
+        del ad
+        a_abs = np.abs(a.cpu().numpy())
+        for sp in sweeps:
+            thr = float(np.quantile(a_abs, sp))
+            ap, _ = prune_threshold(a, thr)
+            apn = ap.cpu().numpy()
+            # Quantile ties can leave more nonzeros than the nominal
+            # count: pad to whichever is larger.
+            nnz = max(int(s.m * s.k * (1 - sp)), int(np.count_nonzero(apn)))
+            conv_samples = []
+            for _ in range(3):  # host-side build, one shared A
+                t0 = time.perf_counter()
+                coo = coo_from_dense(apn, nnz=nnz, device=dev)
+                conv_samples.append(time.perf_counter() - t0)
+            conv_ms = sorted(conv_samples)[1] * 1e3
+            t = time_kernel(lambda c, y: spmm_coo(c, y, batch_chunk=4),
+                            (coo, bm), iters=4, reps=3)
+            packed = pack_coo(coo)
+            t_seg = time_kernel(
+                lambda v, c, r, y: spmm_coo_segmented(
+                    coo, y, packed=(v, c, r), gather="matmul"),
+                (*packed, bm), iters=4, reps=3)
+            sl_ms = float("nan")
+            best = min(x for x in (t.ms, t_seg.ms, sl_ms) if x == x)
+            rows.append({
+                "m": s.m, "n": s.n, "k": s.k, "b": s.b, "sparsity": sp,
+                "dense_ms": t_dense.ms, "coo_xla_ms": t.ms,
+                "coo_seg_ms": t_seg.ms, "coo_seg_slices_ms": sl_ms,
+                # nonzeros of the shared A touched across the batch
+                "nnz_per_s": nnz * s.b / (best * 1e-3),
+                "conversion_ms": conv_ms,
+                "speedup_vs_dense": t_dense.ms / best,
+                # one conversion charged to one batched call
+                "speedup_vs_dense_incl_conv": t_dense.ms / (best + conv_ms),
+            })
+            del coo, packed
+    wins = [r for r in rows if r["speedup_vs_dense"] > 1.0]
+    return {
+        "config": 2,
+        "backend": dev.type,
+        "points": len(rows),
+        "shape_subset_stride": subset_stride,
+        "crossover_by_shape": _coo_crossovers(rows),
+        "coo_xla_ms_geomean": _geomean([r["coo_xla_ms"] for r in rows]),
+        "coo_seg_ms_geomean": _geomean([r["coo_seg_ms"] for r in rows]),
+        "dense_ms_geomean": _geomean([r["dense_ms"] for r in rows]),
+        "speedup_vs_dense_geomean": _geomean(
+            [r["speedup_vs_dense"] for r in rows]),
+        "nnz_per_s_geomean": _geomean([r["nnz_per_s"] for r in rows]),
+        "points_beating_dense": len(wins),
+        "rows": rows,
+    }
+
+
+def config3_fused_pipeline_resnet152(quick: bool = False,
+                                     device=None) -> Dict:
+    """The plan's prune, compress and matmul phases on ResNet-152 shapes
+    (metadata reuse across the batch)."""
+    from ..plan import SpmmaConfig, get_plan
+
+    dev = _build.resolve_device(device)
+    shapes = sorted(set(resnet_conv_shapes("resnet152")))
+    if quick:
+        shapes = shapes[:3]
+    rows = []
+    for s in shapes:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        a = torch.randn((s.b, s.m, s.k), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        bm = torch.randn((s.k, s.n), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        plan = get_plan(SpmmaConfig(m=s.m, n=s.n, k=s.k, batch=s.b,
+                                    out_dtype="bfloat16"))
+        _, times = plan.timed(a, bm, iters=4, reps=3)
+        rows.append(times)
+    return {
+        "config": 3,
+        "backend": dev.type,
+        "layers": len(rows),
+        "prune_ms_geomean": _geomean([t["prune"].ms for t in rows]),
+        "compress_ms_geomean": _geomean([t["compress"].ms for t in rows]),
+        "mul_ms_geomean": _geomean([t["mul"].ms for t in rows]),
+    }
+
+
+def config4_row_partitioned_scaling(quick: bool = False,
+                                    device=None) -> Dict:
+    """Row-partitioned 2:4 SpMM with a ring exchange of B shards."""
+    raise NotImplementedError(
+        "config 4 needs the ring kernels (spmm_24_ring_pallas, "
+        "spmm_24_ring_tiled_pallas) and parallel/ on two or more GPUs; "
+        "they are first in ROADMAP.md's 'Next, in order' queue")
+
+
+RUNNERS = {
+    0: config0_threshold_gemm_cpu,
+    1: config1_spmm24_resnet50,
+    2: config2_coo_resnet101,
+    3: config3_fused_pipeline_resnet152,
+    4: config4_row_partitioned_scaling,
+}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("config", type=int, choices=sorted(RUNNERS))
+    p.add_argument("--quick", action="store_true")
+    p.add_argument("--cpu", action="store_true",
+                   help="run the plain versions on the CPU (times mean "
+                        "nothing on a device)")
+    args = p.parse_args(argv)
+    kw = {"device": "cpu"} if args.cpu else {}
+    result = RUNNERS[args.config](quick=args.quick, **kw)
+    print(json.dumps(result, default=float), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

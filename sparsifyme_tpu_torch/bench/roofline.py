@@ -5,7 +5,8 @@ in place of the TPU's. Each bound is the least time the card could take
 for the same work: the larger of the operations over the peak rate for
 their type and the bytes that must move (each input read once, each
 output written once) over the device-memory bandwidth. Times are for the
-bf16 sweep (2 bytes per dense element).
+bf16 sweep (2 bytes per dense element), except :func:`coo_spmm_work`'s,
+whose products run in f32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ class Machine:
     dense_tflops: float     # dense bf16 tensor-core rate
     sparse24_tflops: float  # 2:4 structured-sparse bf16 tensor-core rate
     hbm_gbps: float         # device-memory bandwidth
+    f32_tflops: float       # f32 rate of the CUDA cores (no tensor cores)
 
 
 H100 = Machine(
@@ -29,6 +31,8 @@ H100 = Machine(
     sparse24_tflops=1979.0,
     # same data sheet: 80 GB HBM3 at 3.35 TB/s
     hbm_gbps=3350.0,
+    # same data sheet: 67 TFLOP/s FP32 (CUDA cores, without tensor cores)
+    f32_tflops=67.0,
 )
 
 
@@ -81,6 +85,18 @@ def fused_sol_ms(m: int, k: int, b: int, mc: Machine = H100) -> float:
     has no engine term that binds, so the bound equals the compress
     bound."""
     return compress_sol_ms(m, k, b, mc)
+
+
+def coo_spmm_work(nnz: int, slots: int, m: int, k: int, n: int, batch: int,
+                  b_itemsize: int = 2):
+    """``(operations, bytes)`` of segmented COO SpMM (K6) over ``batch`` B
+    of ``[k, n]``: ``2 * nnz * batch * n`` f32 operations, for the CUDA
+    cores' rate (``f32_tflops``); B read once, C written once in f32 and 12
+    bytes (value, column, row offset) per packed slot."""
+    flops = 2.0 * nnz * batch * n
+    byts = (float(b_itemsize) * batch * k * n + 4.0 * batch * m * n
+            + 12.0 * slots)
+    return flops, byts
 
 
 def bound_by(flops: float, tflops: float, byts: float,

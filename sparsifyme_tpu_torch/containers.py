@@ -12,6 +12,9 @@ packages (see :mod:`.convert`):
 * :class:`BlockedEll` — ``ell_blocks`` kept dense blocks per block-row:
   values ``[..., m, ell_blocks * block_k]`` and int32 ``col_indices``
   ``[..., m_blocks, ell_blocks]``, sorted ascending per block-row.
+* :class:`Coo` — one COO matrix with int32 ``rows``/``cols`` and
+  ``values`` of shape ``(nnz,)``; batching broadcasts it (the stride-0
+  strided batch of the reference).
 """
 
 from __future__ import annotations
@@ -114,3 +117,39 @@ class BlockedEll:
             self.values.numel() * self.values.element_size()
             + self.col_indices.numel() * self.col_indices.element_size()
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Coo:
+    """COO sparse matrix (single instance; batching broadcasts it).
+
+    Fields:
+      rows, cols: ``(nnz,)`` int32 coordinates.
+      values:     ``(nnz,)``.
+      shape:      logical dense shape ``(m, k)``.
+
+    One sparse A shared by every batch (the reference's
+    ``cusparseCooSetStridedBatch(matA, num_batches, 0)``) is a single Coo
+    with only the dense operands batched. Entries may repeat a coordinate;
+    repeated entries sum.
+    """
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    values: torch.Tensor
+    shape: Tuple[int, ...] = ()
+
+    @property
+    def nnz(self) -> int:
+        return self.values.shape[-1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    def todense(self) -> torch.Tensor:
+        """Dense ``(m, k)``; duplicate coordinates add."""
+        out = torch.zeros(tuple(self.shape), dtype=self.values.dtype,
+                          device=self.values.device)
+        return out.index_put_((self.rows.long(), self.cols.long()),
+                              self.values, accumulate=True)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ._build import resolve_device
-from .containers import BlockedEll, Sparse24
+from .containers import BlockedEll, Coo, Sparse24
 
 
 def tensor_from_numpy(arr, device=None) -> torch.Tensor:
@@ -69,3 +69,19 @@ def blocked_ell_to_numpy(e: BlockedEll) -> Tuple[np.ndarray, np.ndarray,
     """``(values, col_indices, shape, block_size, block_k)``."""
     return (tensor_to_numpy(e.values), tensor_to_numpy(e.col_indices),
             tuple(e.shape), e.block_size, e.block_k)
+
+
+def coo_from_numpy(rows, cols, values, shape, device=None) -> Coo:
+    return Coo(
+        rows=tensor_from_numpy(np.asarray(rows, np.int32), device),
+        cols=tensor_from_numpy(np.asarray(cols, np.int32), device),
+        values=tensor_from_numpy(values, device),
+        shape=tuple(int(d) for d in shape),
+    )
+
+
+def coo_to_numpy(a: Coo) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   Tuple[int, ...]]:
+    """``(rows, cols, values, shape)``."""
+    return (tensor_to_numpy(a.rows), tensor_to_numpy(a.cols),
+            tensor_to_numpy(a.values), tuple(a.shape))

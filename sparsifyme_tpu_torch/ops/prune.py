@@ -1,5 +1,6 @@
-"""Pruning ops: N:M magnitude prune, its structural check, and the
-block top-k prune behind Blocked-ELL.
+"""Pruning ops: N:M magnitude prune, its structural check, the block
+top-k prune behind Blocked-ELL, the per-block magnitude prune and the
+unstructured threshold prune that feeds the COO path.
 
 Counterpart of ``sparsifyme_tpu.ops.prune``. :func:`prune_nm` runs kernel
 K1 on CUDA tensors and its plain version on CPU tensors. The other ops are
@@ -73,3 +74,45 @@ def prune_block_topk(w: torch.Tensor, block_size: int, ell_blocks: int,
     mask = keep[..., :, None, :, None].to(w.dtype)
     pruned = (blocks * mask).reshape(*lead, mm, kk)
     return pruned, cols.to(torch.int32)
+
+
+def prune_block_magnitude(w: torch.Tensor, block: Tuple[int, int] = (2, 2),
+                          sparsity: float = 0.5
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Magnitude prune per ``(bm, bn)`` block; returns ``(pruned, mask)``.
+
+    Zeroes the ``floor(bm * bn * sparsity)`` smallest-magnitude elements of
+    every block (the reference's ``sparsify.hxx:41`` drop count). Equal
+    magnitudes rank by position within the block (row-major), later
+    positions winning, as the JAX op's ranking computes (its docstring
+    says the opposite; the code is the reference). Leading dims batch;
+    the last two must divide by the block shape.
+    """
+    bm, bn = block
+    *lead, m, n = w.shape
+    if m % bm or n % bn:
+        raise ValueError(f"matrix {m}x{n} not divisible by block {block}")
+    bs = bm * bn
+    drop = int(bs * sparsity)
+    if drop <= 0:
+        return w, torch.ones_like(w)
+    mb, nb = m // bm, n // bn
+    flat = w.reshape(*lead, mb, bm, nb, bn).transpose(-3, -2).reshape(
+        *lead, mb, nb, bs)
+    # A stable ascending sort ranks equal magnitudes by position, so the
+    # later of two ties ranks higher; the top bs - drop ranks survive.
+    order = torch.sort(flat.abs().to(torch.float32), dim=-1,
+                       stable=True).indices
+    ranks = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(bs, device=w.device).expand_as(order))
+    keep = (ranks >= drop).reshape(*lead, mb, nb, bm, bn).transpose(-3, -2)
+    mask = keep.reshape(*lead, m, n).to(w.dtype)
+    return w * mask, mask
+
+
+def prune_threshold(w: torch.Tensor,
+                    threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unstructured magnitude-threshold prune: zero ``|w| < threshold``;
+    returns ``(pruned, mask)``."""
+    mask = (w.abs() >= threshold).to(w.dtype)
+    return w * mask, mask

@@ -1,0 +1,166 @@
+"""The port's bench surface on the CPU: the drivers' stdout contracts (as
+``tests/test_drivers.py`` holds the JAX drivers to them), the BASELINE
+configs' result keys against the JAX runners' at one tiny shape, the COO
+crossover locator against JAX's, and the K6 bound.
+
+The JAX runners' timers are stubbed out: only their keys are compared,
+and timing a tiny shape in interpret mode would cost seconds each.
+"""
+
+import io
+import json
+import math
+from contextlib import redirect_stdout
+
+import pytest
+
+from sparsifyme_tpu import plan as jplan
+from sparsifyme_tpu.bench import configs as jconfigs
+from sparsifyme_tpu.utils import timing as jtiming
+from sparsifyme_tpu.utils.shapes import LayerShape as JLayerShape
+from sparsifyme_tpu_torch.bench import configs, drivers, roofline
+from sparsifyme_tpu_torch.utils.shapes import LayerShape
+
+TINY = (32, 8, 64, 4)  # m, n, k, b; b divisible by config 2's chunk of 4
+
+
+def _capture(fn, *args, **kw):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        fn(*args, **kw)
+    return buf.getvalue().strip().splitlines()
+
+
+@pytest.mark.parametrize("kernel", ["gemm", "spmm", "batched_coo"])
+def test_single_float_contract(kernel):
+    lines = _capture(drivers.run, kernel, 32, 16, 64, 2, device="cpu")
+    assert len(lines) == 1
+    assert float(lines[0]) >= 0.0
+
+
+def test_sparsify_contract():
+    lines = _capture(drivers.run, "sparsify", 32, 64, device="cpu")
+    assert len(lines) == 1
+    assert float(lines[0]) >= 0.0
+
+
+def test_spmma_three_phase_contract():
+    lines = _capture(drivers.run, "spmma", 32, 16, 64, 2, device="cpu")
+    assert [ln.split(":")[0] for ln in lines] == [
+        "Prune time", "Compress time", "Matmul time"]
+    for ln in lines:
+        assert float(ln.split(":")[1]) >= 0.0
+
+
+def test_main_argv():
+    with pytest.raises(SystemExit):
+        drivers.main(["gemm"])  # wrong arity
+    with pytest.raises(SystemExit):
+        drivers.main(["gemm", "16", "16", "32", "--cpu"])
+    with pytest.raises(SystemExit, match="unknown kernel"):
+        drivers.main(["conv", "16", "16", "--cpu"])
+    lines = _capture(drivers.main, ["gemm", "16", "16", "32", "2", "--cpu"])
+    assert len(lines) == 1 and float(lines[0]) >= 0.0
+
+
+@pytest.fixture
+def tiny(monkeypatch):
+    """Both packages' configs see one tiny shape; the JAX timers return a
+    constant."""
+    monkeypatch.setattr(configs, "resnet_conv_shapes",
+                        lambda name: [LayerShape(*TINY)])
+    monkeypatch.setattr(jconfigs, "resnet_conv_shapes",
+                        lambda name: [JLayerShape(*TINY)])
+
+    def stub(fn, operands, **kw):
+        return jtiming.Timing(ms=1.0, ms_min=1.0, iters=1, reps=1)
+
+    monkeypatch.setattr(jconfigs, "time_kernel", stub)
+    monkeypatch.setattr(jplan, "time_kernel", stub)
+
+
+def _keys(result):
+    rows = result.get("rows") or [{}]
+    return sorted(result), sorted(rows[0])
+
+
+@pytest.mark.parametrize("config", [0, 2, 3])
+def test_configs_keep_the_jax_keys(tiny, config):
+    got = configs.RUNNERS[config](device="cpu")
+    want = jconfigs.RUNNERS[config]()
+    assert _keys(got) == _keys(want)
+    assert got["config"] == config and got["backend"] == "cpu"
+    json.dumps(got, default=float)
+    if config == 2:
+        assert got["points"] == len(got["rows"]) == 6
+        assert sorted(got["crossover_by_shape"]) == sorted(
+            want["crossover_by_shape"]) == ["x".join(map(str, TINY))]
+        for r in got["rows"]:
+            assert r["coo_seg_ms"] > 0 and r["coo_xla_ms"] > 0
+            assert math.isnan(r["coo_seg_slices_ms"])
+            assert r["conversion_ms"] > 0 and r["nnz_per_s"] > 0
+
+
+def test_config2_main_prints_one_json_line(tiny):
+    lines = _capture(configs.main, ["2", "--quick", "--cpu"])
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["config"] == 2 and out["points"] == 6
+
+
+def test_config4_needs_the_rings():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        configs.RUNNERS[4](device="cpu")
+    with pytest.raises(NotImplementedError):
+        configs.main(["4", "--cpu"])
+
+
+def _crossover_rows(ko_ic):
+    return [{"m": 1, "n": 2, "k": 3, "b": 4, "sparsity": sp,
+             "speedup_vs_dense": ko, "speedup_vs_dense_incl_conv": ic}
+            for sp, ko, ic in ko_ic]
+
+
+@pytest.mark.parametrize("points", [
+    [(0.9, 0.5, 0.2), (0.99, 2.0, 0.8), (0.995, 4.0, 1.6)],  # bracketed
+    [(0.9, 0.1, 0.05), (0.99, 0.1, 0.05), (0.995, 0.1, 0.05)],  # never
+    [(0.5, 1.5, 1.2), (0.9, 3.0, 2.0)],  # winning from the first point
+    [(0.5, 0.01, 0.005), (0.9, 0.1, 0.05)],  # extrapolated
+    [(0.5, 0.2, float("nan")), (0.7, 0.6, 0.1), (0.9, 1.4, 0.3)],
+])
+def test_coo_crossovers_match_jax(points):
+    rows = _crossover_rows(points)
+    got = configs._coo_crossovers([dict(r) for r in rows])
+    assert got == jconfigs._coo_crossovers([dict(r) for r in rows])
+    e = got["1x2x3x4"]
+    if points[0][0] == 0.9 and points[1][1] == 2.0:
+        assert 0.9 < e["speedup_vs_dense"] < 0.99
+        assert 0.99 < e["speedup_vs_dense_incl_conv"] <= 0.995
+
+
+def test_geomean_skips_nan_and_nonpositive():
+    assert configs._geomean([1.0, 4.0, float("nan"), 0.0]) == 2.0
+    assert math.isnan(configs._geomean([]))
+
+
+def test_coo_spmm_bound():
+    """The K6 bound at the kernels-line shape (3136x128x1152, b=32, 90%
+    sparsity): the f32 operations bind, about 0.044 ms."""
+    assert roofline.H100.f32_tflops == 67.0
+    nnz, slots, m, k, n, b = 361267, 25 * 14592, 3136, 1152, 128, 32
+    flops, byts = roofline.coo_spmm_work(nnz, slots, m, k, n, b)
+    assert flops == 2.0 * nnz * b * n
+    assert byts == 2.0 * b * k * n + 4.0 * b * m * n + 12.0 * slots
+    assert flops / 67e12 * 1e3 == pytest.approx(0.044, abs=0.001)
+    assert byts / 3350e9 * 1e3 == pytest.approx(0.020, abs=0.001)
+    assert roofline.bound_by(flops, 67.0, byts) == "operations"
+
+
+def test_coo_probe_finds_the_depth_constant():
+    """The K6 depth probe rebuilds the source with another kGroup: the
+    constant it replaces must stay in the source."""
+    from sparsifyme_tpu_torch import _build
+    from sparsifyme_tpu_torch.bench import coo_probe
+
+    assert coo_probe.CONSTANT in (_build.CSRC / "coo_spmm.cu").read_text()
+    assert 16 in coo_probe.DEPTHS

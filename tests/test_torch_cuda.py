@@ -4,7 +4,9 @@ other than 4, n not a multiple of 64, M not a multiple of the tile, every
 ELL tile geometry, mixed input types), through both the bf16 fast paths
 (M and n multiples of 8) and the simple kernels: K1 prune, K2 compress and
 its fused prune+compress route, K3 2:4 SpMM and its fold=2 route, K4 ELL
-gather SpMM and K5 ELL expand SpMM.
+gather SpMM, K5 ELL expand SpMM and K6 segmented COO SpMM (ragged m, N
+not a multiple of its 128-column tile, every value and B type, duplicate
+and out-of-range entries).
 
 These tests need a CUDA card and skip without one. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -220,3 +222,107 @@ def test_ell_expand_matches_gather_without_repeats(gen):
         torch.bfloat16)
     e = ell_from_dense(a, 128, 3, 32)
     assert _rel(spmm_ell_expand(e, b), spmm_ell(e, b)) < TOL[torch.bfloat16]
+
+
+def _coo_operand(gen, m, k, density, vdtype):
+    w = torch.randn((m, k), generator=gen, device="cuda")
+    keep = torch.rand((m, k), generator=gen, device="cuda") < density
+    from sparsifyme_tpu_torch.ops.coo import coo_from_dense
+
+    return coo_from_dense((w * keep).to(vdtype))
+
+
+@pytest.mark.parametrize("m,k,n,batch,bm", [(200, 130, 40, 3, 128),
+                                            (37, 64, 37, 5, 16),
+                                            (300, 1000, 136, 2, 48),
+                                            (128, 96, 128, 4, 128)])
+@pytest.mark.parametrize("vdtype,bdtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("density", [0.5, 0.05])
+def test_coo_spmm_kernel(gen, m, k, n, batch, bm, vdtype, bdtype, density):
+    """K6 against its plain version: f32 sums in another order."""
+    from sparsifyme_tpu_torch.ops.coo import pack_coo
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    a = _coo_operand(gen, m, k, density, vdtype)
+    packed = pack_coo(a, bm)
+    b = torch.randn((batch, k, n), generator=gen, device="cuda").to(bdtype)
+    n0 = coo_kernel.spmm_coo_cuda.launches
+    got = coo_kernel.spmm_coo_cuda(*packed, b, m=m, block_rows=bm)
+    torch.cuda.synchronize()
+    assert coo_kernel.spmm_coo_cuda.launches == n0 + 1
+    want = coo_kernel.spmm_coo_plain(*packed, b, m=m, block_rows=bm)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (batch, m, n)
+    assert _rel(got, want) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.bfloat16])
+def test_coo_spmm_kernel_sums_duplicates_exactly(gen, bdtype):
+    from sparsifyme_tpu_torch.containers import Coo
+    from sparsifyme_tpu_torch.ops.coo import spmm_coo_segmented
+
+    i32 = dict(dtype=torch.int32, device="cuda")
+    a = Coo(rows=torch.tensor([0, 0, 5, 5], **i32),
+            cols=torch.tensor([1, 1, 2, 2], **i32),
+            values=torch.tensor([1.0, 2.0, 3.0, 4.0], device="cuda"),
+            shape=(8, 8))
+    b = torch.eye(8, device="cuda").to(bdtype)
+    got = spmm_coo_segmented(a, b, out_dtype=torch.float32).cpu()
+    assert got[0, 1] == 3.0 and got[5, 2] == 7.0 and got.sum() == 10.0
+
+
+def test_coo_spmm_kernel_drops_out_of_range_entries(gen):
+    """Entries past k or past the block-row add nothing, on both sides;
+    rows past m are not written."""
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    mb, e, bm, m, k = 2, 16, 16, 20, 8
+    vals = torch.randn((mb, e), generator=gen, device="cuda")
+    cols = torch.randint(1, k, (mb, e), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    roff = torch.randint(0, bm, (mb, e), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    cols[0, 3], cols[1, 5], roff[0, 7], roff[1, 2] = k, -1, bm, -2
+    b = torch.randn((3, k, 24), generator=gen, device="cuda")
+    b[:, 0] = float("inf")  # only a dropped entry could reach row 0
+    got = coo_kernel.spmm_coo_cuda(vals, cols, roff, b, m=m, block_rows=bm)
+    want = coo_kernel.spmm_coo_plain(vals, cols, roff, b, m=m, block_rows=bm)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) < TOL[torch.float32]
+
+
+def test_coo_spmm_kernel_rejects_what_it_does_not_take(gen):
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    v = torch.zeros((1, 12), device="cuda")
+    c = torch.zeros((1, 12), dtype=torch.int32, device="cuda")
+    b = torch.zeros((1, 8, 8), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        coo_kernel.spmm_coo_cuda(v, c, c, b, m=8, block_rows=16)
+    with pytest.raises(ValueError, match="block_rows"):
+        coo_kernel.spmm_coo_cuda(v[:, :8], c[:, :8], c[:, :8], b, m=8,
+                                 block_rows=512)
+    with pytest.raises(TypeError):
+        coo_kernel.spmm_coo_cuda(v[:, :8].half(), c[:, :8], c[:, :8], b,
+                                 m=8, block_rows=16)
+
+
+def test_coo_path_on_the_card_matches_the_cpu(gen):
+    """Packing on the card gives the CPU's planes bit for bit; the oracle,
+    K6 and the ELL conversion agree with the same ops on the CPU."""
+    from sparsifyme_tpu_torch.ops.coo import (coo_to_ell, pack_coo, spmm_coo,
+                                              spmm_coo_segmented)
+    from sparsifyme_tpu_torch.ops.ell import spmm_ell
+
+    a = _coo_operand(gen, 256, 160, 0.1, torch.float32)
+    ac = type(a)(a.rows.cpu(), a.cols.cpu(), a.values.cpu(), a.shape)
+    for g, h in zip(pack_coo(a), pack_coo(ac)):
+        assert torch.equal(g.cpu(), h)
+    b = torch.randn((2, 160, 64), generator=gen, device="cuda")
+    for fn in (spmm_coo, spmm_coo_segmented):
+        assert _rel(fn(a, b).cpu(), fn(ac, b.cpu())) < TOL[torch.float32]
+    e, ec = coo_to_ell(a, 32), coo_to_ell(ac, 32)
+    assert torch.equal(e.col_indices.cpu(), ec.col_indices)
+    assert _rel(spmm_ell(e, b[0]).cpu(), spmm_ell(ec, b[0].cpu())) < \
+        TOL[torch.float32]

@@ -17,8 +17,8 @@ from sparsifyme_tpu.ops import ell as je
 from sparsifyme_tpu.ops import prune as jprune
 from sparsifyme_tpu.ops import sparse24 as js
 from sparsifyme_tpu_torch import _build, convert
-from sparsifyme_tpu_torch.ops.kernels import (ell_kernel, prune_kernel,
-                                              spmm24_kernel)
+from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
+                                              prune_kernel, spmm24_kernel)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "sparsifyme_tpu")
@@ -109,6 +109,9 @@ def test_device_none_means_gpu():
         torch.zeros(32, 16), torch.zeros(1, 1, dtype=torch.int32),
         torch.zeros(32, 8), block_size=16, block_k=32,
         out_dtype=torch.float32),
+    lambda: coo_kernel.spmm_coo_cuda(
+        torch.zeros(1, 128), torch.zeros(1, 128, dtype=torch.int32),
+        torch.zeros(1, 128, dtype=torch.int32), torch.zeros(2, 8, 8), m=16),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):

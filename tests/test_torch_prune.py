@@ -110,3 +110,53 @@ def test_prune_block_topk_rejects_bad_shapes():
         tprune.prune_block_topk(torch.zeros(30, 64), 16, 1, 32)
     with pytest.raises(ValueError):
         tprune.prune_block_topk(torch.zeros(32, 64), 16, 3, 32)
+
+
+@pytest.mark.parametrize("threshold", [0.5, 1.0, 1.5])
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_prune_threshold_matches_jax(rng, threshold, jdt, tdt):
+    jw, tw = _both(rng.normal(size=(3, 24, 40)), jdt)
+    pw, pm = jprune.prune_threshold(jw, threshold=threshold)
+    qw, qm = tprune.prune_threshold(tw, threshold)
+    assert qw.dtype == tdt and qm.dtype == tdt
+    assert _eq(pw, qw) and _eq(pm, qm)
+
+
+@pytest.mark.parametrize("shape,block,sparsity", [
+    ((16, 24), (2, 2), 0.5),
+    ((2, 16, 32), (4, 4), 0.75),
+    ((8, 12), (1, 4), 0.5),
+    ((3, 4, 16), (2, 8), 0.3),
+    ((8, 8), (2, 2), 0.2),  # drops nothing
+])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_prune_block_magnitude_matches_jax(rng, shape, block, sparsity,
+                                           ties, jdt, tdt):
+    w = (rng.integers(-2, 3, size=shape) if ties
+         else rng.normal(size=shape)).astype(np.float32)
+    jw, tw = _both(w, jdt)
+    pw, pm = jprune.prune_block_magnitude(jw, block=block, sparsity=sparsity)
+    qw, qm = tprune.prune_block_magnitude(tw, block, sparsity)
+    assert qw.dtype == tdt and qm.dtype == tdt
+    assert _eq(pw, qw) and _eq(pm, qm)
+
+
+def test_prune_block_magnitude_tie_rule_pinned():
+    """Later positions survive ties, as the JAX code ranks them (its
+    docstring says earlier ones do)."""
+    for w, block, keep in (([[1.0, 2.0, 2.0, 2.0]], (1, 4),
+                            [[0.0, 0.0, 1.0, 1.0]]),
+                           ([[1.0, -1.0], [1.0, 1.0]], (2, 2),
+                            [[0.0, 0.0], [1.0, 1.0]])):
+        w = np.asarray(w, np.float32)
+        jw, tw = _both(w, jnp.float32)
+        _, jm = jprune.prune_block_magnitude(jw, block=block, sparsity=0.5)
+        _, qm = tprune.prune_block_magnitude(tw, block, 0.5)
+        assert tensor_to_numpy(qm).tolist() == keep
+        assert _eq(jm, qm)
+
+
+def test_prune_block_magnitude_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="divisible"):
+        tprune.prune_block_magnitude(torch.zeros(6, 5), (2, 2), 0.5)
