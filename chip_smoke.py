@@ -6,7 +6,7 @@ kernels from ``sparsifyme_tpu_torch/csrc`` with nvcc at first use)
 
 Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
-  2. build the six Hopper kernels (one nvcc per source, in parallel);
+  2. build the seven Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
      at full ResNet-50 width (b=32): K1 prune, K2 compress and the fused
      prune+compress route (K2 on dense input) exactly equal; K3 2:4 SpMM,
@@ -17,7 +17,10 @@ Phases, each raising on failure:
      and f32 B, at a ragged m, and exactly on duplicate entries, with the
      COO planes packed on the card equal to those packed on the CPU; plus
      the 2:4, ELL, plan and COO pipelines on the card against the same
-     pipelines on the CPU at a small size;
+     pipelines on the CPU at a small size; K7 (the ring step) on windows
+     of the ResNet-scale shard's planes, bf16 and f32, every first/last
+     flag, whole shards and m-tiles, and at a ragged row count, within
+     2e-2 / 1e-4 of its plain version;
   4. the bench path: ``run_model_sweep("resnet50")`` over all 49 layers,
      with every launch counter set to 0 just before and read just after;
      prints the sweep's JSON line and fails unless every kernel of the
@@ -34,15 +37,28 @@ Phases, each raising on failure:
      set to 0 just before and read just after; one JSON line per point,
      then the summary line; fails unless K6 launched and every point's
      ``coo_seg_ms`` is finite and positive;
-  7. the drivers: each of the five (``sparsify gemm spmm spmma
+  7. the ring path: ``config4_row_partitioned_scaling()`` (BASELINE config
+     4) at full size, 1, 2, 4 and 8 ranks round-robin over the cards,
+     counters set to 0 just before and read just after; prints its JSON
+     line and fails unless K7 launched on both routes and every
+     ``ring_ms`` and ``ideal_ms`` is finite and positive; then both K7
+     rings at the ResNet-scale shard (784x256x1024 at b=32: 25088 folded
+     rows, P = 4, 6272 x 1024 per rank, 7 m-tiles of 896) against
+     single-card ``spmm_24`` in bf16 (2e-2) and f32 (1e-4);
+  8. the drivers: each of the five (``sparsify gemm spmm spmma
      batched_coo``) once at a ResNet-50 shape, held to its stdout contract,
      and configs 1 and 3 with ``quick=True``;
-  8. one ``{"kernels": [...]}`` line: each route's time at a main-path
+  9. one ``{"kernels": [...]}`` line: each route's time at a main-path
      shape beside its plain version, a PyTorch library call computing the
      same function (where one exists) and its bound, with its launches on
-     the three paths and its error against the plain version there (the
-     K5 entry also times K4 on the same operand, ``gather_ms``);
-  9. the card line again, then ``{"ok": true, "device": {...}}`` last.
+     the four paths and its error against the plain version there (the
+     K5 entry also times K4 on the same operand, ``gather_ms``; the ring
+     entries time a whole ring call, with the plain step in K7's place
+     for ``plain_ms``, and add K7's own device time in that call,
+     ``kernel_ms``, the host's time to queue one, ``enqueue_ms``, and the
+     accumulator traffic K7's design adds to the bound's bytes,
+     ``design_bytes``);
+  10. the card line again, then ``{"ok": true, "device": {...}}`` last.
 """
 
 import contextlib
@@ -67,6 +83,8 @@ COO_SPARSITIES = (0.5, 0.9, 0.995)
 COO_RAGGED = (784, 256, 2304)  # m = 784 is not a multiple of 128
 NAMED_COO_SPARSITY = 0.9  # with NAMED, the COO entry of the kernels line
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+RING = (784, 256, 1024)  # m, n, k: ResNet-50 layer of the ring's shard
+RING_P = 4  # ranks: 25088 folded rows, 6272 x 1024 per rank, 7 m-tiles
 REPLACES = {
     "prune_nm": "sparsifyme_tpu/ops/kernels/prune_kernel.py:81 "
                 "prune_nm_pallas",
@@ -84,6 +102,10 @@ REPLACES = {
                        "ell_expand_spmm_pallas",
     "spmm_coo": "sparsifyme_tpu/ops/kernels/coo_kernel.py:169 "
                 "spmm_coo_pallas",
+    "ring_step": "sparsifyme_tpu/parallel/ring_kernel.py:146 "
+                 "spmm_24_ring_pallas",
+    "ring_step_tiled": "sparsifyme_tpu/parallel/ring_kernel.py:377 "
+                       "spmm_24_ring_tiled_pallas",
 }
 SOURCES = {
     "prune_nm": "sparsifyme_tpu_torch/csrc/prune_nm.cu",
@@ -94,13 +116,17 @@ SOURCES = {
     "spmm_ell": "sparsifyme_tpu_torch/csrc/ell_spmm.cu",
     "spmm_ell_expand": "sparsifyme_tpu_torch/csrc/ell_expand.cu",
     "spmm_coo": "sparsifyme_tpu_torch/csrc/coo_spmm.cu",
+    "ring_step": "sparsifyme_tpu_torch/csrc/ring24.cu",
+    "ring_step_tiled": "sparsifyme_tpu_torch/csrc/ring24.cu",
 }
 SWEEP_ROUTES = ("prune_nm", "compress_24", "prune_compress_24", "spmm_24",
                 "spmm_ell", "spmm_ell_expand")
 PLAN_ROUTES = ("prune_nm", "compress_24", "prune_compress_24", "spmm_24",
                "spmm_24_fold")
 COO_ROUTES = ("spmm_coo",)
-PATHS = ("bench", "plan", "coo")
+RING_ROUTES = ("prune_nm", "compress_24", "spmm_24", "ring_step",
+               "ring_step_tiled")
+PATHS = ("bench", "plan", "coo", "ring")
 
 
 def card_line() -> str:
@@ -254,6 +280,7 @@ def phase_kernels() -> None:
             del a, b
             torch.cuda.empty_cache()
     phase_kernels_coo(gen)
+    phase_kernels_ring(gen)
     counts = launch_counts()
     for name in REPLACES:
         if counts[name] <= counts0[name]:
@@ -310,6 +337,67 @@ def phase_kernels_coo(gen) -> None:
               (want,), f"duplicate entries, B {str(dtype)[6:]}")
 
 
+def ring_devices(p):
+    """Ranks round-robin over the cards, as config 4 places them."""
+    cards = torch.cuda.device_count()
+    return [f"cuda:{r % cards}" for r in range(p)]
+
+
+def ring_operands(dtype, gen, batch=BATCH, m=RING[0]):
+    """The ring's problem at the ResNet scale: A ``[batch, m, 1024]`` pruned
+    and compressed on the card (K1, K2), B ``[1024, 256]``."""
+    from sparsifyme_tpu_torch import compress_24, prune_nm
+
+    _, n, k = RING
+    a = torch.randn((batch, m, k), generator=gen, device="cuda").to(dtype)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    return compress_24(prune_nm(a)[0]), b
+
+
+def phase_kernels_ring(gen) -> None:
+    """K7 against its plain version on windows of the ResNet-scale shard's
+    planes (rank 1 of 4: row stride 25088, 6272 columns, m-tiles of 896),
+    every first/last flag, and at a ragged row count (1001 per rank)."""
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    p = RING_P
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch, m in ((BATCH, RING[0]), (1, 1001 * p)):
+            s, _ = ring_operands(dtype, gen, batch, m)
+            rows, k4 = s.values0.shape[1], s.values0.shape[0]
+            mloc, k4s, n = rows // p, k4 // p, RING[1]
+            mt = rk._pick_mt(mloc)
+            r = 1
+            planes = [x[:, r * mloc:(r + 1) * mloc]
+                      for x in (s.values0, s.values1, s.codes)]
+            slot = torch.randn((4 * k4s, n), generator=gen,
+                               device="cuda").to(dtype)
+            acc0 = torch.randn((mloc, n), generator=gen, device="cuda")
+            cases = [(True, False, 0, mloc), (False, False, 0, mloc),
+                     (False, True, 0, mloc), (True, True, 0, mloc)]
+            if mt < mloc:
+                cases += [(False, False, 3 * mt, mt), (False, True, 6 * mt,
+                                                       mt)]
+            for i, (first, last, c0, width) in enumerate(cases):
+                kern = (rk.ring_step_tiled_cuda if width < mloc
+                        else rk.ring_step_cuda)
+
+                def run(fn):
+                    acc = acc0.clone()
+                    out = torch.zeros((mloc, n), dtype=dtype, device="cuda")
+                    fn(*planes, slot, acc, out, src=(r - i) % p, c0=c0,
+                       mt=width, first=first, last=last)
+                    return out if last else acc
+
+                close("ring_step" if width == mloc else "ring_step_tiled",
+                      run(kern), run(rk.ring_step_plain), dtype,
+                      f"{rows}x{n}x{4 * k4} rank {r}/{p} cols {c0}+{width} "
+                      f"first={int(first)} last={int(last)} "
+                      f"{str(dtype)[6:]}")
+            del s, planes, slot, acc0
+            torch.cuda.empty_cache()
+
+
 def phase_pipeline() -> None:
     """The public 2:4, ELL and plan pipelines on the card against the same
     pipelines on the CPU (plain versions), at a small size."""
@@ -358,6 +446,7 @@ def phase_pipeline() -> None:
 def _wrappers():
     from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
                                                   prune_kernel, spmm24_kernel)
+    from sparsifyme_tpu_torch.parallel import ring_kernel
     return {
         "prune_nm": prune_kernel.prune_nm_cuda,
         "compress_24": prune_kernel.compress_24_cuda,
@@ -367,6 +456,8 @@ def _wrappers():
         "spmm_ell": ell_kernel.ell_spmm_cuda,
         "spmm_ell_expand": ell_kernel.ell_expand_spmm_cuda,
         "spmm_coo": coo_kernel.spmm_coo_cuda,
+        "ring_step": ring_kernel.ring_step_cuda,
+        "ring_step_tiled": ring_kernel.ring_step_tiled_cuda,
     }
 
 
@@ -497,6 +588,54 @@ def phase_coo_path():
     return counts
 
 
+def phase_ring_path():
+    """BASELINE config 4 at full size through its entry point, then both K7
+    rings at the ResNet-scale shard against single-card ``spmm_24``."""
+    from sparsifyme_tpu_torch import (make_mesh, spmm_24,
+                                      spmm_24_ring_explicit,
+                                      spmm_24_ring_tiled)
+    from sparsifyme_tpu_torch.bench.configs import (
+        RANKS, config4_row_partitioned_scaling)
+    from sparsifyme_tpu_torch.parallel.ring_kernel import _pick_mt
+
+    print(f"ring path: torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()}; ranks -> cards: "
+          + ", ".join(f"{r}->{d}" for r, d in enumerate(ring_devices(RANKS))),
+          flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = config4_row_partitioned_scaling()
+    counts = launch_counts()
+    print(json.dumps(result), flush=True)
+    print(f"ring path: config 4 in {time.perf_counter() - t0:.1f} s; "
+          f"launches {counts}", flush=True)
+    for pt in result["points"]:
+        for key in ("ring_ms", "ideal_ms"):
+            if not (math.isfinite(pt[key]) and pt[key] > 0):
+                raise AssertionError(f"config 4 P={pt['devices']}: {key} = "
+                                     f"{pt[key]}")
+    for ring in ("explicit_overlap_ring", "tiled_ring"):
+        if not result[ring]["max_rel_err_vs_ppermute"] <= 1e-4:
+            raise AssertionError(f"config 4 {ring}: {result[ring]}")
+    check_launched(counts, RING_ROUTES, "ring")
+
+    m, n, k = RING
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    mesh = make_mesh((RING_P,), ("model",), devices=ring_devices(RING_P))
+    for dtype in (torch.bfloat16, torch.float32):
+        s, b = ring_operands(dtype, gen)
+        mloc = s.values0.shape[1] // RING_P
+        if (mloc, _pick_mt(mloc)) != (6272, 896):
+            raise AssertionError(f"shard {mloc} rows, m-tile {_pick_mt(mloc)}")
+        want = spmm_24(s, b, out_dtype=dtype)
+        for name, fn in (("ring_step", spmm_24_ring_explicit),
+                         ("ring_step_tiled", spmm_24_ring_tiled)):
+            close(name, fn(s, b, mesh, "model", out_dtype=dtype), want, dtype,
+                  f"{m}x{n}x{k}x{BATCH} P={RING_P} vs spmm_24")
+        del s, b, want
+    return counts
+
+
 def phase_drivers() -> None:
     """Each driver once on the card at a ResNet-50 shape, held to its
     stdout contract; configs 1 and 3 in their quick form."""
@@ -544,6 +683,55 @@ def _coo_bound(nnz, slots, m, k, n):
     from sparsifyme_tpu_torch.bench import roofline as rl
     flops, byts = rl.coo_spmm_work(nnz, slots, m, k, n, BATCH)
     return _bound(flops, rl.H100.f32_tflops, byts)
+
+
+def _ring_bytes(rows, n, k, p, tiles):
+    """What a whole ring must move in bf16: A's planes (1.25 B per logical
+    element), B and C once each, and the halo: each rank forwards its
+    [k/P, n] shard P-1 times, once per m-tile."""
+    return (1.25 * rows * k + 2.0 * k * n + 2.0 * rows * n
+            + 2.0 * p * (p - 1) * (k // p) * n * tiles)
+
+
+def _ring_design_bytes(rows, n, p):
+    """What K7's design adds to that: its f32 accumulator in device memory,
+    written on the first step, read and written on the middle ones and read
+    on the last ((P-1) * 8 B per C element). Outside the bound."""
+    return 8.0 * (p - 1) * rows * n
+
+
+def _ring24_device_ms(fn, ops, calls=5):
+    """K7's own device time per call of ``fn``: the durations of its
+    ``ring24`` kernels summed by ``torch.profiler`` (ranks' streams may
+    overlap, so the sum can exceed the span they keep the card busy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*ops)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "ring24" in e.key)
+    if not us > 0:
+        raise AssertionError("the profiler saw no ring24 kernel")
+    return us / 1e3 / calls
+
+
+def _plain_ring(fn, mesh):
+    """``fn`` on ``mesh`` with K7's plain version in its place: the same
+    ring, exchange and all, on the card."""
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    def run(s, b):
+        saved = rk.ring_step_cuda, rk.ring_step_tiled_cuda
+        rk.ring_step_cuda = rk.ring_step_tiled_cuda = rk.ring_step_plain
+        try:
+            return fn(s, b, mesh, "model")
+        finally:
+            rk.ring_step_cuda, rk.ring_step_tiled_cuda = saved
+    return run
 
 
 def phase_kernel_line(path_counts, expand_per_shape) -> dict:
@@ -660,6 +848,29 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
         (*packed, bb), (torch.sparse.mm, (a_sp, b_fold)),
         _coo_bound(coo.nnz, packed[0].numel(), m, k, n)))
 
+    # K7: a whole ring at the ResNet-scale shard, P = 4 ranks
+    from sparsifyme_tpu_torch import (make_mesh, spmm_24_ring_explicit,
+                                      spmm_24_ring_tiled)
+    from sparsifyme_tpu_torch.parallel.ring_kernel import _pick_mt
+
+    m, n, k = RING
+    rows = m * BATCH
+    s, b = ring_operands(dt, gen)
+    mesh = make_mesh((RING_P,), ("model",), devices=ring_devices(RING_P))
+    mt = _pick_mt(rows // RING_P)
+    dense_a = decompress_24(s).reshape(-1, k)
+    design_bytes = _ring_design_bytes(rows, n, RING_P)
+    for name, fn, tiles in (
+            ("ring_step", spmm_24_ring_explicit, 1),
+            ("ring_step_tiled", spmm_24_ring_tiled, rows // RING_P // mt)):
+        specs.append((
+            name, f"{m}x{n}x{k}x{BATCH} P={RING_P}"
+            + (f" m_tile={mt}" if tiles > 1 else "") + " bf16",
+            lambda ss, y, fn=fn: fn(ss, y, mesh, "model"),
+            _plain_ring(fn, mesh), (s, b), (torch.matmul, (dense_a, b)),
+            _bound(2.0 * rows * n * k, rl.H100.sparse24_tflops,
+                   _ring_bytes(rows, n, k, RING_P, tiles))))
+
     out = []
     for name, shape, kern, plain, ops, lib, (bound, by) in specs:
         got, want = kern(*ops), plain(*ops)
@@ -676,6 +887,19 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
         lib_ms = (time_kernel(lib[0], lib[1], iters=20, reps=5).ms
                   if lib else None)
         by_path = {p: path_counts[p][name] for p in PATHS}
+        extra = {}
+        if name.startswith("ring_step"):
+            # "ms" times a whole ring call; K7's own device time beside it,
+            # and the host's time to queue one call without waiting for the
+            # card (near "ms", the host bounds the ring)
+            extra["kernel_ms"] = _ring24_device_ms(kern, ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                kern(*ops)
+            extra["enqueue_ms"] = (time.perf_counter() - t0) * 1e3 / 10
+            torch.cuda.synchronize()
+            extra["design_bytes"] = design_bytes
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": shape,
@@ -684,6 +908,7 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
             "max_abs_err": abs_err, "max_err": rel_err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            **extra,
         })
     # K4 on K5's operand: the two ELL formulations side by side
     gather_ms = time_kernel(
@@ -718,6 +943,7 @@ def main() -> int:
     counts["bench"], expand_per_shape = phase_main_path()
     counts["plan"] = phase_plan_path()
     counts["coo"] = phase_coo_path()
+    counts["ring"] = phase_ring_path()
     print("drivers and quick configs:", flush=True)
     phase_drivers()
     print(json.dumps(phase_kernel_line(counts, expand_per_shape)),

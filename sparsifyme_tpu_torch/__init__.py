@@ -32,6 +32,12 @@ from .ops.sparse24 import (
     spmm_24,
     spmm_24_reference,
 )
+from .parallel.mesh import Mesh, init_distributed, make_mesh, replicate, \
+    shard_batch
+from .parallel.ring_kernel import (ring_permute_b, spmm_24_ring_explicit,
+                                   spmm_24_ring_tiled)
+from .parallel.spmm_sharded import (spmm_24_batch_sharded, spmm_24_ring,
+                                    spmm_24_row_sharded)
 from .plan import SpmmaConfig, SpmmaPlan, get_plan, spmma
 from .utils.shapes import LayerShape, read_shapes, write_shapes
 
@@ -41,6 +47,7 @@ __all__ = [
     "BlockedEll",
     "Coo",
     "LayerShape",
+    "Mesh",
     "Sparse24",
     "SpmmaConfig",
     "SpmmaPlan",
@@ -58,6 +65,8 @@ __all__ = [
     "gemm_f32",
     "gemm_f64",
     "get_plan",
+    "init_distributed",
+    "make_mesh",
     "pack_codes_fp",
     "pack_coo",
     "prune_24",
@@ -69,8 +78,16 @@ __all__ = [
     "prune_nm",
     "prune_threshold",
     "read_shapes",
+    "replicate",
+    "ring_permute_b",
+    "shard_batch",
     "spmm_24",
+    "spmm_24_batch_sharded",
     "spmm_24_reference",
+    "spmm_24_ring",
+    "spmm_24_ring_explicit",
+    "spmm_24_ring_tiled",
+    "spmm_24_row_sharded",
     "spmm_coo",
     "spmm_coo_segmented",
     "spmm_ell",

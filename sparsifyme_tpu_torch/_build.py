@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prune_nm", "compress24", "spmm24", "ell_spmm", "ell_expand",
-           "coo_spmm")
+           "coo_spmm", "ring24")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"

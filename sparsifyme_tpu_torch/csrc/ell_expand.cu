@@ -204,12 +204,9 @@ cudaError_t launch_fast(const void* values_km, const void* cols,
                         int bk, int ell, int tout, cudaStream_t stream) {
   constexpr int smem = smt::PipeShape<128, BN, BK, true>::SMEM;
   auto kern = expand_fast_kernel<O, BN, BK>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = smt::allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  static bool ready[smt::kMaxDevices] = {};
+  const cudaError_t e = smt::allow_smem(kern, smem, ready);
+  if (e != cudaSuccess) return e;
   dim3 grid(M / 128, (N + BN - 1) / BN);
   kern<<<grid, smt::kFastThreads, smem, stream>>>(
       static_cast<const bf16*>(values_km), static_cast<const int*>(cols),

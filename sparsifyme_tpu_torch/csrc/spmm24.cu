@@ -29,177 +29,28 @@
 // this one. Every other case (f32 operands: plain f32 FMAs on the CUDA
 // cores, never TF32; ragged shapes) takes a simple 128 x 64 tile kernel.
 // The sparse tensor cores (mma.sp with metadata from codes>>2, codes&3),
-// TMA and wgmma are later work.
-#include "tile_mma.cuh"
+// TMA and wgmma are later work. The tile is sp24_tile.cuh, shared with K7
+// (ring24.cu).
+#include "sp24_tile.cuh"
 
 namespace {
 
 using smt::bf16;
-using smt::kBN;
-using smt::kThreads;
-
-constexpr int BM = 128;
-constexpr int BK = 32;  // k per step: 8 groups
-constexpr int LDA = BM + 8;
-constexpr int LDB = kBN + 8;
-constexpr int LDC = kBN + 4;
-
-template <typename T>
-__device__ __forceinline__ T zero() { return smt::from_f<T>(0.f); }
+using sp24::BM;
 
 template <typename T, typename O, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(smt::kThreads)
 spmm24_kernel(const T* __restrict__ v0, const T* __restrict__ v1,
               const uint8_t* __restrict__ codes, const T* __restrict__ B,
               const float* __restrict__ c, O* __restrict__ out, int M, int N,
               int K, int K4, float alpha, float beta, int tout, int ldo) {
-  constexpr int AB_BYTES = (BK * LDA + BK * LDB) * (int)sizeof(T);
-  constexpr int C_BYTES = BM * LDC * (int)sizeof(float);
-  __shared__ __align__(128) unsigned char smem[AB_BYTES > C_BYTES ? AB_BYTES
-                                                                  : C_BYTES];
-  T* As = reinterpret_cast<T*>(smem);  // A^T slab [BK][LDA]
-  T* Bs = As + BK * LDA;               // B slab   [BK][LDB]
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * kBN;
-  const int half = K4 / 2;
   const size_t zp = (size_t)blockIdx.z * K4 * M;  // fold=2 half
-  v0 += zp;
-  v1 += zp;
-  codes += zp;
-  out += (size_t)blockIdx.z * N;
-  if (c != nullptr) c += (size_t)blockIdx.z * N;
-  smt::Mma<T, BM, BK, true> mma;
-  mma.init();
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // Expand the [BK/4, BM] plane slab into A^T rows 4g+j.
-    for (int idx = threadIdx.x; idx < (BK / 4) * BM; idx += kThreads) {
-      const int gl = idx / BM, r = idx % BM;
-      const int g = k0 / 4 + gl, gm = m0 + r;
-      T a0 = zero<T>(), a1 = zero<T>();
-      int i0 = 0, i1 = 1;
-      if (g < K4 && gm < M) {
-        const size_t off = (size_t)g * M + gm;
-        a0 = v0[off];
-        a1 = v1[off];
-        int code;
-        if (PACKED)  // split-half nibbles: byte j holds groups j, j + K4/2
-          code = g < half ? codes[(size_t)g * M + gm] & 15
-                          : codes[(size_t)(g - half) * M + gm] >> 4;
-        else
-          code = codes[off];
-        i0 = code >> 2;
-        i1 = code & 3;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        As[(gl * 4 + j) * LDA + r] = j == i0 ? a0 : (j == i1 ? a1 : zero<T>());
-    }
-    for (int idx = threadIdx.x; idx < BK * kBN; idx += kThreads) {
-      const int kr = idx / kBN, cc = idx % kBN;
-      const int gk = k0 + kr, gn = n0 + cc;
-      Bs[kr * LDB + cc] =
-          (gk < K && gn < N) ? B[(size_t)gk * N + gn] : zero<T>();
-    }
-    __syncthreads();
-    mma.step(As, LDA, Bs, LDB);
-    __syncthreads();
-  }
-  mma.store(Cs, LDC);
-  __syncthreads();
-  smt::epilogue<O, BM>(Cs, LDC, out, c, M, N, m0, n0, alpha, beta, tout != 0,
-                       ldo);
+  const size_t zo = (size_t)blockIdx.z * N;
+  sp24::simple_tile<T, O, PACKED>(
+      v0 + zp, v1 + zp, codes + zp, B, c == nullptr ? c : c + zo, out + zo, M,
+      N, K, K4, M, alpha, beta, tout != 0, ldo, blockIdx.x * BM,
+      blockIdx.y * smt::kBN);
 }
-
-// bf16 fast path (M, N multiples of 8, 16-byte aligned operands): 128 x BN
-// tiles, 64-deep k-steps (16 groups), double-buffered. A chunk is 8 rows
-// ms..ms+7 of one group gl: one 16-byte load per value plane and 8 code
-// bytes, expanded into four 16-byte shared-memory stores (A^T rows
-// 4*gl + j).
-template <int BN, bool PACKED>
-struct Sp24Loader {
-  static constexpr int BK = 64;
-  static constexpr int NT = smt::kFastThreads;
-  static constexpr int A_ITERS = (BK / 4) * (BM / 8) / NT;
-  static constexpr int B_VECS = BK * BN / 8 / NT;
-  const bf16* v0;
-  const bf16* v1;
-  const uint8_t* codes;
-  const bf16* B;
-  int M, N, K, K4, m0, n0;
-  uint4 ra0[A_ITERS], ra1[A_ITERS], rb[B_VECS];
-  uint2 rc[A_ITERS];
-
-  __device__ void fetch(int s) {
-    const int k0 = s * BK;
-#pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int ch = threadIdx.x + i * NT;
-      const int g = k0 / 4 + ch / (BM / 8), gm = m0 + (ch % (BM / 8)) * 8;
-      ra0[i] = ra1[i] = make_uint4(0, 0, 0, 0);
-      rc[i] = make_uint2(0, 0);
-      if (g < K4 && gm < M) {
-        const size_t off = (size_t)g * M + gm;
-        ra0[i] = *reinterpret_cast<const uint4*>(v0 + off);
-        ra1[i] = *reinterpret_cast<const uint4*>(v1 + off);
-        if (PACKED) {  // split-half nibbles: byte j holds groups j, j + K4/2
-          const int half = K4 / 2;
-          const bool hi = g >= half;
-          const uint2 p = *reinterpret_cast<const uint2*>(
-              codes + (size_t)(hi ? g - half : g) * M + gm);
-          const int sh = hi ? 4 : 0;
-          rc[i] = make_uint2((p.x >> sh) & 0x0F0F0F0Fu,
-                             (p.y >> sh) & 0x0F0F0F0Fu);
-        } else {
-          rc[i] = *reinterpret_cast<const uint2*>(codes + off);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int v = threadIdx.x + i * NT;
-      const int kr = v / (BN / 8), cc = (v % (BN / 8)) * 8;
-      const int gk = k0 + kr, gn = n0 + cc;
-      rb[i] = (gk < K && gn < N)
-                  ? *reinterpret_cast<const uint4*>(B + (size_t)gk * N + gn)
-                  : make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  // bf16 bits of dense A^T row 4*gl + j at row ms + e of chunk i.
-  __device__ uint32_t pick(int i, int e, int j) const {
-    const uint32_t code =
-        ((e < 4 ? rc[i].x : rc[i].y) >> ((e & 3) * 8)) & 0xFFu;
-    return (code >> 2) == (uint32_t)j  ? smt::lane16(ra0[i], e)
-           : (code & 3) == (uint32_t)j ? smt::lane16(ra1[i], e)
-                                       : 0u;
-  }
-
-  __device__ void stash(bf16* As, int lda, bf16* Bs, int ldb) const {
-#pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int ch = threadIdx.x + i * NT;
-      const int gl = ch / (BM / 8), ms = (ch % (BM / 8)) * 8;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t w[4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          w[p] = pick(i, 2 * p, j) | (pick(i, 2 * p + 1, j) << 16);
-        *reinterpret_cast<uint4*>(As + (gl * 4 + j) * lda + ms) =
-            make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int v = threadIdx.x + i * NT;
-      const int kr = v / (BN / 8), cc = (v % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + kr * ldb + cc) = rb[i];
-    }
-  }
-};
 
 template <typename O, int BN, bool PACKED>
 __global__ void __launch_bounds__(smt::kFastThreads, 2)
@@ -210,7 +61,7 @@ spmm24_fast_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
                    float alpha, float beta, int tout, int ldo) {
   extern __shared__ __align__(128) unsigned char smem_dyn[];
   const size_t zp = (size_t)blockIdx.z * K4 * M;  // fold=2 half
-  Sp24Loader<BN, PACKED> ld;
+  sp24::Loader<BN, PACKED> ld;
   ld.v0 = v0 + zp;
   ld.v1 = v1 + zp;
   ld.codes = codes + zp;
@@ -219,6 +70,7 @@ spmm24_fast_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
   ld.N = N;
   ld.K = K;
   ld.K4 = K4;
+  ld.ldp = M;
   ld.m0 = blockIdx.x * BM;
   ld.n0 = blockIdx.y * BN;
   const size_t zo = (size_t)blockIdx.z * N;
@@ -235,12 +87,9 @@ cudaError_t launch_fast(const void* v0, const void* v1, const void* codes,
                         int fold, cudaStream_t stream) {
   constexpr int smem = smt::PipeShape<BM, BN, 64, true>::SMEM;
   auto kern = spmm24_fast_kernel<O, BN, PACKED>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = smt::allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  static bool ready[smt::kMaxDevices] = {};
+  const cudaError_t e = smt::allow_smem(kern, smem, ready);
+  if (e != cudaSuccess) return e;
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, fold);
   kern<<<grid, smt::kFastThreads, smem, stream>>>(
       static_cast<const bf16*>(v0), static_cast<const bf16*>(v1),
@@ -273,9 +122,9 @@ cudaError_t launch(const void* v0, const void* v1, const void* codes,
                    const void* b, const void* c, void* out, int M, int N,
                    int K, int K4, float alpha, float beta, int tout,
                    int packed, int fold, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, (N + kBN - 1) / kBN, fold);
+  dim3 grid((M + BM - 1) / BM, (N + smt::kBN - 1) / smt::kBN, fold);
   auto kern = packed ? spmm24_kernel<T, O, true> : spmm24_kernel<T, O, false>;
-  kern<<<grid, kThreads, 0, stream>>>(
+  kern<<<grid, smt::kThreads, 0, stream>>>(
       static_cast<const T*>(v0), static_cast<const T*>(v1),
       static_cast<const uint8_t*>(codes), static_cast<const T*>(b),
       static_cast<const float*>(c), static_cast<O*>(out), M, N, K, K4, alpha,

@@ -1,5 +1,5 @@
-// Shared pieces of the port's matmul kernels (spmm24.cu, ell_spmm.cu,
-// ell_expand.cu).
+// Shared pieces of the port's matmul kernels (spmm24.cu and ring24.cu through
+// sp24_tile.cuh, ell_spmm.cu, ell_expand.cu).
 //
 // A thread block of kThreads threads computes a BM x kBN tile of C in f32.
 // Each k-step stages an A slab and a B slab in shared memory; Mma<T, ...>
@@ -339,12 +339,23 @@ __device__ __forceinline__ void pipelined_tile(Loader& ld, int stages,
                           tout, ldo);
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory (once).
+// Opt a kernel into more than 48 KB of dynamic shared memory, once per
+// device: the attribute belongs to the current device's copy of the kernel,
+// and the ranks of a ring may launch it on several cards. `done` is the
+// caller's flag array for this kernel, kMaxDevices long.
+constexpr int kMaxDevices = 64;
+
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done[dev] = true;
+  return e;
 }
 
 }  // namespace smt

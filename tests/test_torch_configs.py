@@ -1,7 +1,8 @@
 """The port's bench surface on the CPU: the drivers' stdout contracts (as
 ``tests/test_drivers.py`` holds the JAX drivers to them), the BASELINE
-configs' result keys against the JAX runners' at one tiny shape, the COO
-crossover locator against JAX's, and the K6 bound.
+configs' result keys against the JAX runners' at one tiny shape (config 4
+quick on 8 CPU ranks), the COO crossover locator against JAX's, and the K6
+bound.
 
 The JAX runners' timers are stubbed out: only their keys are compared,
 and timing a tiny shape in interpret mode would cost seconds each.
@@ -108,11 +109,61 @@ def test_config2_main_prints_one_json_line(tiny):
     assert out["config"] == 2 and out["points"] == 6
 
 
-def test_config4_needs_the_rings():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.RUNNERS[4](device="cpu")
-    with pytest.raises(NotImplementedError):
-        configs.main(["4", "--cpu"])
+# The keys of the JAX config 4 runner
+# (sparsifyme_tpu/bench/configs.py:369-380,447-478). Its live run interprets
+# both Pallas rings with race detection, too slow for this suite, so the
+# keys are written here and checked against its source.
+CONFIG4_KEYS = {
+    "top": ["config", "backend", "shape", "emulated_headline", "points",
+            "explicit_overlap_ring", "tiled_ring", "note"],
+    "shape": ["b_per_device", "m", "n", "k"],
+    "point": ["devices", "batch", "ring_ms", "ideal_ms", "comm_efficiency",
+              "nnz_per_s_per_device", "halo_bytes_per_device",
+              "weak_scaling_throughput_ratio"],
+    "emulated_headline": ["what", "devices", "comm_efficiency",
+                          "comm_efficiency_raw", "note"],
+    "explicit_overlap_ring": ["kernel", "devices", "max_rel_err_vs_ppermute",
+                              "race_detection"],
+    "tiled_ring": ["kernel", "devices", "m_tiles_per_shard",
+                   "max_rel_err_vs_ppermute"],
+}
+
+
+@pytest.fixture(scope="module")
+def config4_lines():
+    """``main(["4", "--quick", "--cpu"])``: config 4 quick on 8 CPU ranks."""
+    return _capture(configs.main, ["4", "--quick", "--cpu"])
+
+
+def test_config4_keeps_the_jax_keys(config4_lines):
+    import inspect
+
+    src = inspect.getsource(jconfigs.config4_row_partitioned_scaling)
+    for keys in CONFIG4_KEYS.values():
+        for key in keys:
+            assert f'"{key}"' in src, key
+    got = json.loads(config4_lines[0])
+    assert sorted(got) == sorted(CONFIG4_KEYS["top"])
+    for part in ("shape", "emulated_headline", "explicit_overlap_ring",
+                 "tiled_ring"):
+        assert sorted(got[part]) == sorted(CONFIG4_KEYS[part]), part
+    assert [pt["devices"] for pt in got["points"]] == [1, 2, 4, 8]
+    for pt in got["points"]:  # plus the port's "cards"
+        assert sorted(pt) == sorted(CONFIG4_KEYS["point"] + ["cards"])
+        assert pt["cards"] == 1 and pt["ring_ms"] > 0 and pt["ideal_ms"] > 0
+        assert pt["batch"] == 2 * pt["devices"]
+    assert got["points"][2]["halo_bytes_per_device"] == 3 * 128 * 128 * 4
+    for ring in ("explicit_overlap_ring", "tiled_ring"):
+        assert got[ring]["devices"] == 4
+        assert got[ring]["max_rel_err_vs_ppermute"] < 1e-4
+    assert got["explicit_overlap_ring"]["race_detection"] is False
+
+
+def test_config4_main_prints_one_json_line(config4_lines):
+    assert len(config4_lines) == 1
+    out = json.loads(config4_lines[0])
+    assert out["config"] == 4 and out["backend"] == "cpu"
+    assert out["shape"] == {"b_per_device": 2, "m": 256, "n": 128, "k": 512}
 
 
 def _crossover_rows(ko_ic):

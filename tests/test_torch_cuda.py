@@ -4,9 +4,11 @@ other than 4, n not a multiple of 64, M not a multiple of the tile, every
 ELL tile geometry, mixed input types), through both the bf16 fast paths
 (M and n multiples of 8) and the simple kernels: K1 prune, K2 compress and
 its fused prune+compress route, K3 2:4 SpMM and its fold=2 route, K4 ELL
-gather SpMM, K5 ELL expand SpMM and K6 segmented COO SpMM (ragged m, N
+gather SpMM, K5 ELL expand SpMM, K6 segmented COO SpMM (ragged m, N
 not a multiple of its 128-column tile, every value and B type, duplicate
-and out-of-range entries).
+and out-of-range entries) and K7, the ring step, with both rings on logical
+ranks of one card (P = 1, 2, 3, 4, 8), the sharded SpMMs and the rings'
+capacity credits under a delayed rank.
 
 These tests need a CUDA card and skip without one. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -326,3 +328,178 @@ def test_coo_path_on_the_card_matches_the_cpu(gen):
     assert torch.equal(e.col_indices.cpu(), ec.col_indices)
     assert _rel(spmm_ell(e, b[0]).cpu(), spmm_ell(ec, b[0].cpu())) < \
         TOL[torch.float32]
+
+
+def _ring_operand(gen, rows, k, n, dtype):
+    from sparsifyme_tpu_torch.ops.sparse24 import compress_24
+
+    w = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    s = compress_24(prune_kernel.prune_nm_cuda(w)[0])
+    b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    return s, b
+
+
+@pytest.mark.parametrize("rows,p,r,k,n,c0,mt", [
+    (400, 4, 1, 256, 40, 0, 100),     # ragged: simple tile
+    (400, 4, 3, 256, 40, 36, 50),     # ragged window columns
+    (1024, 4, 2, 512, 128, 0, 256),   # bf16 fast path, whole shard
+    (1024, 2, 1, 256, 64, 128, 256),  # fast path, an m-tile
+])
+@pytest.mark.parametrize("dtype,odtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("first,last", [(True, False), (False, False),
+                                        (False, True), (True, True)])
+def test_ring_step_kernel(gen, rows, p, r, k, n, c0, mt, dtype, odtype,
+                          first, last):
+    """K7 on a window of the full planes (row stride = all rows) against
+    its plain version: the accumulator on middle steps, C on the last."""
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    s, _ = _ring_operand(gen, rows, k, n, dtype)
+    mloc, k4s = rows // p, s.values0.shape[0] // p
+    planes = [x[:, r * mloc:(r + 1) * mloc]
+              for x in (s.values0, s.values1, s.codes)]
+    slot = torch.randn((4 * k4s, n), generator=gen, device="cuda").to(dtype)
+    acc0 = torch.randn((mloc, n), generator=gen, device="cuda")
+    src = (r + 1) % p
+    outs = []
+    for fn in (rk.ring_step_cuda, rk.ring_step_plain):
+        acc = acc0.clone()
+        out = torch.zeros((mloc, n), dtype=odtype, device="cuda")
+        fn(*planes, slot, acc, out, src=src, c0=c0, mt=mt, first=first,
+           last=last)
+        outs.append((acc, out))
+    (acc, out), (acc_p, out_p) = outs
+    tol = max(TOL[dtype], TOL[odtype])
+    if last:
+        assert torch.equal(acc, acc0)
+        assert _rel(out, out_p) < tol
+        assert not out[:c0].any() and not out[c0 + mt:].any()
+    else:
+        assert _rel(acc, acc_p) < tol
+        assert torch.equal(acc[:c0], acc0[:c0])
+        assert not out.any()
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_rings_on_one_card(gen, p, dtype, tiled):
+    """Both K7 routes with P logical ranks on one card against single-card
+    spmm_24 (K3), batched A folded into rows, bf16 and f32 C."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    batch, m, k, n = 2, 64 * p, 64 * p, 48
+    s, b = _ring_operand(gen, batch * m, k, n, dtype)
+    s = type(s)(s.values0, s.values1, s.codes, shape=(batch, m, k))
+    mesh = sp.make_mesh((p,), ("model",), devices=["cuda:0"] * p)
+    want = sp.spmm_24(s, b, out_dtype=torch.float32)
+    counter = rk.ring_step_tiled_cuda if tiled else rk.ring_step_cuda
+    n0 = counter.launches
+    fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
+    kw = dict(m_tile=32) if tiled else {}
+    for odt in (dtype, torch.float32):
+        got = fn(s, b, mesh, "model", out_dtype=odt, **kw)
+        assert got.dtype == odt and tuple(got.shape) == (batch, m, n)
+        assert _rel(got.float(), want) < TOL[dtype]
+    n_mt = batch * m // p // 32 if tiled else 1
+    assert counter.launches == n0 + 2 * p * p * n_mt
+    oracle = sp.spmm_24_ring(s, b, mesh, "model", out_dtype=torch.float32)
+    assert _rel(oracle, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("tiled,p,t", [(False, 4, 1), (False, 3, 0),
+                                       (True, 4, 3), (True, 3, 1),
+                                       (True, 2, 1)])
+def test_ring_credit_protocol(gen, monkeypatch, tiled, p, t):
+    """A long sleep on rank 1's compute stream before its step t (the last
+    read of a slot before the left neighbour's next send into it, within a
+    tile or across tiles): without the capacity credit that send would
+    overwrite the slot before the delayed contraction reads it."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    name = "ring_step_tiled_cuda" if tiled else "ring_step_cuda"
+    real = getattr(rk, name)
+    calls = []
+
+    def delayed(*a, **kw):
+        if len(calls) == t * p + 1:  # queued step-major: rank 1, step t
+            torch.cuda._sleep(200_000_000)
+        calls.append(1)
+        real(*a, **kw)
+
+    delayed.launches = real.launches  # the wrapper counts under its name
+    monkeypatch.setattr(rk, name, delayed)
+    s, b = _ring_operand(gen, 256 * p, 128 * p, 64, torch.bfloat16)
+    mesh = sp.make_mesh((p,), ("model",), devices=["cuda:0"] * p)
+    fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
+    got = fn(s, b, mesh, "model", out_dtype=torch.float32,
+             **(dict(m_tile=128) if tiled else {}))
+    want = sp.spmm_24(s, b, out_dtype=torch.float32)
+    assert len(calls) == p * p * (2 if tiled else 1)
+    assert _rel(got.cpu(), want.cpu()) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_sharded_spmms_on_one_card(gen, p):
+    import sparsifyme_tpu_torch as sp
+
+    batch, m, k, n = 8, 32, 128, 40
+    s, b = _ring_operand(gen, batch * m, k, n, torch.bfloat16)
+    s = type(s)(s.values0, s.values1, s.codes, shape=(batch, m, k))
+    want = sp.spmm_24(s, b)
+    mesh = sp.make_mesh((1, p), ("data", "model"), devices=["cuda:0"] * p)
+    mesh_d = sp.make_mesh((p, 1), ("data", "model"), devices=["cuda:0"] * p)
+    got = sp.spmm_24_batch_sharded(s, b, mesh_d, axis="data")
+    assert _rel(got, want) < TOL[torch.bfloat16]
+    got = sp.spmm_24_row_sharded(s, b, mesh, axis="model")
+    assert _rel(got, want) < TOL[torch.bfloat16]
+    got = sp.spmm_24_ring(s, b, mesh, axis="model")
+    assert _rel(got, want) < TOL[torch.bfloat16]
+
+
+def test_rings_across_cards(gen):
+    """Ranks round-robin over every card (peer copies between them)."""
+    import sparsifyme_tpu_torch as sp
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    p = 4
+    s, b = _ring_operand(gen, 512, 512, 64, torch.bfloat16)
+    mesh = sp.make_mesh((p,), ("model",),
+                        devices=[f"cuda:{r % cards}" for r in range(p)])
+    want = sp.spmm_24(s, b, out_dtype=torch.float32)
+    for fn in (sp.spmm_24_ring, sp.spmm_24_ring_explicit,
+               sp.spmm_24_ring_tiled):
+        got = fn(s, b, mesh, "model", out_dtype=torch.float32)
+        assert got.device == want.device
+        assert _rel(got, want) < TOL[torch.bfloat16]
+
+
+def test_ring_kernel_rejects_what_it_does_not_take(gen):
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    z = torch.zeros((16, 64), dtype=torch.float16, device="cuda")
+    c = torch.zeros((16, 64), dtype=torch.uint8, device="cuda")
+    slot = torch.zeros((16, 8), dtype=torch.float16, device="cuda")
+    acc = torch.zeros((64, 8), device="cuda")
+    with pytest.raises(TypeError):
+        rk.ring_step_cuda(z, z, c, slot, acc, acc, src=0, c0=0, mt=64,
+                          first=True, last=False)
+    f = z.float()
+    with pytest.raises(ValueError, match="outside"):
+        rk.ring_step_cuda(f, f, c, slot.float(), acc, acc, src=4, c0=0,
+                          mt=64, first=True, last=False)
+    with pytest.raises(ValueError, match="acc"):
+        rk.ring_step_cuda(f, f, c, slot.float(), None, acc, src=0, c0=0,
+                          mt=64, first=True, last=False)
+    s, b = _ring_operand(gen, 128, 128, 8, torch.float32)
+    s = type(s)(s.values0.half(), s.values1.half(), s.codes, shape=s.shape)
+    mesh = sp.make_mesh((2,), ("model",), devices=["cuda:0"] * 2)
+    with pytest.raises(TypeError):
+        sp.spmm_24_ring_explicit(s, b.half(), mesh, "model")

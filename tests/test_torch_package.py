@@ -19,6 +19,7 @@ from sparsifyme_tpu.ops import sparse24 as js
 from sparsifyme_tpu_torch import _build, convert
 from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
                                               prune_kernel, spmm24_kernel)
+from sparsifyme_tpu_torch.parallel import ring_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "sparsifyme_tpu")
@@ -112,6 +113,15 @@ def test_device_none_means_gpu():
     lambda: coo_kernel.spmm_coo_cuda(
         torch.zeros(1, 128), torch.zeros(1, 128, dtype=torch.int32),
         torch.zeros(1, 128, dtype=torch.int32), torch.zeros(2, 8, 8), m=16),
+    lambda: ring_kernel.ring_step_cuda(
+        torch.zeros(16, 8), torch.zeros(16, 8),
+        torch.zeros(16, 8, dtype=torch.uint8), torch.zeros(16, 4), None,
+        torch.zeros(8, 4), src=0, c0=0, mt=8, first=True, last=True),
+    lambda: ring_kernel.ring_step_tiled_cuda(
+        torch.zeros(16, 8), torch.zeros(16, 8),
+        torch.zeros(16, 8, dtype=torch.uint8), torch.zeros(16, 4),
+        torch.zeros(8, 4), torch.zeros(8, 4), src=1, c0=0, mt=4,
+        first=False, last=False),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -162,6 +172,21 @@ def test_converters_round_trip_fold2_containers(rng, jdt):
     assert np.array_equal(codes, np.asarray(s.codes))
     assert np.array_equal(np.asarray(js.decompress_24(s), np.float32),
                           convert.tensor_to_numpy(sp.decompress_24(q)))
+
+
+@pytest.mark.parametrize("p, tiles", [(1, 1), (4, 1), (4, 7), (8, 2)])
+def test_smoke_ring_bound_counts_what_the_ring_must_move(p, tiles):
+    """The ring's bound in the kernels line: at P = 1 the bytes of one 2:4
+    SpMM, plus each rank's halo (P-1 shards of [k/P, n] in bf16) once per
+    m-tile; K7's f32 accumulator is reported apart."""
+    import chip_smoke
+
+    rows, n, k = 25088, 256, 1024
+    one = 1.25 * rows * k + 2 * k * n + 2 * rows * n
+    halo = (p - 1) * (k // p) * n * 2
+    assert chip_smoke._ring_bytes(rows, n, k, p, tiles) == (
+        one + p * halo * tiles)
+    assert chip_smoke._ring_design_bytes(rows, n, p) == 8 * (p - 1) * rows * n
 
 
 def test_no_tuning_table_is_shipped():
