@@ -8,9 +8,11 @@ Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
   2. build the seven Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
-     at full ResNet-50 width (b=32): K1 prune, K2 compress and the fused
-     prune+compress route (K2 on dense input) exactly equal; K3 2:4 SpMM,
-     its fold=2 route, K4 Blocked-ELL gather SpMM and K5 Blocked-ELL expand
+     at full ResNet-50 width (b=32) at the six bench shapes: K1 prune, K2
+     compress and the fused prune+compress route (K2 on dense input)
+     exactly equal; K3 2:4 SpMM (the sparse tensor-core tile, plain,
+     transposed, packed and alpha/beta/c), its fold=2 route, K4 Blocked-ELL
+     gather SpMM and K5 Blocked-ELL expand
      SpMM within a relative error of 2e-2 in bf16 and 1e-4 in f32; K6
      segmented COO SpMM within 1e-4 (f32 sums in another order) at three
      ResNet-101 shapes (b=32) and sparsities 0.5 / 0.9 / 0.995 with bf16
@@ -44,7 +46,10 @@ Phases, each raising on failure:
      ``ring_ms`` and ``ideal_ms`` is finite and positive; then both K7
      rings at the ResNet-scale shard (784x256x1024 at b=32: 25088 folded
      rows, P = 4, 6272 x 1024 per rank, 7 m-tiles of 896) against
-     single-card ``spmm_24`` in bf16 (2e-2) and f32 (1e-4);
+     single-card ``spmm_24`` in bf16 (2e-2) and f32 (1e-4), each ring
+     called three times from an empty graph cache (eager, capture and
+     replay, replay), every result held to ``spmm_24`` and the replays
+     bitwise equal to the eager ring;
   8. the drivers: each of the five (``sparsify gemm spmm spmma
      batched_coo``) once at a ResNet-50 shape, held to its stdout contract,
      and configs 1 and 3 with ``quick=True``;
@@ -55,13 +60,19 @@ Phases, each raising on failure:
      K5 entry also times K4 on the same operand, ``gather_ms``; the ring
      entries time a whole ring call, with the plain step in K7's place
      for ``plain_ms``, and add K7's own device time in that call,
-     ``kernel_ms``, the host's time to queue one, ``enqueue_ms``, and the
+     ``kernel_ms``, the host's time to queue one, ``enqueue_ms``, the
+     time of one call with B at a new address, which misses the graph
+     cache and runs the ring eagerly, ``fresh_ms``, of the next call,
+     which captures the ring and replays it, ``capture_ms``, and the
      accumulator traffic K7's design adds to the bound's bytes,
-     ``design_bytes``);
+     ``design_bytes``; the error is that of the replay after those two;
+     on one card ``ms``, ``kernel_ms`` and ``enqueue_ms`` time replays of
+     the captured ring);
   10. the card line again, then ``{"ok": true, "device": {...}}`` last.
 """
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -71,8 +82,12 @@ import time
 
 import torch
 
-SHAPES = [(12544, 64, 147), (196, 512, 4608), (3136, 128, 1152)]  # m, n, k
-EXPAND_SHAPES = SHAPES + [(12544, 256, 64)]
+# m, n, k: the six bench shapes of PERF.md, where K1, K2, the fused route,
+# K3 (the sparse tile, every epilogue case) and K4 are held to their plain
+# versions
+SHAPES = [(12544, 64, 147), (12544, 64, 576), (12544, 256, 64),
+          (3136, 128, 1152), (784, 256, 1024), (196, 512, 4608)]
+EXPAND_SHAPES = SHAPES
 FOLD_SHAPES = [(12544, 64, 147), (12544, 64, 576)]
 ALL_SHAPES = list(dict.fromkeys(SHAPES + EXPAND_SHAPES + FOLD_SHAPES))
 BATCH = 32
@@ -354,6 +369,37 @@ def ring_operands(dtype, gen, batch=BATCH, m=RING[0]):
     return compress_24(prune_nm(a)[0]), b
 
 
+def ring_calls(name, fn, want, dtype, what, captured):
+    """``fn()``, a whole ring, three times from an empty graph cache: the
+    first call runs eagerly, the second captures the ring and replays it,
+    the third replays it (on a mesh that ``captured``; otherwise all three
+    run eagerly). Each result is held against ``want``, and the replays
+    must equal the eager ring bit for bit. Returns the third result's
+    errors and the host times of the first two calls in ms."""
+    from sparsifyme_tpu_torch.parallel import ring_graph
+
+    ring_graph.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs, ms = [], []
+    for call in ("eager", "capture", "replay"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        graphs = int(captured and call != "eager")
+        if len(ring_graph._cache) != graphs:
+            raise AssertionError(f"{name} {what} {call}: "
+                                 f"{len(ring_graph._cache)} graphs, "
+                                 f"expected {graphs}")
+        err = close(name, outs[-1], want, dtype, f"{what} {call}")
+    if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+        raise AssertionError(f"{name} {what}: a replay differs from the "
+                             "eager ring")
+    return err, ms[0], ms[1]
+
+
 def phase_kernels_ring(gen) -> None:
     """K7 against its plain version on windows of the ResNet-scale shard's
     planes (rank 1 of 4: row stride 25088, 6272 columns, m-tiles of 896),
@@ -596,6 +642,7 @@ def phase_ring_path():
                                       spmm_24_ring_tiled)
     from sparsifyme_tpu_torch.bench.configs import (
         RANKS, config4_row_partitioned_scaling)
+    from sparsifyme_tpu_torch.parallel import ring_graph
     from sparsifyme_tpu_torch.parallel.ring_kernel import _pick_mt
 
     print(f"ring path: torch.cuda.device_count() = "
@@ -628,11 +675,16 @@ def phase_ring_path():
         if (mloc, _pick_mt(mloc)) != (6272, 896):
             raise AssertionError(f"shard {mloc} rows, m-tile {_pick_mt(mloc)}")
         want = spmm_24(s, b, out_dtype=dtype)
+        captured = ring_graph.captures(mesh.axis_devices("model"),
+                                       s.values0, b)
         for name, fn in (("ring_step", spmm_24_ring_explicit),
                          ("ring_step_tiled", spmm_24_ring_tiled)):
-            close(name, fn(s, b, mesh, "model", out_dtype=dtype), want, dtype,
-                  f"{m}x{n}x{k}x{BATCH} P={RING_P} vs spmm_24")
+            ring_calls(name, lambda fn=fn: fn(s, b, mesh, "model",
+                                              out_dtype=dtype),
+                       want, dtype, f"{m}x{n}x{k}x{BATCH} P={RING_P} vs "
+                       "spmm_24", captured)
         del s, b, want
+    ring_graph.clear()
     return counts
 
 
@@ -851,6 +903,7 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
     # K7: a whole ring at the ResNet-scale shard, P = 4 ranks
     from sparsifyme_tpu_torch import (make_mesh, spmm_24_ring_explicit,
                                       spmm_24_ring_tiled)
+    from sparsifyme_tpu_torch.parallel import ring_graph
     from sparsifyme_tpu_torch.parallel.ring_kernel import _pick_mt
 
     m, n, k = RING
@@ -871,23 +924,38 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
             _bound(2.0 * rows * n * k, rl.H100.sparse24_tflops,
                    _ring_bytes(rows, n, k, RING_P, tiles))))
 
+    captured = ring_graph.captures(mesh.axis_devices("model"), s.values0, b)
     out = []
     for name, shape, kern, plain, ops, lib, (bound, by) in specs:
-        got, want = kern(*ops), plain(*ops)
-        if name in ("prune_nm", "compress_24", "prune_compress_24"):
-            exact(name, got, want, f"{shape} (kernels line)")
-            abs_err = rel_err = 0.0
+        want = plain(*ops)
+        extra = {}
+        if name.startswith("ring_step"):
+            # with B at a new address: one call that misses the graph cache
+            # (the eager ring, what a caller with fresh operands pays), one
+            # that captures and replays, then a replay, which is the result
+            # held against the plain ring
+            fresh = ops[1].clone()
+            (abs_err, rel_err), extra["fresh_ms"], extra["capture_ms"] = \
+                ring_calls(name, lambda: kern(ops[0], fresh), want, dt,
+                           f"{shape} (kernels line)", captured)
+            del fresh
         else:
-            abs_err, rel_err = close(
-                name, got, want, torch.float32 if name == "spmm_coo" else dt,
-                f"{shape} (kernels line)")
-        del got, want
+            got = kern(*ops)
+            if name in ("prune_nm", "compress_24", "prune_compress_24"):
+                exact(name, got, want, f"{shape} (kernels line)")
+                abs_err = rel_err = 0.0
+            else:
+                abs_err, rel_err = close(
+                    name, got, want,
+                    torch.float32 if name == "spmm_coo" else dt,
+                    f"{shape} (kernels line)")
+            del got
+        del want
         ms = time_kernel(kern, ops, iters=20, reps=5).ms
         plain_ms = time_kernel(plain, ops, iters=3, reps=3).ms
         lib_ms = (time_kernel(lib[0], lib[1], iters=20, reps=5).ms
                   if lib else None)
         by_path = {p: path_counts[p][name] for p in PATHS}
-        extra = {}
         if name.startswith("ring_step"):
             # "ms" times a whole ring call; K7's own device time beside it,
             # and the host's time to queue one call without waiting for the

@@ -16,20 +16,23 @@
 // h*N with row stride 2N. Neither the planes nor C are copied or
 // un-folded, and loads keep their 16-byte width along M.
 //
-// What bounds it on the H100: for the bf16 ResNet-50 layers, tensor-core
-// operations on wide-n layers and device-memory bytes (A at 1.25 B per
-// logical element, plus B and C) on n=64 layers. Design: each block owns a
-// tile of C and walks k. Per k-step it reads the compact plane slabs
-// (coalesced along M: 1.25 B per A element, not 2), expands them in shared
-// memory into a dense A^T slab, stages the matching rows of B (rows >= K
-// read as zero) and runs bf16 tensor-core MMAs (wmma) with f32 accumulators.
-// The bf16 fast path (M, N multiples of 8, aligned operands) uses 128 x 128
-// tiles (128 x 64 where n < 128), 64-deep k-steps, 16-byte loads and two
-// shared-memory buffers, so the loads of the next step overlap the MMAs of
-// this one. Every other case (f32 operands: plain f32 FMAs on the CUDA
-// cores, never TF32; ragged shapes) takes a simple 128 x 64 tile kernel.
-// The sparse tensor cores (mma.sp with metadata from codes>>2, codes&3),
-// TMA and wgmma are later work. The tile is sp24_tile.cuh, shared with K7
+// What bounds it on the H100: at the 2:4 tensor-core rate (1979 TFLOP/s
+// dense-equivalent) every bf16 ResNet-50 layer is bound by device-memory
+// bytes: A at 1.25 B per logical element, plus B and C. A kernel that
+// expanded A to dense would do twice the 2:4 work on the tensor cores and
+// stage zeros. Design (sp24_tile.cuh): the bf16 fast path (M, N multiples
+// of 8, aligned operands) multiplies the compressed planes on the sparse
+// tensor cores (mma.sp m16n8k32, metadata derived in the kernel from the
+// codes, packed or not), fed by a 4-stage cp.async ring, so the loads of
+// later k-steps overlap the MMAs and the kernel streams the planes
+// (coalesced along M) at the memory rate. Each block owns one tile of C and
+// walks k; the tile (256x128 down to 64x64) is chosen per launch in the
+// Python wrapper: the largest whose grid still gives every SM a block (a
+// larger tile re-reads B and A fewer times; small-M, deep-k layers such as
+// 196x512x4608 and K7's ring steps take smaller ones). Every other case (f32
+// operands: plain f32 FMAs on the CUDA cores, never TF32; ragged shapes)
+// takes the simple 128 x 64 tile kernel. wgmma.sp, TMA multicast and a
+// persistent scheduler are later work. The tile is shared with K7
 // (ring24.cu).
 #include "sp24_tile.cuh"
 
@@ -52,69 +55,50 @@ spmm24_kernel(const T* __restrict__ v0, const T* __restrict__ v1,
       blockIdx.y * smt::kBN);
 }
 
-template <typename O, int BN, bool PACKED>
-__global__ void __launch_bounds__(smt::kFastThreads, 2)
-spmm24_fast_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
-                   const uint8_t* __restrict__ codes,
-                   const bf16* __restrict__ B, const float* __restrict__ c,
-                   O* __restrict__ out, int M, int N, int K, int K4,
-                   float alpha, float beta, int tout, int ldo) {
+template <int BM_, int BN_, typename O>
+__global__ void __launch_bounds__(sp24::SpShape<BM_, BN_>::THREADS,
+                                  sp24::SpShape<BM_, BN_>::MIN_BLOCKS)
+spmm24_sp_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
+                 const uint8_t* __restrict__ codes, const bf16* __restrict__ B,
+                 const float* __restrict__ c, O* __restrict__ out, int M,
+                 int N, int K, int K4, float alpha, float beta, int tout,
+                 int packed, int ldo) {
   extern __shared__ __align__(128) unsigned char smem_dyn[];
   const size_t zp = (size_t)blockIdx.z * K4 * M;  // fold=2 half
-  sp24::Loader<BN, PACKED> ld;
-  ld.v0 = v0 + zp;
-  ld.v1 = v1 + zp;
-  ld.codes = codes + zp;
-  ld.B = B;
-  ld.M = M;
-  ld.N = N;
-  ld.K = K;
-  ld.K4 = K4;
-  ld.ldp = M;
-  ld.m0 = blockIdx.x * BM;
-  ld.n0 = blockIdx.y * BN;
   const size_t zo = (size_t)blockIdx.z * N;
-  smt::pipelined_tile<BM, BN, 64, true>(ld, (K + 63) / 64, smem_dyn, out + zo,
-                                        c == nullptr ? c : c + zo, M, N,
-                                        ld.m0, ld.n0, alpha, beta, tout != 0,
-                                        ldo);
+  sp24::sparse_tile<BM_, BN_, O>(v0 + zp, v1 + zp, codes + zp, B,
+                                 c == nullptr ? c : c + zo, out + zo, M, N, K,
+                                 K4, M, packed != 0, alpha, beta, tout != 0,
+                                 ldo, blockIdx.x * BM_, blockIdx.y * BN_,
+                                 smem_dyn);
 }
 
-template <typename O, int BN, bool PACKED>
-cudaError_t launch_fast(const void* v0, const void* v1, const void* codes,
-                        const void* b, const void* c, void* out, int M, int N,
-                        int K, int K4, float alpha, float beta, int tout,
-                        int fold, cudaStream_t stream) {
-  constexpr int smem = smt::PipeShape<BM, BN, 64, true>::SMEM;
-  auto kern = spmm24_fast_kernel<O, BN, PACKED>;
+template <typename O, int BM_, int BN_>
+cudaError_t launch_sp(const void* v0, const void* v1, const void* codes,
+                      const void* b, const void* c, void* out, int M, int N,
+                      int K, int K4, float alpha, float beta, int tout,
+                      int packed, int fold, cudaStream_t stream) {
   static bool ready[smt::kMaxDevices] = {};
-  const cudaError_t e = smt::allow_smem(kern, smem, ready);
-  if (e != cudaSuccess) return e;
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, fold);
-  kern<<<grid, smt::kFastThreads, smem, stream>>>(
+  return sp24::launch_sparse<BM_, BN_>(
+      spmm24_sp_kernel<BM_, BN_, O>, ready, M, N, fold, stream,
       static_cast<const bf16*>(v0), static_cast<const bf16*>(v1),
       static_cast<const uint8_t*>(codes), static_cast<const bf16*>(b),
       static_cast<const float*>(c), static_cast<O*>(out), M, N, K, K4, alpha,
-      beta, tout, fold * N);
-  return cudaGetLastError();
+      beta, tout, packed, fold * N);
 }
 
+// tile: index into spmm24_kernel.SP_TILES (sp24::with_tile).
 template <typename O>
-cudaError_t launch_fast_bn(const void* v0, const void* v1, const void* codes,
-                           const void* b, const void* c, void* out, int M,
-                           int N, int K, int K4, float alpha, float beta,
-                           int tout, int packed, int fold,
-                           cudaStream_t stream) {
-#define SMT_SP24_FAST(BNv, PKv)                                              \
-  return launch_fast<O, BNv, PKv>(v0, v1, codes, b, c, out, M, N, K, K4,     \
-                                  alpha, beta, tout, fold, stream)
-  if (N >= 128) {
-    if (packed) SMT_SP24_FAST(128, true);
-    SMT_SP24_FAST(128, false);
-  }
-  if (packed) SMT_SP24_FAST(64, true);
-  SMT_SP24_FAST(64, false);
-#undef SMT_SP24_FAST
+cudaError_t launch_sp_tile(int tile, const void* v0, const void* v1,
+                           const void* codes, const void* b, const void* c,
+                           void* out, int M, int N, int K, int K4,
+                           float alpha, float beta, int tout, int packed,
+                           int fold, cudaStream_t stream) {
+  return sp24::with_tile(tile, [&](auto bm, auto bn) {
+    return launch_sp<O, decltype(bm)::value, decltype(bn)::value>(
+        v0, v1, codes, b, c, out, M, N, K, K4, alpha, beta, tout, packed,
+        fold, stream);
+  });
 }
 
 template <typename T, typename O>
@@ -135,12 +119,12 @@ cudaError_t launch(const void* v0, const void* v1, const void* codes,
 }  // namespace
 
 // M is the plane width: the output has M rows, or 2*M with fold=2 (row-major
-// C only, unpacked codes).
+// C only, unpacked codes). tile picks the sparse tile of the bf16 fast path.
 extern "C" int spmm24_launch(const void* v0, const void* v1, const void* codes,
                              const void* b, const void* c, void* out, int M,
                              int N, int K, int K4, float alpha, float beta,
                              int tout, int packed, int fold, int dtype,
-                             int out_dtype, void* stream) {
+                             int out_dtype, int tile, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (!(fold == 1 || (fold == 2 && !tout && !packed)))
     return (int)cudaErrorInvalidValue;
@@ -152,9 +136,9 @@ extern "C" int spmm24_launch(const void* v0, const void* v1, const void* codes,
 #define SMT_SP24_ARGS \
   v0, v1, codes, b, c, out, M, N, K, K4, alpha, beta, tout, packed, fold, s
   if (fast && out_dtype == smt::kBF16)
-    return launch_fast_bn<bf16>(SMT_SP24_ARGS);
+    return launch_sp_tile<bf16>(tile, SMT_SP24_ARGS);
   if (fast && out_dtype == smt::kF32)
-    return launch_fast_bn<float>(SMT_SP24_ARGS);
+    return launch_sp_tile<float>(tile, SMT_SP24_ARGS);
   if (dtype == smt::kBF16 && out_dtype == smt::kBF16)
     return launch<bf16, bf16>(SMT_SP24_ARGS);
   if (dtype == smt::kBF16 && out_dtype == smt::kF32)

@@ -180,13 +180,6 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// 16-bit lane i (0..7) of a 16-byte vector.
-__device__ __forceinline__ uint32_t lane16(const uint4& u, int i) {
-  const uint32_t w = (i >> 1) == 0 ? u.x : (i >> 1) == 1 ? u.y
-                   : (i >> 1) == 2 ? u.z : u.w;
-  return (w >> ((i & 1) * 16)) & 0xFFFFu;
-}
-
 template <int BM, int BN, int BK, bool A_KMAJOR>
 struct WarpMma {
   static constexpr int WN = kFastThreads / 32 / kFastWarpsM;
@@ -262,12 +255,13 @@ __device__ __forceinline__ void store8<float>(float* dst, const float* v) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// epilogue() with 8 consecutive outputs per thread (16- or 32-byte stores).
-template <typename O, int BM, int BN>
+// epilogue() with 8 consecutive outputs per thread (16- or 32-byte stores),
+// for a block of NT threads.
+template <typename O, int BM, int BN, int NT = kFastThreads>
 __device__ void epilogue_vec(const float* Cs, int ldc, O* out, const float* c,
                              int M, int N, int m0, int n0, float alpha,
                              float beta, bool tout, int ldo) {
-  for (int idx = threadIdx.x; idx < BM * BN / 8; idx += kFastThreads) {
+  for (int idx = threadIdx.x; idx < BM * BN / 8; idx += NT) {
     int r, cc;
     if (tout) {  // 8 consecutive m of one column of C^T
       cc = idx / (BM / 8);

@@ -27,11 +27,18 @@ shard for each tile (comm volume times the tile count, as on the TPU), with
 the cross-tile credit of ``_ring_kernel_tiled`` (``last_odd``) and its own
 launch counter, ``ring_step_tiled_cuda.launches``.
 
-K7 expands A^T in natural k order (as K3 does), so B is taken unpermuted;
-:func:`ring_permute_b` is kept with its contract for callers of the Pallas
-layout. C accumulates in an f32 buffer per rank and the last step writes C
-in ``out_dtype``. Ranks on CPU devices run the same schedule in order with
-the plain version of K7.
+K7 places each kept value at its own k (as K3 does), so B is taken
+unpermuted; :func:`ring_permute_b` is kept with its contract for callers of
+the Pallas layout. C accumulates in an f32 buffer per rank and the last step
+writes C in ``out_dtype``.
+
+On a mesh whose ranks and operands share one card, a ring is replayed as a
+CUDA graph (:mod:`.ring_graph`) once it has been called twice with the same
+operands, mesh, route and step function: the first call runs eagerly, the
+second captures and replays. Meshes over several cards queue every call
+eagerly.
+Ranks on CPU devices run the same schedule in order with the plain version
+of K7, and never capture.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ import torch
 from .. import _build
 from ..containers import Sparse24
 from ..ops.kernels.prune_kernel import DTYPE_CODES
-from ..ops.kernels.spmm24_kernel import expand_planes
+from ..ops.kernels.spmm24_kernel import card_tile, expand_planes
+from . import ring_graph
 from .mesh import Mesh
 from .spmm_sharded import (Ranks, on, pad_rows, plane_slabs, record,
                            rows_of, send, wait)
@@ -134,8 +142,8 @@ def _launch(v0, v1, codes, slot, acc, out, *, src, c0, mt, first, last,
         raise ValueError(f"{what}: only a first-and-last step may omit acc")
     off = plane_window(v0, src, k4s, c0)
     # (v0, v1, codes, slot, acc, out, M, N, K4, ldp, first, last, dtype,
-    #  out_dtype, stream)
-    fn = _build.load("ring24", "ring24_launch", "pppppp" "iiii" "iiii" "p")
+    #  out_dtype, tile, stream)
+    fn = _build.load("ring24", "ring24_launch", "pppppp" "iiii" "iiiii" "p")
     with torch.cuda.device(dev):
         _build.check(fn(
             v0.data_ptr() + off * v0.element_size(),
@@ -146,7 +154,7 @@ def _launch(v0, v1, codes, slot, acc, out, *, src, c0, mt, first, last,
             out.data_ptr() + c0 * n * out.element_size(),
             mt, n, k4s, v0.stride(0), int(first), int(last),
             DTYPE_CODES[v0.dtype], DTYPE_CODES[out.dtype],
-            _build.stream_ptr(v0)), what)
+            card_tile(dev, mt, n, 4 * k4s), _build.stream_ptr(v0)), what)
 
 
 def ring_step_cuda(v0, v1, codes, slot, acc, out, *, src: int, c0: int,
@@ -200,8 +208,35 @@ def _ring(s: Sparse24, b: torch.Tensor, mesh: Mesh, axis: str, out_dtype,
                         f"{out_dtype}")
     step = ((ring_step_tiled_cuda if tiled else ring_step_cuda) if cuda
             else ring_step_plain)
-    home = s.values0.device
 
+    def queue() -> torch.Tensor:
+        return _schedule(s, b, devices, p, k4s, mloc, mt, n_mt, dtype,
+                         out_dtype, step)
+
+    if cuda and ring_graph.captures(devices, s.values0, b):
+        key = ring_graph.graph_key(
+            s.values0, s.values1, s.codes, b, shape=s.shape,
+            out_dtype=out_dtype, route=name, m_tile=mt, devices=devices,
+            step=step)
+        # the wrappers count under their module names, which a caller may
+        # have rebound (a stand-in step with a ``launches`` attribute)
+        counters = tuple(dict.fromkeys(
+            f for f in (ring_step_cuda, ring_step_tiled_cuda)
+            if hasattr(f, "launches")))
+        out = ring_graph.run(key, queue, devices[0], counters)
+    else:
+        out = queue()
+    return out.reshape(*lead, m, n)
+
+
+def _schedule(s: Sparse24, b: torch.Tensor, devices, p: int, k4s: int,
+              mloc: int, mt: int, n_mt: int, dtype, out_dtype,
+              step) -> torch.Tensor:
+    """Queue one ring (every m-tile) on the ranks' streams; returns C
+    ``[rows, n]`` on the planes' device, ready in the caller's stream
+    order."""
+    k4, n, m_total = k4s * p, b.shape[-1], mloc * p
+    home = s.values0.device
     # Per rank: its plane slab, its B shard, two comm slots, an f32
     # accumulator and its C rows (a view of C where it lies on C's device).
     slabs = plane_slabs(s, p, devices)
@@ -266,7 +301,7 @@ def _ring(s: Sparse24, b: torch.Tensor, mesh: Mesh, axis: str, out_dtype,
             with on(rk.compute):
                 out[r * mloc:(r + 1) * mloc].copy_(outs[r], non_blocking=True)
     ranks.end()
-    return out.reshape(*lead, m, n)
+    return out
 
 
 def spmm_24_ring_explicit(s: Sparse24, b: torch.Tensor, mesh: Mesh,

@@ -22,7 +22,7 @@ from typing import Any, Callable, List, NamedTuple, Sequence
 import torch
 
 L2_BYTES = 50 * 1024 * 1024  # H100 SXM L2 cache (NVIDIA data sheet)
-WARMUP = 2  # calls before timing (and at least one per replica)
+WARMUP = 2  # calls per replica before timing
 
 
 class Timing(NamedTuple):
@@ -91,7 +91,9 @@ def _run_ms(fn: Callable[..., Any], sets: List[tuple], iters: int) -> float:
 
 
 def _warm(fn, sets) -> None:
-    for i in range(max(WARMUP, len(sets))):
+    # twice per replica: a K7 ring captures its graph on the second call
+    # with an operand set (parallel/ring_graph.py)
+    for i in range(WARMUP * len(sets)):
         fn(*sets[i % len(sets)])
     if _device(sets).type == "cuda":
         torch.cuda.synchronize()

@@ -3,12 +3,16 @@ at small and ragged shapes the ResNet-50 sweep does not reach (group sizes
 other than 4, n not a multiple of 64, M not a multiple of the tile, every
 ELL tile geometry, mixed input types), through both the bf16 fast paths
 (M and n multiples of 8) and the simple kernels: K1 prune, K2 compress and
-its fused prune+compress route, K3 2:4 SpMM and its fold=2 route, K4 ELL
-gather SpMM, K5 ELL expand SpMM, K6 segmented COO SpMM (ragged m, N
-not a multiple of its 128-column tile, every value and B type, duplicate
-and out-of-range entries) and K7, the ring step, with both rings on logical
-ranks of one card (P = 1, 2, 3, 4, 8), the sharded SpMMs and the rings'
-capacity credits under a delayed rank.
+its fused prune+compress route, K3 2:4 SpMM and its fold=2 route (the
+sparse tensor-core tile at every tile size and at the six bench shapes,
+and a sparse HMMA in the built libraries), K4 ELL gather SpMM, K5 ELL
+expand SpMM, K6 segmented COO SpMM (ragged m, N not a multiple of its
+128-column tile, every value and B type, duplicate and out-of-range
+entries) and K7, the ring step, with both rings on logical ranks of one
+card (P = 1, 2, 3, 4, 8), the sharded SpMMs, the rings' capacity credits
+under a delayed rank, and the rings' CUDA graphs (replay bitwise the eager
+ring, operands read at replay time, launch counts, no capture across
+cards).
 
 These tests need a CUDA card and skip without one. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -85,6 +89,86 @@ def test_spmm24_kernel(gen, m, k, n, dtype, bdtype, odtype, tout, packed):
     want = spmm24_kernel.spmm24_plain(v0, v1, cc, b, **kw)
     tol = TOL[torch.promote_types(dtype, bdtype)]
     assert _rel(got, want) < max(tol, TOL[odtype])
+
+
+BENCH_SHAPES = [(12544, 64, 147), (12544, 64, 576), (12544, 256, 64),
+                (3136, 128, 1152), (784, 256, 1024), (196, 512, 4608)]
+SP_CASES = [dict(), dict(transpose_out=True, packed_codes=True),
+            dict(alpha=0.75, beta=-0.5, c=True),
+            dict(out_dtype=torch.float32, transpose_out=True)]
+
+
+def _sp_check(gen, m, k, n, case, fold=1, batch=1):
+    """K3's bf16 fast path (the sparse tile) against its plain version."""
+    from sparsifyme_tpu_torch.ops.sparse24 import prune_compress_24
+
+    w = torch.randn((batch * m, k), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    s = prune_compress_24(w, fold=fold)
+    kw = dict(k_logical=k, out_dtype=torch.bfloat16)
+    kw.update({key: v for key, v in case.items() if key != "c"})
+    if case.get("c"):
+        kw["c"] = torch.randn((batch * m, n), generator=gen, device="cuda")
+    codes = pack_codes_fp(s.codes) if kw.get("packed_codes") else s.codes
+    if fold == 2:
+        got = spmm24_kernel.spmm24_fold_cuda(s.values0, s.values1, codes, b,
+                                             **kw)
+        want = spmm24_kernel.spmm24_fold_plain(s.values0, s.values1, codes,
+                                               b, **kw)
+    else:
+        got = spmm24_kernel.spmm24_cuda(s.values0, s.values1, codes, b, **kw)
+        want = spmm24_kernel.spmm24_plain(s.values0, s.values1, codes, b,
+                                          **kw)
+    assert got.dtype == kw["out_dtype"] and got.shape == want.shape
+    assert _rel(got, want) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("m,n,k", BENCH_SHAPES)
+@pytest.mark.parametrize("case", range(len(SP_CASES)))
+def test_spmm24_sparse_tile_at_bench_shapes(gen, m, n, k, case):
+    """At the six bench shapes (b=4 folded into rows)."""
+    _sp_check(gen, m, k, n, SP_CASES[case], batch=4)
+
+
+@pytest.mark.parametrize("m,n,k", [(m, n, k) for m, n, k in BENCH_SHAPES
+                                   if k <= 1024])
+@pytest.mark.parametrize("epi", [False, True])
+def test_spmm24_sparse_tile_fold2(gen, m, n, k, epi):
+    _sp_check(gen, m, k, n, SP_CASES[2] if epi else {}, fold=2, batch=4)
+
+
+@pytest.mark.parametrize("tile", range(len(spmm24_kernel.SP_TILES)))
+@pytest.mark.parametrize("m,n,k", [(208, 72, 100), (40, 8, 1000),
+                                   (1040, 264, 147), (48, 136, 64)])
+@pytest.mark.parametrize("case", range(len(SP_CASES)))
+def test_spmm24_sparse_tile_ragged(gen, monkeypatch, tile, m, n, k, case):
+    """Every tile size at ragged M, N and K (k not a multiple of 64, M and
+    N not multiples of the tile), fold 1 and 2."""
+    monkeypatch.setattr(spmm24_kernel, "card_tile", lambda *a, **kw: tile)
+    _sp_check(gen, m, k, n, SP_CASES[case])
+    if case in (0, 2):
+        _sp_check(gen, m, k, n, SP_CASES[case], fold=2)
+
+
+def test_sparse_kernels_run_on_the_sparse_tensor_cores(gen):
+    """The built K3 and K7 libraries hold a sparse HMMA (its SASS opcode
+    carries SP): cuobjdump --dump-sass lib{spmm24,ring24}.so."""
+    import pathlib
+    import subprocess
+
+    from sparsifyme_tpu_torch import _build
+
+    _build.build_all()
+    tool = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
+    for name in ("spmm24", "ring24"):
+        sass = subprocess.run(
+            [str(tool), "--dump-sass", str(_build.build_dir() /
+                                           f"lib{name}.so")],
+            check=True, capture_output=True, text=True).stdout
+        ops = [ln.split()[1] for ln in sass.splitlines()
+               if "HMMA" in ln and len(ln.split()) > 1]
+        assert any(op.startswith("HMMA.SP") for op in ops), (name, ops[:5])
 
 
 @pytest.mark.parametrize("bs,bk", [(16, 16), (48, 32), (64, 64),
@@ -417,16 +501,20 @@ def test_ring_credit_protocol(gen, monkeypatch, tiled, p, t):
     """A long sleep on rank 1's compute stream before its step t (the last
     read of a slot before the left neighbour's next send into it, within a
     tile or across tiles): without the capacity credit that send would
-    overwrite the slot before the delayed contraction reads it."""
+    overwrite the slot before the delayed contraction reads it. The first
+    call runs eagerly; the second captures the ring with the sleep in it
+    and replays it; the third replays that graph."""
     import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_graph
     from sparsifyme_tpu_torch.parallel import ring_kernel as rk
 
     name = "ring_step_tiled_cuda" if tiled else "ring_step_cuda"
     real = getattr(rk, name)
+    per_ring = p * p * (2 if tiled else 1)
     calls = []
 
     def delayed(*a, **kw):
-        if len(calls) == t * p + 1:  # queued step-major: rank 1, step t
+        if len(calls) % per_ring == t * p + 1:  # step-major: rank 1, step t
             torch.cuda._sleep(200_000_000)
         calls.append(1)
         real(*a, **kw)
@@ -436,11 +524,87 @@ def test_ring_credit_protocol(gen, monkeypatch, tiled, p, t):
     s, b = _ring_operand(gen, 256 * p, 128 * p, 64, torch.bfloat16)
     mesh = sp.make_mesh((p,), ("model",), devices=["cuda:0"] * p)
     fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
-    got = fn(s, b, mesh, "model", out_dtype=torch.float32,
-             **(dict(m_tile=128) if tiled else {}))
+    kw = dict(m_tile=128) if tiled else {}
     want = sp.spmm_24(s, b, out_dtype=torch.float32)
-    assert len(calls) == p * p * (2 if tiled else 1)
-    assert _rel(got.cpu(), want.cpu()) < TOL[torch.bfloat16]
+    n0 = delayed.launches
+    ring_graph.clear()
+    for call in range(3):
+        got = fn(s, b, mesh, "model", out_dtype=torch.float32, **kw)
+        assert _rel(got.cpu(), want.cpu()) < TOL[torch.bfloat16]
+        # eager, then the capture; a replay calls no wrapper
+        assert len(calls) == min(call + 1, 2) * per_ring
+        assert delayed.launches == n0 + (call + 1) * per_ring
+    ring_graph.clear()
+
+
+def _ring_case(gen, p=4, rows=512, k=256, n=64):
+    import sparsifyme_tpu_torch as sp
+
+    s, b = _ring_operand(gen, rows * p // 4, k, n, torch.bfloat16)
+    mesh = sp.make_mesh((p,), ("model",), devices=["cuda:0"] * p)
+    return s, b, mesh
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_ring_replay_is_the_eager_ring(gen, monkeypatch, tiled):
+    """The first call queues the ring eagerly and captures nothing; the
+    second captures and replays; the third replays without capturing:
+    bitwise the eager result, within tolerance of the same ring with the
+    plain step, K7's counter still rising by the graph's launches."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_graph
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    ring_graph.clear()
+    s, b, mesh = _ring_case(gen)
+    fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
+    kw = dict(m_tile=64) if tiled else {}
+    counter = rk.ring_step_tiled_cuda if tiled else rk.ring_step_cuda
+    per_ring = 16 * (2 if tiled else 1)
+    n0 = counter.launches
+    eager = fn(s, b, mesh, "model", **kw)
+    assert not ring_graph._cache
+    assert counter.launches == n0 + per_ring
+    for call in (2, 3):
+        replay = fn(s, b, mesh, "model", **kw)
+        assert len(ring_graph._cache) == 1
+        assert counter.launches == n0 + call * per_ring
+        assert torch.equal(replay, eager)
+    name = "ring_step_tiled_cuda" if tiled else "ring_step_cuda"
+    monkeypatch.setattr(rk, name, rk.ring_step_plain)
+    for call in (1, 2):
+        plain = fn(s, b, mesh, "model", **kw)
+        assert len(ring_graph._cache) == call  # another step, another graph
+        assert _rel(replay, plain) < TOL[torch.bfloat16]
+    ring_graph.clear()
+
+
+def test_ring_replay_reads_the_operands_at_replay_time(gen):
+    """B changed in place gives the new product; the first result survives
+    the next call; a new operand runs eagerly, then captures a graph of its
+    own."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_graph
+
+    ring_graph.clear()
+    s, b, mesh = _ring_case(gen)
+    f = sp.spmm_24_ring_explicit
+    f(s, b, mesh, "model")  # eager
+    first = f(s, b, mesh, "model")  # captured and replayed
+    kept = first.clone()
+    b.mul_(-2.0)
+    second = f(s, b, mesh, "model")  # replay on the new contents of b
+    assert len(ring_graph._cache) == 1
+    assert torch.equal(first, kept)
+    assert _rel(second, sp.spmm_24(s, b)) < TOL[torch.bfloat16]
+    assert _rel(second.float(), -2.0 * kept.float()) < TOL[torch.bfloat16]
+    b2 = b.clone()
+    fresh = f(s, b2, mesh, "model")  # eager
+    assert len(ring_graph._cache) == 1
+    assert torch.equal(fresh, second)
+    f(s, b2, mesh, "model")
+    assert len(ring_graph._cache) == 2
+    ring_graph.clear()
 
 
 @pytest.mark.parametrize("p", [2, 4])
@@ -473,11 +637,68 @@ def test_rings_across_cards(gen):
     mesh = sp.make_mesh((p,), ("model",),
                         devices=[f"cuda:{r % cards}" for r in range(p)])
     want = sp.spmm_24(s, b, out_dtype=torch.float32)
+    from sparsifyme_tpu_torch.parallel import ring_graph
+
+    ring_graph.clear()
+    assert not ring_graph.captures(mesh.axis_devices("model"))
     for fn in (sp.spmm_24_ring, sp.spmm_24_ring_explicit,
                sp.spmm_24_ring_tiled):
-        got = fn(s, b, mesh, "model", out_dtype=torch.float32)
-        assert got.device == want.device
-        assert _rel(got, want) < TOL[torch.bfloat16]
+        for _ in range(2):  # meshes over several cards never capture
+            got = fn(s, b, mesh, "model", out_dtype=torch.float32)
+            assert got.device == want.device
+            assert _rel(got, want) < TOL[torch.bfloat16]
+    assert not ring_graph._cache
+
+
+CAPTURE_ACROSS_CARDS = """
+import torch
+d0, d1 = torch.device("cuda:0"), torch.device("cuda:1")
+x0 = torch.randn(1 << 20, device=d0)
+y1 = torch.empty(1 << 20, device=d1)
+out0 = torch.empty(1 << 20, device=d0)
+s1 = torch.cuda.Stream(d1)
+torch.cuda.synchronize(d0)
+torch.cuda.synchronize(d1)
+g = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.device(d0):
+        with torch.cuda.graph(g, stream=torch.cuda.Stream(d0)):
+            ev = torch.cuda.Event()
+            ev.record()
+            s1.wait_event(ev)
+            with torch.cuda.stream(s1):
+                y1.copy_(x0, non_blocking=True)
+                y1.mul_(2)
+            ev2 = torch.cuda.Event()
+            ev2.record(s1)
+            torch.cuda.current_stream(d0).wait_event(ev2)
+            out0.copy_(y1, non_blocking=True)
+    g.replay()
+    torch.cuda.synchronize()
+    print("captured", torch.equal(out0, x0 * 2))
+except Exception as e:
+    print("refused", type(e).__name__, e)
+"""
+
+
+def test_one_capture_cannot_span_cards(gen):
+    """Why meshes over several cards queue their rings eagerly: a capture
+    that forks to a stream of a second card (preallocated buffers, a peer
+    copy and a kernel there, joined back) is refused on this stack. Run in
+    a child process, so the refused capture leaves this one clean. If this
+    starts to pass, ``ring_graph.captures`` may admit such meshes."""
+    import subprocess
+    import sys
+
+    from sparsifyme_tpu_torch.parallel import ring_graph
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    assert not ring_graph.captures([torch.device("cuda", 0),
+                                    torch.device("cuda", 1)])
+    out = subprocess.run([sys.executable, "-c", CAPTURE_ACROSS_CARDS],
+                         capture_output=True, text=True, timeout=300).stdout
+    assert out.startswith("refused"), out
 
 
 def test_ring_kernel_rejects_what_it_does_not_take(gen):
