@@ -23,6 +23,11 @@ Phases, each raising on failure:
      of the ResNet-scale shard's planes, bf16 and f32, every first/last
      flag, whole shards and m-tiles, and at a ragged row count, within
      2e-2 / 1e-4 of its plain version;
+  3b. the gradients: ``spmm_24``, ``spmm_ell`` and ``spmm_ell_expand`` at
+     3136x128x1152 (b=32, bf16) under autograd, the forward through the
+     kernel and the backward of the op's ``autograd.Function``, against
+     autograd through the plain version on the same card tensors: every
+     input's gradient within a relative error of 2e-2;
   4. the bench path: ``run_model_sweep("resnet50")`` over all 49 layers,
      with every launch counter set to 0 just before and read just after;
      prints the sweep's JSON line and fails unless every kernel of the
@@ -56,8 +61,10 @@ Phases, each raising on failure:
   9. one ``{"kernels": [...]}`` line: each route's time at a main-path
      shape beside its plain version, a PyTorch library call computing the
      same function (where one exists) and its bound, with its launches on
-     the four paths and its error against the plain version there (the
-     K5 entry also times K4 on the same operand, ``gather_ms``; the ring
+     the four paths and its error against the plain version there (K4
+     has a second entry at its worst main-path shape, 196x512x4608; K5's
+     entry, at its worst, 12544x256x64, also times K4 on the same operand,
+     ``gather_ms``; the ring
      entries time a whole ring call, with the plain step in K7's place
      for ``plain_ms``, and add K7's own device time in that call,
      ``kernel_ms``, the host's time to queue one, ``enqueue_ms``, the
@@ -67,7 +74,8 @@ Phases, each raising on failure:
      accumulator traffic K7's design adds to the bound's bytes,
      ``design_bytes``; the error is that of the replay after those two;
      on one card ``ms``, ``kernel_ms`` and ``enqueue_ms`` time replays of
-     the captured ring);
+     the captured ring; the K4 and K5 entries also carry ``kernel_ms``, all
+     their kernels' device time per call, and ``enqueue_ms``);
   10. the card line again, then ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -92,6 +100,8 @@ FOLD_SHAPES = [(12544, 64, 147), (12544, 64, 576)]
 ALL_SHAPES = list(dict.fromkeys(SHAPES + EXPAND_SHAPES + FOLD_SHAPES))
 BATCH = 32
 NAMED = (3136, 128, 1152)  # main-path shape of the kernels line
+NAMED_ELL_DEEP = (196, 512, 4608)  # K4's worst main-path shape
+NAMED_EXPAND = (12544, 256, 64)  # K5's worst main-path shape (k < 512)
 NAMED_FOLD = (12544, 64, 576)  # fold needs k4 <= 256
 COO_SHAPES = [(12544, 64, 576), (196, 512, 4608), (3136, 128, 1152)]
 COO_SPARSITIES = (0.5, 0.9, 0.995)
@@ -489,6 +499,71 @@ def phase_pipeline() -> None:
             raise AssertionError(f"{what}: card disagrees with CPU")
 
 
+def phase_grads() -> None:
+    """The backwards of the three differentiable ops at a full-width bench
+    shape (``NAMED``, b=32, bf16): the forward through the kernel and the
+    backward of its ``autograd.Function`` (the JAX VJP's port) against
+    autograd through the plain version on the same card tensors, every
+    input's gradient within 2e-2."""
+    from sparsifyme_tpu_torch.containers import BlockedEll, Sparse24
+    from sparsifyme_tpu_torch.ops import ell as te
+    from sparsifyme_tpu_torch.ops import sparse24 as ts
+    from sparsifyme_tpu_torch.ops.kernels import ell_kernel, spmm24_kernel
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    m, n, k = NAMED
+    a = torch.randn((BATCH, m, k), generator=gen, device="cuda").to(dt)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(dt)
+    s = ts.compress_24(a)
+    e, kp, bkb, _ = harness_ell(a, k)
+    bp = torch.nn.functional.pad(b, (0, 0, 0, kp - k))
+    vals = e.values.reshape(-1, e.values.shape[-1])
+    cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
+    kwe = dict(block_size=128, block_k=bkb, out_dtype=dt)
+
+    def ell(values):
+        return BlockedEll(values, e.col_indices, e.shape, 128, bkb)
+
+    cases = [
+        ("spmm_24", spmm24_kernel.spmm24_cuda, (s.values0, s.values1, b),
+         lambda v0, v1, y: ts.spmm_24(Sparse24(v0, v1, s.codes,
+                                               shape=s.shape), y),
+         lambda v0, v1, y: spmm24_kernel.spmm24_plain(
+             v0, v1, s.codes, y, k_logical=k, out_dtype=dt).reshape(
+                 BATCH, m, n)),
+        ("spmm_ell", ell_kernel.ell_spmm_cuda, (e.values, bp),
+         lambda v, y: te.spmm_ell(ell(v), y),
+         lambda v, y: ell_kernel.ell_spmm_plain(
+             v.reshape(vals.shape), cols, y, **kwe).reshape(e.shape[:-1]
+                                                            + (n,))),
+        ("spmm_ell_expand", ell_kernel.ell_expand_spmm_cuda,
+         (vals.T.contiguous(), bp),
+         lambda v, y: te.spmm_ell_expand(ell(e.values), y, values_km=v),
+         lambda v, y: ell_kernel.ell_expand_spmm_plain(
+             v, cols, y, **kwe).reshape(e.shape[:-1] + (n,))),
+    ]
+    for name, wrapper, inputs, route, plain in cases:
+        grads, cot = [], None
+        for fn in (route, plain):
+            leaves = [x.detach().clone().requires_grad_() for x in inputs]
+            n0 = wrapper.launches
+            out = fn(*leaves)
+            if cot is None:  # the kernel's route
+                if out.grad_fn is None or wrapper.launches != n0 + 1:
+                    raise AssertionError(f"{name}: the kernel did not run "
+                                         "under autograd")
+                cot = torch.randn(out.shape, generator=gen,
+                                  device="cuda").to(out.dtype)
+            grads.append(torch.autograd.grad(out, leaves, cot))
+        for i, (got, want) in enumerate(zip(*grads)):
+            close(name, got, want, dt,
+                  f"{m}x{n}x{k}x{BATCH} bf16 grad of input {i}")
+        del grads, out, cot
+    del a, b, s, e, vals, cols, bp
+    torch.cuda.empty_cache()
+
+
 def _wrappers():
     from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
                                                   prune_kernel, spmm24_kernel)
@@ -523,29 +598,14 @@ def check_launched(counts, routes, path):
 
 
 def phase_main_path():
-    """The 49-layer sweep; also returns the expand kernel's launches per
-    unique shape (to pick the shape of its kernels-line entry)."""
+    """The 49-layer sweep."""
     from sparsifyme_tpu_torch.bench import harness
-    from sparsifyme_tpu_torch.ops.kernels import ell_kernel
 
-    per_shape = {}
-    bench_shape = harness.bench_shape
-
-    def counted(shape, **kw):
-        n0 = ell_kernel.ell_expand_spmm_cuda.launches
-        out = bench_shape(shape, **kw)
-        per_shape[tuple(shape)] = ell_kernel.ell_expand_spmm_cuda.launches - n0
-        return out
-
-    harness.bench_shape = counted
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
-        results, summary = harness.run_model_sweep("resnet50", iters=10,
-                                                   reps=3, verbose=True)
-        counts = launch_counts()
-    finally:
-        harness.bench_shape = bench_shape
+    reset_counts()
+    t0 = time.perf_counter()
+    results, summary = harness.run_model_sweep("resnet50", iters=10, reps=3,
+                                               verbose=True)
+    counts = launch_counts()
     print(f"bench path: {len(results)} layers in "
           f"{time.perf_counter() - t0:.1f} s; launches {counts}", flush=True)
     if len(results) != 49:
@@ -557,7 +617,7 @@ def phase_main_path():
         v = summary[key]
         if not (math.isfinite(v) and v > 0):
             raise AssertionError(f"{key} = {v}")
-    return counts, per_shape
+    return counts
 
 
 def phase_plan_path():
@@ -752,9 +812,9 @@ def _ring_design_bytes(rows, n, p):
     return 8.0 * (p - 1) * rows * n
 
 
-def _ring24_device_ms(fn, ops, calls=5):
-    """K7's own device time per call of ``fn``: the durations of its
-    ``ring24`` kernels summed by ``torch.profiler`` (ranks' streams may
+def _device_ms(fn, ops, key="", calls=5):
+    """Device time per call of ``fn``: the durations of the kernels whose
+    names hold ``key`` summed by ``torch.profiler`` (ranks' streams may
     overlap, so the sum can exceed the span they keep the card busy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -765,10 +825,21 @@ def _ring24_device_ms(fn, ops, calls=5):
             fn(*ops)
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "ring24" in e.key)
+             if e.device_type == DeviceType.CUDA and key in e.key)
     if not us > 0:
-        raise AssertionError("the profiler saw no ring24 kernel")
+        raise AssertionError(f"the profiler saw no kernel named *{key}*")
     return us / 1e3 / calls
+
+
+def _enqueue_ms(fn, ops, calls=10):
+    """The host's time to queue one call without waiting for the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*ops)
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def _plain_ring(fn, mesh):
@@ -786,7 +857,7 @@ def _plain_ring(fn, mesh):
     return run
 
 
-def phase_kernel_line(path_counts, expand_per_shape) -> dict:
+def phase_kernel_line(path_counts) -> dict:
     from sparsifyme_tpu_torch.bench import roofline as rl
     from sparsifyme_tpu_torch.ops.coo import pack_coo
     from sparsifyme_tpu_torch.ops.ell import ell_to_dense, ell_values_kmajor
@@ -845,6 +916,23 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
                 rows * kp + 2 * kp * n + 2 * rows * n)),
     ]
 
+    # K4 also at its worst main-path shape against torch.matmul
+    m, n, k = NAMED_ELL_DEEP
+    rows = m * BATCH
+    a, b = operands(m, n, k)
+    e, kp, bkd, _ = harness_ell(a, k)
+    kwd = dict(block_size=128, block_k=bkd, out_dtype=dt)
+    bpd = torch.nn.functional.pad(b, (0, 0, 0, kp - k))
+    specs.append((
+        "spmm_ell", f"{m}x{n}x{k}x{BATCH} bf16 bk={bkd}",
+        lambda *x: ell_kernel.ell_spmm_cuda(*x, **kwd),
+        lambda *x: ell_kernel.ell_spmm_plain(*x, **kwd),
+        (e.values.reshape(-1, e.values.shape[-1]),
+         e.col_indices.reshape(-1, e.col_indices.shape[-1]), bpd),
+        (torch.matmul, (ell_to_dense(e).reshape(-1, kp), bpd)),
+        _bound(2.0 * rows * n * k / 2 * kp / k, rl.H100.dense_tflops,
+               rows * kp + 2 * kp * n + 2 * rows * n)))
+
     # the fold=2 route at a main-path shape that fold accepts
     m, n, k = NAMED_FOLD
     rows = m * BATCH
@@ -860,10 +948,8 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
         _bound(2.0 * rows * n * k, rl.H100.sparse24_tflops,
                1.25 * rows * k + 2 * k * n + 2 * rows * n)))
 
-    # K5 at the k < 512 shape whose sweep launched it most
-    m, n, k, _ = max((sh for sh, c in expand_per_shape.items() if c > 0),
-                     key=lambda sh: (expand_per_shape[sh],
-                                     sh[0] * sh[1] * sh[2]))
+    # K5 at its worst main-path shape against torch.matmul
+    m, n, k = NAMED_EXPAND
     a, b = operands(m, n, k)
     e, kp, bkb, _ = harness_ell(a, k)
     vkm = ell_values_kmajor(e)
@@ -956,17 +1042,14 @@ def phase_kernel_line(path_counts, expand_per_shape) -> dict:
         lib_ms = (time_kernel(lib[0], lib[1], iters=20, reps=5).ms
                   if lib else None)
         by_path = {p: path_counts[p][name] for p in PATHS}
+        if name.startswith("ring_step") or name.startswith("spmm_ell"):
+            # "ms" times calls as a caller sees them; the kernels' own
+            # device time beside it, and the host's time to queue one call
+            # without waiting for the card (near "ms", the host bounds it)
+            extra["kernel_ms"] = _device_ms(
+                kern, ops, "ring24" if name.startswith("ring") else "")
+            extra["enqueue_ms"] = _enqueue_ms(kern, ops)
         if name.startswith("ring_step"):
-            # "ms" times a whole ring call; K7's own device time beside it,
-            # and the host's time to queue one call without waiting for the
-            # card (near "ms", the host bounds the ring)
-            extra["kernel_ms"] = _ring24_device_ms(kern, ops)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(10):
-                kern(*ops)
-            extra["enqueue_ms"] = (time.perf_counter() - t0) * 1e3 / 10
-            torch.cuda.synchronize()
             extra["design_bytes"] = design_bytes
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1007,15 +1090,16 @@ def main() -> int:
     print("kernels against their plain versions:", flush=True)
     phase_kernels()
     phase_pipeline()
+    print("gradients against the plain versions:", flush=True)
+    phase_grads()
     counts = {}
-    counts["bench"], expand_per_shape = phase_main_path()
+    counts["bench"] = phase_main_path()
     counts["plan"] = phase_plan_path()
     counts["coo"] = phase_coo_path()
     counts["ring"] = phase_ring_path()
     print("drivers and quick configs:", flush=True)
     phase_drivers()
-    print(json.dumps(phase_kernel_line(counts, expand_per_shape)),
-          flush=True)
+    print(json.dumps(phase_kernel_line(counts)), flush=True)
     print(line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,23 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}; use cuda or cpu")
 
 
+def needs_grad(*tensors) -> bool:
+    """True where autograd would record a call on ``tensors``: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """A CUDA route with no backward raises where autograd would record it,
+    rather than return a result that carries no graph."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what} has no backward on the card (the JAX package gives it "
+            "no VJP either): call it under torch.no_grad(), or with inputs "
+            "that do not require grad")
+
+
 def resolve_device(device=None) -> torch.device:
     """Entry points that create tensors: ``None`` means the GPU. With no
     GPU this raises instead of moving to the CPU."""

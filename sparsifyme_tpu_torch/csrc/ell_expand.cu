@@ -19,17 +19,18 @@
 // A bytes at 50% block sparsity; n=64 layers are bound by device-memory
 // bytes, wide-n layers by tensor-core operations. Design: the TPU version
 // zero-filled a dense A^T tile and ran dense operations, because its matrix
-// unit wanted deep contractions; here nothing is expanded. A block owns rows
-// of one block-row and an n-tile. It first lists the slots that reach the
-// product (dropping a slot that a later slot of the same block-column
-// overrides), then for each listed slot loads that slot's k-major slab,
-// coalesced along M (16-byte loads on the bf16 fast path), stages the
-// matching B rows, and accumulates with bf16 tensor-core MMAs (wmma, f32
-// accumulators) exactly as K3 does with its expanded A^T slab. The bf16 fast
-// path (bs a multiple of 128, bk of 32) uses 128 x 128 tiles (128 x 64 where
-// n < 128) and two shared-memory buffers; other block sizes, and f32 (plain
-// f32 FMAs, never TF32), take a simple kernel whose tile is the largest of
+// unit wanted deep contractions; here nothing is expanded, and only the
+// slots that reach the product (dropping a slot that a later slot of the
+// same block-column overrides) are read and multiplied. The bf16 path (bs a
+// multiple of 128, bk of 32, N of 8, 16-byte aligned operands) is the Hopper
+// tile of ell_tile.cuh, whose producer walks only those slots and whose
+// wgmma reads the k-major slabs M-major, run with the plan the wrapper
+// passes (bn != 0). Other block sizes, and f32 (plain f32 FMAs, never TF32),
+// take a simple kernel: a block owns rows of one block-row and an n-tile,
+// lists the live slots, then stages each one's k-major slab (coalesced along
+// M) and the matching B rows for the MMAs; its tile is the largest of
 // 128/64/16 rows dividing bs.
+#include "ell_tile.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -118,120 +119,6 @@ expand_kernel(const T* __restrict__ values_km, const int* __restrict__ cols,
                        tout != 0, N);
 }
 
-// bf16 fast path (bs a multiple of 128, bk a multiple of 32, N a multiple of
-// 8, aligned operands): 128 x BN tiles, BK-deep steps over (listed slot,
-// k-slab), 16-byte loads, double-buffered.
-template <int BN, int BK>
-struct ExpandLoader {
-  static constexpr int NT = smt::kFastThreads;
-  static constexpr int A_VECS = BK * 128 / 8 / NT;
-  static constexpr int B_VECS = BK * BN / 8 / NT;
-  const bf16* values_km;
-  const int* rcols;
-  const int* live;
-  const bf16* B;
-  int M, N, Kb, bk, m0, n0, steps_per_slot;
-  uint4 ra[A_VECS], rb[B_VECS];
-
-  __device__ void fetch(int s) {
-    const int e = live[s / steps_per_slot];
-    const int kk = (s % steps_per_slot) * BK;
-    const long long col = rcols[e];
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int v = threadIdx.x + i * NT;
-      const int kr = v / 16, ms = (v % 16) * 8;
-      ra[i] = *reinterpret_cast<const uint4*>(
-          values_km + (size_t)(e * bk + kk + kr) * M + m0 + ms);
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int v = threadIdx.x + i * NT;
-      const int kr = v / (BN / 8), cc = (v % (BN / 8)) * 8;
-      const long long gk = col * bk + kk + kr;
-      const int gn = n0 + cc;
-      rb[i] = (gk < Kb && gn < N)
-                  ? *reinterpret_cast<const uint4*>(B + (size_t)gk * N + gn)
-                  : make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  __device__ void stash(bf16* As, int lda, bf16* Bs, int ldb) const {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int v = threadIdx.x + i * NT;
-      const int kr = v / 16, ms = (v % 16) * 8;
-      *reinterpret_cast<uint4*>(As + kr * lda + ms) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int v = threadIdx.x + i * NT;
-      const int kr = v / (BN / 8), cc = (v % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + kr * ldb + cc) = rb[i];
-    }
-  }
-};
-
-template <typename O, int BN, int BK>
-__global__ void __launch_bounds__(smt::kFastThreads, 2)
-expand_fast_kernel(const bf16* __restrict__ values_km,
-                   const int* __restrict__ cols, const bf16* __restrict__ B,
-                   O* __restrict__ out, int M, int N, int Kb, int bs, int bk,
-                   int ell, int tout) {
-  extern __shared__ __align__(128) unsigned char smem_dyn[];
-  __shared__ int live[kMaxEll];
-  ExpandLoader<BN, BK> ld;
-  ld.values_km = values_km;
-  ld.B = B;
-  ld.M = M;
-  ld.N = N;
-  ld.Kb = Kb;
-  ld.bk = bk;
-  ld.m0 = blockIdx.x * 128;
-  ld.n0 = blockIdx.y * BN;
-  ld.steps_per_slot = bk / BK;
-  ld.rcols = cols + (size_t)(ld.m0 / bs) * ell;
-  ld.live = live;
-  const int nlive = live_slots(ld.rcols, ell, (Kb + bk - 1) / bk, live);
-  smt::pipelined_tile<128, BN, BK, true>(ld, nlive * (bk / BK), smem_dyn, out,
-                                         nullptr, M, N, ld.m0, ld.n0, 1.f,
-                                         0.f, tout != 0, N);
-}
-
-template <typename O, int BN, int BK>
-cudaError_t launch_fast(const void* values_km, const void* cols,
-                        const void* b, void* out, int M, int N, int Kb, int bs,
-                        int bk, int ell, int tout, cudaStream_t stream) {
-  constexpr int smem = smt::PipeShape<128, BN, BK, true>::SMEM;
-  auto kern = expand_fast_kernel<O, BN, BK>;
-  static bool ready[smt::kMaxDevices] = {};
-  const cudaError_t e = smt::allow_smem(kern, smem, ready);
-  if (e != cudaSuccess) return e;
-  dim3 grid(M / 128, (N + BN - 1) / BN);
-  kern<<<grid, smt::kFastThreads, smem, stream>>>(
-      static_cast<const bf16*>(values_km), static_cast<const int*>(cols),
-      static_cast<const bf16*>(b), static_cast<O*>(out), M, N, Kb, bs, bk,
-      ell, tout);
-  return cudaGetLastError();
-}
-
-template <typename O>
-cudaError_t launch_fast_tile(const void* values_km, const void* cols,
-                             const void* b, void* out, int M, int N, int Kb,
-                             int bs, int bk, int ell, int tout,
-                             cudaStream_t stream) {
-#define SMT_EXP_FAST(BNv, BKv)                                             \
-  return launch_fast<O, BNv, BKv>(values_km, cols, b, out, M, N, Kb, bs, bk, \
-                                  ell, tout, stream)
-  if (N >= 128) {
-    if (bk % 64 == 0) SMT_EXP_FAST(128, 64);
-    SMT_EXP_FAST(128, 32);
-  }
-  if (bk % 64 == 0) SMT_EXP_FAST(64, 64);
-  SMT_EXP_FAST(64, 32);
-#undef SMT_EXP_FAST
-}
-
 template <typename T, typename O, int BM, int BK>
 cudaError_t launch_tile(const void* values_km, const void* cols, const void* b,
                         void* out, int M, int N, int Kb, int bs, int bk,
@@ -268,23 +155,28 @@ cudaError_t launch(const void* values_km, const void* cols, const void* b,
 
 }  // namespace
 
+// plan: bn (0: the simple kernels), bk_step, stages, splits, blocks per SM
+// and grid of the Hopper tile; ws is its f32 workspace [splits, M, N] when
+// splits > 1.
 extern "C" int ell_expand_launch(const void* values_km, const void* cols,
-                                 const void* b, void* out, int M, int N,
-                                 int Kb, int bs, int bk, int ell, int tout,
-                                 int dtype, int out_dtype, void* stream) {
+                                 const void* b, void* out, void* ws, int M,
+                                 int N, int Kb, int bs, int bk, int ell,
+                                 int tout, int dtype, int out_dtype, int bn,
+                                 int bk_step, int stages, int splits,
+                                 int ctas, int grid, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (bs <= 0 || bs % 16 != 0 || M % bs != 0 || ell < 0 || ell > kMaxEll ||
       !(bk == 16 || bk == 32 || bk == 64 || bk == 128))
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N <= 0) return (int)cudaSuccess;
-  const bool fast = dtype == smt::kBF16 && bs % 128 == 0 && bk % 32 == 0 &&
-                    N % 8 == 0 && smt::aligned16(values_km) &&
-                    smt::aligned16(b) && smt::aligned16(out);
+  if (bn != 0)
+    return dtype == smt::kBF16
+               ? (int)ellt::run<true>(values_km, cols, b, nullptr, out, ws, M,
+                                      N, Kb, bs, bk, ell, 1.f, 0.f, tout,
+                                      out_dtype, bn, bk_step, stages, splits,
+                                      ctas, grid, s)
+               : (int)cudaErrorInvalidValue;
 #define SMT_EXP_ARGS values_km, cols, b, out, M, N, Kb, bs, bk, ell, tout, s
-  if (fast && out_dtype == smt::kBF16)
-    return launch_fast_tile<bf16>(SMT_EXP_ARGS);
-  if (fast && out_dtype == smt::kF32)
-    return launch_fast_tile<float>(SMT_EXP_ARGS);
   if (dtype == smt::kBF16 && out_dtype == smt::kBF16)
     return launch<bf16, bf16>(SMT_EXP_ARGS);
   if (dtype == smt::kBF16 && out_dtype == smt::kF32)

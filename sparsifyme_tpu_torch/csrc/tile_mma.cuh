@@ -167,75 +167,13 @@ constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 
 // ---------------------------------------------------------------------------
-// bf16 fast path: 16-byte vector loads staged in registers, two shared-memory
-// buffers (the loads of step s+1 are in flight while step s multiplies), one
-// barrier per step, and kFastThreads threads as a 2 x 2 grid of warps with
-// (BM/2) x (BN/2) warp tiles (64 x 64 for a 128 x 128 tile: each fragment
-// loaded from shared memory feeds four MMAs). Needs M and N multiples of 8
-// and 16-byte aligned operands.
+// Pieces of the bf16 fast paths (sp24_tile.cuh): 16-byte aligned operands and
+// a vectorised epilogue for blocks of kFastThreads threads.
 constexpr int kFastThreads = 128;
-constexpr int kFastWarpsM = 2;
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
-
-template <int BM, int BN, int BK, bool A_KMAJOR>
-struct WarpMma {
-  static constexpr int WN = kFastThreads / 32 / kFastWarpsM;
-  static constexpr int TM = BM / kFastWarpsM / 16;  // fragments per warp, m
-  static constexpr int TN = BN / WN / 16;           // fragments per warp, n
-  static_assert(TM >= 1 && TN >= 1 && BK % 16 == 0, "tile");
-  using ALayout = typename std::conditional<A_KMAJOR, nvcuda::wmma::col_major,
-                                            nvcuda::wmma::row_major>::type;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      acc[TM][TN];
-  int row0, col0;
-
-  __device__ void init() {
-    const int warp = threadIdx.x / 32;
-    row0 = (warp % kFastWarpsM) * TM * 16;
-    col0 = (warp / kFastWarpsM) * TN * 16;
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ void step(const bf16* As, int lda, const bf16* Bs, int ldb) {
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16, ALayout>
-          a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = row0 + i * 16;
-        nvcuda::wmma::load_matrix_sync(
-            a[i], A_KMAJOR ? As + kk * lda + r : As + r * lda + kk, lda);
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                               nvcuda::wmma::row_major>
-            b;
-        nvcuda::wmma::load_matrix_sync(b, Bs + kk * ldb + col0 + j * 16, ldb);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-          nvcuda::wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-  }
-
-  __device__ void store(float* Cs, int ldc) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        nvcuda::wmma::store_matrix_sync(
-            Cs + (row0 + i * 16) * ldc + col0 + j * 16, acc[i][j], ldc,
-            nvcuda::wmma::mem_row_major);
-  }
-};
 
 template <typename O>
 __device__ __forceinline__ void store8(O* dst, const float* v);
@@ -287,50 +225,6 @@ __device__ void epilogue_vec(const float* Cs, int ldc, O* out, const float* c,
     }
     store8<O>(out + off, v);
   }
-}
-
-// Shared-memory layout of pipelined_tile: two A/B stage buffers, reused as
-// the f32 C tile for the epilogue. SMEM bytes of dynamic shared memory.
-template <int BM, int BN, int BK, bool A_KMAJOR>
-struct PipeShape {
-  static constexpr int LDA = A_KMAJOR ? BM + 8 : BK + 8;
-  static constexpr int LDB = BN + 8;
-  static constexpr int LDC = BN + 4;
-  static constexpr int A_ELEMS = A_KMAJOR ? BK * LDA : BM * LDA;
-  static constexpr int STAGE = A_ELEMS + BK * LDB;  // bf16 elements
-  static constexpr int AB_BYTES = 2 * STAGE * 2;
-  static constexpr int C_BYTES = BM * LDC * 4;
-  static constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-};
-
-// Runs `stages` k-steps of a BM x BN tile: the loader's fetch(s) brings step
-// s into registers, stash(As, Bs) writes it to a shared-memory buffer.
-template <int BM, int BN, int BK, bool A_KMAJOR, typename O, typename Loader>
-__device__ __forceinline__ void pipelined_tile(Loader& ld, int stages,
-                                               unsigned char* smem, O* out,
-                                               const float* c, int M, int N,
-                                               int m0, int n0, float alpha,
-                                               float beta, bool tout,
-                                               int ldo) {
-  using S = PipeShape<BM, BN, BK, A_KMAJOR>;
-  bf16* base = reinterpret_cast<bf16*>(smem);
-  WarpMma<BM, BN, BK, A_KMAJOR> mma;
-  mma.init();
-  if (stages > 0) ld.fetch(0);
-  for (int s = 0; s < stages; ++s) {
-    bf16* As = base + (s & 1) * S::STAGE;
-    bf16* Bs = As + S::A_ELEMS;
-    ld.stash(As, S::LDA, Bs, S::LDB);
-    __syncthreads();  // step s staged; every warp is done with step s-1
-    if (s + 1 < stages) ld.fetch(s + 1);
-    mma.step(As, S::LDA, Bs, S::LDB);
-  }
-  __syncthreads();
-  float* Cs = reinterpret_cast<float*>(smem);
-  mma.store(Cs, S::LDC);
-  __syncthreads();
-  epilogue_vec<O, BM, BN>(Cs, S::LDC, out, c, M, N, m0, n0, alpha, beta,
-                          tout, ldo);
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, once per

@@ -178,6 +178,10 @@ def spmm_coo_segmented(
     if packed is None:
         packed = pack_coo(a, block_rows)
     b3 = b.reshape(math.prod(lead), k, n)
-    fn = spmm_coo_cuda if _build.use_kernel(b3) else spmm_coo_plain
+    if _build.use_kernel(b3):
+        _build.refuse_grad("spmm_coo_segmented", a.values, b, *packed)
+        fn = spmm_coo_cuda
+    else:
+        fn = spmm_coo_plain
     out = fn(*packed, b3, m=m, block_rows=block_rows)
     return out.reshape(*lead, m, n).to(out_dtype)

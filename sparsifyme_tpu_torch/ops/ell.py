@@ -3,7 +3,8 @@
 Counterpart of ``sparsifyme_tpu.ops.ell``. :func:`spmm_ell` runs kernel K4
 and :func:`spmm_ell_expand` kernel K5 on CUDA tensors, and their plain
 versions on CPU tensors; building and densifying the format is plain
-PyTorch on either device.
+PyTorch on either device. Both SpMMs are differentiable in ``values`` and
+``b`` (and ``c``) through the JAX package's VJPs, on either device.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from ..containers import BlockedEll
@@ -104,13 +106,74 @@ def spmm_ell(
     cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
     if c is not None and beta != 0.0 and not transpose_out:
         c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
-    fn = ell_spmm_cuda if _build.use_kernel(values) else ell_spmm_plain
-    out = fn(values, cols, b, block_size=e.block_size, block_k=e.block_k,
-             out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
-             transpose_out=transpose_out)
+    if c is None or beta == 0.0:
+        c = None
+    cfg = (e.block_size, e.block_k, out_dtype, alpha, beta, transpose_out)
+    args = (values, cols, b, c)
+    out = (_SpmmEll.apply(*args, cfg) if _build.needs_grad(*args)
+           else _ell_forward(*args, cfg))
     if transpose_out:
         return out
     return out.reshape(*lead, m, n)
+
+
+def _ell_forward(values, cols, b, c, cfg) -> torch.Tensor:
+    """K4 on CUDA values, its plain version on CPU ones."""
+    bs, bk, out_dtype, alpha, beta, transpose_out = cfg
+    fn = ell_spmm_cuda if _build.use_kernel(values) else ell_spmm_plain
+    return fn(values, cols, b, block_size=bs, block_k=bk,
+              out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
+              transpose_out=transpose_out)
+
+
+def _ell_adjoints(values, cols, b, gc, bs, bk, need_values, need_b):
+    """The JAX package's ELL adjoints for row-major ``values [M, ell*bk]``
+    and the product's cotangent ``gc [M, n]`` (f32): A densified once
+    (repeated block columns add, as ``ell_to_dense`` does), ``db = A^T
+    gc`` and ``dvalues = ell_pack(gc B^T)``. B is zero-padded to whole
+    blocks; ``db`` keeps B's rows."""
+    kb = b.shape[0]
+    kp = -(-kb // bk) * bk
+    m = values.shape[0]
+    dvalues = db = None
+    if need_b:
+        a = ell_to_dense(BlockedEll(values=values.to(torch.float32),
+                                    col_indices=cols, shape=(m, kp),
+                                    block_size=bs, block_k=bk))
+        db = (a.T @ gc)[:kb].to(b.dtype)
+    if need_values:
+        bp = F.pad(b.to(torch.float32), (0, 0, 0, kp - kb))
+        dvalues = ell_pack(gc @ bp.T, cols, bs, bk).to(values.dtype)
+    return dvalues, db
+
+
+class _SpmmEll(torch.autograd.Function):
+    """``spmm_ell`` for autograd: the forward as K4 or its plain version
+    computes it, the backward the JAX package's VJP
+    (``sparsifyme_tpu/ops/ell.py:_spmm_ell_bwd``) around the alpha/beta/c
+    epilogue that JAX differentiates outside its core: ``g_core = alpha *
+    g`` (C^T cotangents transposed first), then :func:`_ell_adjoints`, and
+    ``dc = beta * g``; ``col_indices`` get none. Like the reference, the
+    backward densifies: plain products, no kernel."""
+
+    @staticmethod
+    def forward(ctx, values, cols, b, c, cfg):
+        ctx.save_for_backward(values, cols, b)
+        ctx.cfg = cfg
+        ctx.c_dtype = None if c is None else c.dtype
+        return _ell_forward(values, cols, b, c, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, cols, b = ctx.saved_tensors
+        bs, bk, _, alpha, beta, transpose_out = ctx.cfg
+        need_values, _, need_b, need_c, _ = ctx.needs_input_grad
+        g32 = g.to(torch.float32)
+        gc = (g32.T if transpose_out else g32) * alpha
+        dvalues, db = _ell_adjoints(values, cols, b, gc, bs, bk or bs,
+                                    need_values, need_b)
+        dc = (beta * g32).to(ctx.c_dtype) if need_c else None
+        return dvalues, None, db, dc, None
 
 
 def ell_values_kmajor(e: BlockedEll) -> torch.Tensor:
@@ -128,7 +191,7 @@ def spmm_ell_expand(
     values_km: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Blocked-ELL SpMM in the expand formulation, the small-k
-    counterpart of :func:`spmm_ell` (forward only).
+    counterpart of :func:`spmm_ell`.
 
     Reads k-major values (pass ``values_km`` from :func:`ell_values_kmajor`
     to keep the relayout out of the hot path). Where two slots of a
@@ -142,10 +205,47 @@ def spmm_ell_expand(
     if values_km is None:
         values_km = ell_values_kmajor(e)
     cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
-    fn = (ell_expand_spmm_cuda if _build.use_kernel(values_km)
-          else ell_expand_spmm_plain)
-    out = fn(values_km, cols, b, block_size=e.block_size, block_k=e.block_k,
-             out_dtype=out_dtype, transpose_out=transpose_out)
+    cfg = (e.block_size, e.block_k, out_dtype, transpose_out)
+    args = (values_km, cols, b)
+    out = (_SpmmEllExpand.apply(*args, cfg) if _build.needs_grad(*args)
+           else _expand_forward(*args, cfg))
     if transpose_out:
         return out
     return out.reshape(*lead, m, n)
+
+
+def _expand_forward(values_km, cols, b, cfg) -> torch.Tensor:
+    """K5 on CUDA values, its plain version on CPU ones."""
+    bs, bk, out_dtype, transpose_out = cfg
+    fn = (ell_expand_spmm_cuda if _build.use_kernel(values_km)
+          else ell_expand_spmm_plain)
+    return fn(values_km, cols, b, block_size=bs, block_k=bk,
+              out_dtype=out_dtype, transpose_out=transpose_out)
+
+
+class _SpmmEllExpand(torch.autograd.Function):
+    """``spmm_ell_expand`` for autograd: the forward as K5 or its plain
+    version computes it, the backward the JAX package's VJP
+    (``sparsifyme_tpu/ops/ell.py:_spmm_ell_expand_bwd``): the adjoints of
+    :func:`_ell_adjoints` for ``values_km.T``, ``dvalues`` transposed back
+    to k-major. As written there, A is densified with ``ell_to_dense``,
+    which adds repeated block columns, while the forward keeps the last
+    slot: for a repeated column the backward is that of the summed
+    product."""
+
+    @staticmethod
+    def forward(ctx, values_km, cols, b, cfg):
+        ctx.save_for_backward(values_km, cols, b)
+        ctx.cfg = cfg
+        return _expand_forward(values_km, cols, b, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        values_km, cols, b = ctx.saved_tensors
+        bs, bk, _, transpose_out = ctx.cfg
+        need_values, _, need_b, _ = ctx.needs_input_grad
+        g32 = g.to(torch.float32)
+        dvalues, db = _ell_adjoints(values_km.T, cols, b,
+                                    g32.T if transpose_out else g32, bs,
+                                    bk or bs, need_values, need_b)
+        return None if dvalues is None else dvalues.T, None, db, None

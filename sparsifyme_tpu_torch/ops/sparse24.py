@@ -3,7 +3,10 @@
 Counterpart of ``sparsifyme_tpu.ops.sparse24`` (the prune -> compress ->
 matmul pipeline of the reference's cusparseLt spmma). :func:`compress_24`
 and :func:`prune_compress_24` run kernel K2 and :func:`spmm_24` kernel K3
-on CUDA tensors, and their plain versions on CPU tensors.
+on CUDA tensors, and their plain versions on CPU tensors. :func:`spmm_24` on
+fold=1 operands is differentiable in the planes, ``b`` and ``c`` through the
+JAX package's VJP, on either device; the fold=2 route has no VJP there and
+raises on the card under grad.
 
 Compressed layout (see :class:`~sparsifyme_tpu_torch.containers.Sparse24`):
 k-major, batch-folded planes ``[k4, M]``, k padded to a multiple of 64, or
@@ -140,21 +143,84 @@ def spmm_24(
                 "[Mf, 2n] -> [M, n] un-fold is only free in row-major C)")
         if c is not None and beta != 0.0:
             c = c.reshape(-1, c.shape[-1])
-        fn = (spmm24_fold_cuda if _build.use_kernel(s.values0)
-              else spmm24_fold_plain)
+        if _build.use_kernel(s.values0):
+            # as in JAX: "no VJP -- train with fold=1 operands"
+            _build.refuse_grad("spmm_24 on fold=2 operands", s.values0,
+                               s.values1, b, c)
+            fn = spmm24_fold_cuda
+        else:
+            fn = spmm24_fold_plain
         out = fn(s.values0, s.values1, s.codes, b, k_logical=k,
                  out_dtype=out_dtype, alpha=alpha, beta=beta, c=c)
         return out.reshape(*lead, m, n)
-    codes = pack_codes_fp(s.codes) if packed_codes else s.codes
     if c is not None and beta != 0.0 and not transpose_out:
         c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
-    fn = spmm24_cuda if _build.use_kernel(s.values0) else spmm24_plain
-    out = fn(s.values0, s.values1, codes, b, k_logical=k,
-             out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
-             transpose_out=transpose_out, packed_codes=packed_codes)
+    if c is None or beta == 0.0:
+        c = None
+    cfg = (k, out_dtype, alpha, beta, transpose_out, packed_codes)
+    args = (s.values0, s.values1, s.codes, b, c)
+    out = (_Spmm24.apply(*args, cfg) if _build.needs_grad(*args)
+           else _spmm24_forward(*args, cfg))
     if transpose_out:
         return out
     return out.reshape(*lead, m, n)
+
+
+def _spmm24_forward(v0, v1, codes, b, c, cfg) -> torch.Tensor:
+    """K3 on CUDA planes, its plain version on CPU ones."""
+    k_logical, out_dtype, alpha, beta, transpose_out, packed = cfg
+    fn = spmm24_cuda if _build.use_kernel(v0) else spmm24_plain
+    return fn(v0, v1, pack_codes_fp(codes) if packed else codes, b,
+              k_logical=k_logical, out_dtype=out_dtype, alpha=alpha,
+              beta=beta, c=c, transpose_out=transpose_out,
+              packed_codes=packed)
+
+
+class _Spmm24(torch.autograd.Function):
+    """``spmm_24`` (fold=1) for autograd: the forward as the kernel or the
+    plain version computes it, the backward the JAX package's VJP
+    (``sparsifyme_tpu/ops/sparse24.py:_spmm24_bwd``) around the alpha/beta/c
+    epilogue that JAX differentiates outside its core:
+    ``g_core = alpha * g`` (C^T cotangents transposed first), ``db = A^T
+    g_core`` with A decompressed once, ``dv0`` / ``dv1`` the k-major
+    ``b g_core^T`` sampled at the kept positions ``codes >> 2`` and ``codes
+    & 3`` of each group, ``dc = beta * g``; codes get none. Like the
+    reference, the backward densifies: plain products, no kernel."""
+
+    @staticmethod
+    def forward(ctx, v0, v1, codes, b, c, cfg):
+        ctx.save_for_backward(v0, v1, codes, b)
+        ctx.cfg = cfg
+        ctx.c_dtype = None if c is None else c.dtype
+        return _spmm24_forward(v0, v1, codes, b, c, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        v0, v1, codes, b = ctx.saved_tensors
+        k_logical, _, alpha, beta, transpose_out, _ = ctx.cfg
+        need_v0, need_v1, _, need_b, need_c, _ = ctx.needs_input_grad
+        g32 = g.to(torch.float32)
+        gc = (g32.T if transpose_out else g32) * alpha  # [M, n]
+        dv0 = dv1 = db = dc = None
+        if need_b:
+            a = expand_planes(v0, v1, codes)[:k_logical].to(torch.float32)
+            db = (a @ gc).to(b.dtype)  # A^T g: a is A^T [k, M]
+        if need_v0 or need_v1:
+            k4, m = v0.shape
+            dat = torch.zeros((4 * k4, m), dtype=torch.float32,
+                              device=g.device)
+            dat[:k_logical] = b.to(torch.float32) @ gc.T
+            dat = dat.reshape(k4, 4, m)
+            c64 = codes.to(torch.int64)
+            if need_v0:
+                dv0 = dat.gather(1, (c64 >> 2)[:, None]).squeeze(1).to(
+                    v0.dtype)
+            if need_v1:
+                dv1 = dat.gather(1, (c64 & 3)[:, None]).squeeze(1).to(
+                    v1.dtype)
+        if need_c:
+            dc = (beta * g32).to(ctx.c_dtype)
+        return dv0, dv1, None, db, dc, None
 
 
 def pack_codes_fp(codes: torch.Tensor) -> torch.Tensor:

@@ -206,6 +206,8 @@ def _ring(s: Sparse24, b: torch.Tensor, mesh: Mesh, axis: str, out_dtype,
     if cuda and (dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES):
         raise TypeError(f"{name} takes float32/bfloat16, not {dtype} -> "
                         f"{out_dtype}")
+    if cuda:
+        _build.refuse_grad(name, s.values0, s.values1, b)
     step = ((ring_step_tiled_cuda if tiled else ring_step_cuda) if cuda
             else ring_step_plain)
 

@@ -724,3 +724,193 @@ def test_ring_kernel_rejects_what_it_does_not_take(gen):
     mesh = sp.make_mesh((2,), ("model",), devices=["cuda:0"] * 2)
     with pytest.raises(TypeError):
         sp.spmm_24_ring_explicit(s, b.half(), mesh, "model")
+
+
+# --- the Hopper tile of K4 and K5 (csrc/ell_tile.cuh) -----------------------
+
+@pytest.mark.parametrize("bk,n", [(32, 136), (64, 256), (128, 512),
+                                  (64, 72)])
+@pytest.mark.parametrize("tout", [False, True])
+def test_ell_tile_under_every_plan(gen, monkeypatch, bk, n, tout):
+    """K4 (with and without alpha/beta/c) and K5 (a repeated and an
+    out-of-range column) against their plain versions under every tile
+    width, split count and number of blocks per SM the plan can take, bf16
+    and f32 C, rows of B past kb, ragged n."""
+    mb, kblocks, ell = 3, 6, 4
+    m, kb = mb * 128, kblocks * bk - 5
+    vals = torch.randn((m, ell * bk), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    vkm = vals.T.contiguous()
+    cols = torch.stack([torch.randperm(kblocks, device="cuda")[:ell]
+                        for _ in range(mb)]).to(torch.int32)
+    cols_x = cols.clone()
+    cols_x[1, 3] = cols_x[1, 0]
+    cols_x[2, 1] = kblocks + 2
+    b = torch.randn((kb, n), generator=gen, device="cuda").to(torch.bfloat16)
+    c = torch.randn((n, m) if tout else (m, n), generator=gen, device="cuda")
+    plans = [ell_kernel.ell_plan(m, n, ell, bk, 128, widths=(bn,),
+                                 split_counts=(s,), cta_counts=(c,))
+             for bn in ell_kernel.TILE_NS for s in (1, 2, 4) for c in (1, 2)]
+    plans = [p for p in plans if p is not None]
+    assert {p.splits for p in plans} == {1, 2, 4}
+    for plan in plans:
+        monkeypatch.setattr(ell_kernel, "card_plan", lambda *a, p=plan: p)
+        for odt in (torch.bfloat16, torch.float32):
+            kw = dict(block_size=128, block_k=bk, out_dtype=odt,
+                      transpose_out=tout)
+            epi = dict(alpha=0.5, beta=-2.0, c=c)
+            for fn, plain, v, cc, extra in (
+                    (ell_kernel.ell_spmm_cuda, ell_kernel.ell_spmm_plain,
+                     vals, cols, {}),
+                    (ell_kernel.ell_spmm_cuda, ell_kernel.ell_spmm_plain,
+                     vals, cols, epi),
+                    (ell_kernel.ell_expand_spmm_cuda,
+                     ell_kernel.ell_expand_spmm_plain, vkm, cols_x, {})):
+                got = fn(v, cc, b, **extra, **kw)
+                assert _rel(got, plain(v, cc, b, **extra, **kw)) < \
+                    TOL[torch.bfloat16], (plan, odt, fn.__name__, extra)
+
+
+def test_ell_kernels_run_on_wgmma_fed_by_tma(gen):
+    """The built K4 and K5 libraries hold warpgroup MMAs (HGMMA) and TMA
+    loads (UTMALDG): cuobjdump --dump-sass lib{ell_spmm,ell_expand}.so."""
+    import pathlib
+    import subprocess
+
+    from sparsifyme_tpu_torch import _build
+
+    _build.build_all()
+    tool = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
+    for name in ("ell_spmm", "ell_expand"):
+        sass = subprocess.run(
+            [str(tool), "--dump-sass", str(_build.build_dir() /
+                                           f"lib{name}.so")],
+            check=True, capture_output=True, text=True).stdout
+        assert "HGMMA" in sass and "UTMALDG" in sass, name
+
+
+# --- gradients on the card (ROADMAP C1) --------------------------------------
+
+def _grad_problem(op, dtype, tout):
+    """CPU inputs of one differentiable op and a function running it on a
+    device: ``(leaves, run(leaves_on_device, device))``."""
+    from sparsifyme_tpu_torch.containers import BlockedEll, Sparse24
+    from sparsifyme_tpu_torch.ops import ell as te
+    from sparsifyme_tpu_torch.ops import sparse24 as ts
+
+    g = torch.Generator().manual_seed(5)
+    n = 72
+    if op == "spmm_24":
+        a = torch.randn((2, 128, 256), generator=g).to(dtype)
+        s = ts.compress_24(prune_kernel.prune_nm_plain(a, 2, 4)[0])
+        leaves = dict(v0=s.values0, v1=s.values1,
+                      b=torch.randn((256, n), generator=g).to(dtype),
+                      c=torch.randn((n, 256) if tout else (2, 128, n),
+                                    generator=g))
+
+        def run(t, dev):
+            return ts.spmm_24(Sparse24(t["v0"], t["v1"], s.codes.to(dev),
+                                       shape=s.shape), t["b"], c=t["c"],
+                              alpha=0.5, beta=2.0, transpose_out=tout)
+        return leaves, run
+    a = torch.randn((1, 256, 256), generator=g).to(dtype)
+    e = te.ell_from_dense(a, 128, 4, 32)
+    b = torch.randn((256, n), generator=g).to(dtype)
+
+    def ell(dev, values=None):
+        return BlockedEll(e.values.to(dev) if values is None else values,
+                          e.col_indices.to(dev), e.shape, 128, 32)
+    if op == "spmm_ell":
+        leaves = dict(values=e.values, b=b,
+                      c=torch.randn((n, 256) if tout else (1, 256, n),
+                                    generator=g))
+
+        def run(t, dev):
+            return te.spmm_ell(ell(dev, t["values"]), t["b"], c=t["c"],
+                               alpha=-1.5, beta=0.5, transpose_out=tout)
+        return leaves, run
+    leaves = dict(values_km=te.ell_values_kmajor(e), b=b)
+
+    def run(t, dev):
+        return te.spmm_ell_expand(ell(dev), t["b"],
+                                  values_km=t["values_km"],
+                                  transpose_out=tout)
+    return leaves, run
+
+
+@pytest.mark.parametrize("op,wrapper", [
+    ("spmm_24", spmm24_kernel.spmm24_cuda),
+    ("spmm_ell", ell_kernel.ell_spmm_cuda),
+    ("spmm_ell_expand", ell_kernel.ell_expand_spmm_cuda)])
+@pytest.mark.parametrize("tout", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grads_on_the_card_match_the_cpu(gen, op, wrapper, tout, dtype):
+    """The forward through the kernel, the backward through the JAX VJP's
+    port: every input's gradient equals the one the plain versions give on
+    the CPU."""
+    base, run = _grad_problem(op, dtype, tout)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        t = {k: v.to(dev).requires_grad_() for k, v in base.items()}
+        n0 = wrapper.launches
+        out = run(t, dev)
+        assert out.grad_fn is not None
+        assert wrapper.launches == n0 + (dev == "cuda")
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            9)).to(out.dtype)
+        got[dev] = torch.autograd.grad(out, list(t.values()), cot.to(dev))
+    for name, h, w in zip(base, got["cuda"], got["cpu"]):
+        assert _rel(h.cpu(), w) < TOL[dtype], name
+
+
+@pytest.mark.parametrize("route", ["batch", "row", "ring"])
+@pytest.mark.parametrize("p", [2, 4])
+def test_sharded_grads_on_the_card_match_the_cpu(gen, route, p):
+    """The sharded 2:4 SpMMs carry the gradient through their rank streams
+    and copies: ranks on one card against ranks on the CPU."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.containers import Sparse24
+
+    fn = {"batch": sp.spmm_24_batch_sharded, "row": sp.spmm_24_row_sharded,
+          "ring": sp.spmm_24_ring}[route]
+    g = torch.Generator().manual_seed(7)
+    a = torch.randn((4, 32, 128), generator=g)
+    s = sp.compress_24(prune_kernel.prune_nm_plain(a, 2, 4)[0])
+    b = torch.randn((128, 40), generator=g)
+    cot = torch.randn((4, 32, 40), generator=g)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        mesh = sp.make_mesh((p,), ("model",),
+                            devices=["cpu" if dev == "cpu" else "cuda:0"] * p)
+        leaves = [x.to(dev).requires_grad_()
+                  for x in (s.values0, s.values1, b)]
+        out = fn(Sparse24(leaves[0], leaves[1], s.codes.to(dev),
+                          shape=s.shape), leaves[2], mesh, "model")
+        assert out.grad_fn is not None
+        got[dev] = torch.autograd.grad(out, leaves, cot.to(dev))
+    for h, w in zip(got["cuda"], got["cpu"]):
+        assert _rel(h.cpu(), w) < TOL[torch.float32]
+
+
+def test_routes_without_a_backward_raise_under_grad(gen):
+    """The fold=2 route, K6 and K7's rings have no VJP in the JAX package:
+    on the card they raise where autograd would record them, and run under
+    torch.no_grad()."""
+    import sparsifyme_tpu_torch as sp
+
+    w = torch.randn((64, 128), generator=gen, device="cuda")
+    b = torch.randn((128, 16), generator=gen, device="cuda",
+                    requires_grad=True)
+    folded = sp.prune_compress_24(w, fold=2)
+    coo = sp.coo_from_dense(sp.prune_threshold(w, 1.0)[0])
+    s = sp.compress_24(sp.prune_24(w)[0])
+    mesh = sp.make_mesh((2,), ("model",), devices=["cuda:0"] * 2)
+    calls = [lambda: sp.spmm_24(folded, b),
+             lambda: sp.spmm_coo_segmented(coo, b[None]),
+             lambda: sp.spmm_24_ring_explicit(s, b, mesh, "model"),
+             lambda: sp.spmm_24_ring_tiled(s, b, mesh, "model")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert call().grad_fn is None

@@ -157,3 +157,66 @@ def test_ell_expand_repeated_column_last_slot_wins(rng, tout):
     assert np.allclose(tensor_to_numpy(tk.ell_spmm_plain(
         torch.from_numpy(vals), torch.from_numpy(cols), torch.from_numpy(b),
         out_dtype=torch.float32, **kw)), summed, rtol=1e-5, atol=1e-5)
+
+
+def _bench_ell(m, n, k):
+    """The harness's ELL launch at a ResNet-50 layer (b=32, 50% blocks):
+    (rows, n, ell, block_k)."""
+    bk = 32 if k < 512 else (64 if k < 1536 else 128)
+    return 32 * m, n, (-(-k // bk)) // 2, bk
+
+
+PLAN_CASES = [_bench_ell(*s) for s in (
+    (12544, 64, 147), (12544, 64, 576), (12544, 256, 64), (3136, 128, 1152),
+    (784, 256, 1024), (196, 512, 4608))] + [
+    (384, 136, 3, 128), (256, 72, 5, 32), (1024, 512, 18, 128),
+    (128, 8, 1, 64), (640, 200, 7, 64)]
+
+
+@pytest.mark.parametrize("m,n,ell,bk", PLAN_CASES)
+def test_ell_plan_walks_every_tile_slot_once(rng, m, n, ell, bk):
+    """The Hopper tile's plan (picked, and every width and split count
+    forced): its persistent blocks issue each (tile, slot, k-step) exactly
+    once, K5's only for live slots; a stage never spans two slots; the
+    block fits the card."""
+    from sparsifyme_tpu_torch.ops.kernels import ell_kernel as ek
+
+    plans = [ek.ell_plan(m, n, ell, bk, 128)] + [
+        ek.ell_plan(m, n, ell, bk, 128, widths=(bn,), split_counts=(s,),
+                    cta_counts=(c,))
+        for bn in ek.TILE_NS for s in (1, 2, 3, 4) for c in (1, 2)]
+    cols = rng.integers(0, 2 * ell, size=(m // 128, ell))
+    live = ek.live_slots(torch.from_numpy(cols), 2 * ell)
+    for plan in (p for p in plans if p is not None):
+        assert bk % plan.bk_step == 0 and plan.bk_step in (32, 64)
+        assert 2 <= plan.stages <= ek.MAX_STAGES
+        assert plan.ctas * (ek.tile_smem(plan.bn, plan.bk_step, plan.stages)
+                            + 1024) <= ek.SMEM_SM
+        assert plan.ctas == 1 or plan.bn <= 128
+        assert plan.grid == min(plan.units, plan.ctas * ek.H100_SMS)
+        for mask in (None, live):
+            walk = ek.plan_walk(plan, m, n, ell, bk, 128, mask)
+            assert len(walk) == plan.grid
+            seen = []
+            for block in walk:
+                for m0, n0, split, steps in block:
+                    assert all(kk + plan.bk_step <= bk for _, kk in steps)
+                    seen += [(m0, n0, e, kk) for e, kk in steps]
+            want = [(m0, n0, e, kk) for m0 in range(0, m, 128)
+                    for n0 in range(0, n, plan.bn) for e in range(ell)
+                    if mask is None or mask[m0 // 128, e]
+                    for kk in range(0, bk, plan.bk_step)]
+            assert sorted(seen) == sorted(want)
+
+
+def test_ell_plan_refuses_what_the_tile_does_not_take():
+    from sparsifyme_tpu_torch.ops.kernels import ell_kernel as ek
+
+    assert ek.ell_plan(256, 64, 2, 32, 128) is not None
+    assert ek.ell_plan(256, 64, 2, 32, 64) is None    # block rows of 64
+    assert ek.ell_plan(256, 64, 2, 16, 128) is None   # block_k 16
+    assert ek.ell_plan(256, 60, 2, 32, 128) is None   # n % 8
+    assert ek.ell_plan(256, 64, 0, 32, 128) is None   # no slots
+    assert ek.plan_args(None) == (0, 0, 0, 0, 0, 0)
+    deep = ek.ell_plan(1024, 512, 18, 128, 128)  # 8 tiles of 128 x 256
+    assert deep.splits > 1 and deep.units > 8
