@@ -10,8 +10,8 @@ This package imports torch, numpy and the standard library only.
 """
 
 from .containers import BlockedEll, Coo, Sparse24
-from .ops.coo import (coo_from_dense, coo_to_dense, coo_to_ell, pack_coo,
-                      spmm_coo, spmm_coo_segmented)
+from .ops.coo import (coo_from_dense, coo_layout, coo_to_dense, coo_to_ell,
+                      pack_coo, spmm_coo, spmm_coo_segmented)
 from .ops.ell import (ell_from_dense, ell_pack, ell_to_dense,
                       ell_values_kmajor, spmm_ell, spmm_ell_expand)
 from .ops.gemm import batched_gemm, gemm_bf16, gemm_f32, gemm_f64
@@ -54,6 +54,7 @@ __all__ = [
     "batched_gemm",
     "compress_24",
     "coo_from_dense",
+    "coo_layout",
     "coo_to_dense",
     "coo_to_ell",
     "decompress_24",

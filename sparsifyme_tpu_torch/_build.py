@@ -171,6 +171,13 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def device_index(t: torch.Tensor) -> int:
+    """The index of the card that holds ``t``; the entry points that take it
+    launch there whatever the current device is."""
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 

@@ -141,12 +141,13 @@ def config2_coo_resnet101(quick: bool = False, subset_stride: int = 1,
     batch). Per point: the dense GEMM (``dense_ms``: the repeated bf16 A
     times ``B[0]``, as the JAX config defines it), the gather/segment-sum
     oracle (``coo_xla_ms``, ``spmm_coo`` in batch chunks of 4), kernel K6
-    on pre-packed planes (``coo_seg_ms``), the host-side dense->COO build
+    on pre-packed planes and their pre-built layout (``coo_seg_ms``), the
+    host-side dense->COO build
     (``conversion_ms``, median of three), nonzeros per second and both
     speedups; per shape the crossover sparsity. The port has one segmented
     formulation, so ``coo_seg_slices_ms`` is NaN.
     """
-    from ..ops.coo import coo_from_dense, pack_coo, spmm_coo, \
+    from ..ops.coo import coo_from_dense, coo_layout, pack_coo, spmm_coo, \
         spmm_coo_segmented
     from ..ops.gemm import batched_gemm
     from ..ops.prune import prune_threshold
@@ -186,10 +187,12 @@ def config2_coo_resnet101(quick: bool = False, subset_stride: int = 1,
             t = time_kernel(lambda c, y: spmm_coo(c, y, batch_chunk=4),
                             (coo, bm), iters=4, reps=3)
             packed = pack_coo(coo)
+            # K6's layout is part of the format build, as the packing is
+            lay = coo_layout(*packed, k=s.k)
             t_seg = time_kernel(
-                lambda v, c, r, y: spmm_coo_segmented(
-                    coo, y, packed=(v, c, r), gather="matmul"),
-                (*packed, bm), iters=4, reps=3)
+                lambda y: spmm_coo_segmented(
+                    coo, y, packed=packed, gather="matmul", layout=lay),
+                (bm,), iters=4, reps=3)
             sl_ms = float("nan")
             best = min(x for x in (t.ms, t_seg.ms, sl_ms) if x == x)
             rows.append({
@@ -203,7 +206,7 @@ def config2_coo_resnet101(quick: bool = False, subset_stride: int = 1,
                 # one conversion charged to one batched call
                 "speedup_vs_dense_incl_conv": t_dense.ms / (best + conv_ms),
             })
-            del coo, packed
+            del coo, packed, lay
     wins = [r for r in rows if r["speedup_vs_dense"] > 1.0]
     return {
         "config": 2,

@@ -140,29 +140,11 @@ struct SpShape {
   static_assert(A_BYTES % 16 == 0 && E_BYTES % 16 == 0, "alignment");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16- and 8-byte asynchronous copies; an invalid chunk is zero-filled (no
-// byte of src is read).
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 8 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using smt::cp16;
+using smt::cp8;
+using smt::cp_commit;
+using smt::cp_wait;
+using smt::smem_addr;
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
   asm volatile(

@@ -1,5 +1,6 @@
-// Shared pieces of the port's matmul kernels (spmm24.cu and ring24.cu through
-// sp24_tile.cuh, ell_spmm.cu, ell_expand.cu).
+// Shared pieces of the port's kernels (spmm24.cu and ring24.cu through
+// sp24_tile.cuh, ell_spmm.cu and ell_expand.cu through ell_tile.cuh,
+// compress24.cu, prune_nm.cu, coo_spmm.cu).
 //
 // A thread block of kThreads threads computes a BM x kBN tile of C in f32.
 // Each k-step stages an A slab and a B slab in shared memory; Mma<T, ...>
@@ -226,6 +227,53 @@ __device__ void epilogue_vec(const float* Cs, int ldc, O* out, const float* c,
     store8<O>(out + off, v);
   }
 }
+
+// Asynchronous copies into shared memory (sp24_tile.cuh, compress24.cu,
+// coo_spmm.cu): 16-, 8- and 4-byte chunks, both addresses aligned to the
+// chunk; cp16 and cp8 zero-fill an invalid chunk (no byte of src is read).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src,
+                                     bool ok = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes `device` current for its lifetime, and the previous device current
+// again after (the entry points that take a device launch on the card that
+// holds their tensors, whatever the caller's current device is).
+struct OnDevice {
+  int prev = -1;
+  cudaError_t error = cudaSuccess;
+  explicit OnDevice(int device) {
+    error = cudaGetDevice(&prev);
+    if (error == cudaSuccess && prev != device) error = cudaSetDevice(device);
+    else prev = -1;
+  }
+  ~OnDevice() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, once per
 // device: the attribute belongs to the current device's copy of the kernel,

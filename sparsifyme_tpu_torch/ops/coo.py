@@ -28,7 +28,8 @@ import torch
 from .. import _build
 from ..containers import BlockedEll, Coo
 from ..convert import tensor_from_numpy, tensor_to_numpy
-from .kernels.coo_kernel import (pack_coo_blockrows, spmm_coo_cuda,
+from .kernels.coo_kernel import (CooLayout, check_layout, coo_layout,
+                                 pack_coo_blockrows, spmm_coo_cuda,
                                  spmm_coo_plain)
 
 GATHERS = ("auto", "matmul", "slices")
@@ -157,13 +158,19 @@ def spmm_coo_segmented(
     block_rows: int = 128,
     packed: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     gather: str = "auto",
+    layout: Optional[CooLayout] = None,
 ) -> torch.Tensor:
     """Segmented block-row COO SpMM ``A @ B[..., k, n]``: kernel K6 on CUDA
     tensors, its plain version on CPU tensors.
 
     Entries are packed per block-row of C (:func:`pack_coo`; pass
     ``packed`` to keep that step out of a hot loop) and the batch dims of
-    ``b`` share the one A. Accumulation is f32; ``out_dtype`` defaults to
+    ``b`` share the one A. K6 reads the packed planes through the layout
+    :func:`~.kernels.coo_kernel.coo_layout` derives from them: pass
+    ``layout`` (built from ``packed`` and refused if it was not, or if they
+    changed since) to keep that step out of a hot loop too; the plain
+    version reads the planes as they are. Accumulation is
+    f32; ``out_dtype`` defaults to
     the promoted type of A and B. ``gather`` names the TPU kernel's
     formulations (``"auto"``, ``"matmul"``, ``"slices"``); all three run
     the same kernel here.
@@ -180,8 +187,10 @@ def spmm_coo_segmented(
     b3 = b.reshape(math.prod(lead), k, n)
     if _build.use_kernel(b3):
         _build.refuse_grad("spmm_coo_segmented", a.values, b, *packed)
-        fn = spmm_coo_cuda
+        out = spmm_coo_cuda(*packed, b3, m=m, block_rows=block_rows,
+                            layout=layout)
     else:
-        fn = spmm_coo_plain
-    out = fn(*packed, b3, m=m, block_rows=block_rows)
+        if layout is not None:  # refused here as on the card
+            check_layout(layout, *packed, k=k, block_rows=block_rows)
+        out = spmm_coo_plain(*packed, b3, m=m, block_rows=block_rows)
     return out.reshape(*lead, m, n).to(out_dtype)

@@ -19,6 +19,8 @@ Ranking semantics (shared with the JAX package): order by
 
 from __future__ import annotations
 
+import collections
+import functools
 from typing import Tuple
 
 import torch
@@ -112,6 +114,80 @@ def prune_compress_24_plain(
     return compress_24_plain(w2)
 
 
+# --- the tile plan of K2 (csrc/compress24.cu) --------------------------------
+
+COMPRESS_KMAX = 160       # k up to this: a tile holds whole rows
+COMPRESS_KTILE = 64       # columns of a tile above it (16 groups)
+COMPRESS_TILE_BYTES = 16384  # input bytes of a tile, about
+COMPRESS_MAX_ROWS = 128
+
+CompressPlan = collections.namedtuple(
+    "CompressPlan", "rows_per_tile k_tile span units")
+
+
+@functools.lru_cache(maxsize=1024)
+def compress_plan(rows: int, k: int, itemsize: int) -> CompressPlan:
+    """K2's tiles for ``w [rows, k]`` of ``itemsize``-byte elements: R rows
+    (a multiple of 8, at most 128) by KT columns, KT = kp (whole rows, one
+    contiguous span a tile) where ``k <= COMPRESS_KMAX``, else 64. R takes
+    about ``COMPRESS_TILE_BYTES`` of input, and at least the rows of one
+    128-byte line of a plane row (``128 // itemsize``): the stores of a
+    tile are then whole lines. Unit ``u`` is row tile ``u // (kp / KT)``,
+    k-tile ``u % (kp / KT)``; the kernel launches as many persistent
+    blocks as fit on the card (at most ``units``), and block ``x`` of
+    ``grid`` takes units ``x + i * grid``."""
+    kp = _round_up(k, 64)
+    span = k <= COMPRESS_KMAX
+    kt = kp if span else COMPRESS_KTILE
+    ld = k if span else COMPRESS_KTILE
+    fits = COMPRESS_TILE_BYTES // (ld * itemsize) // 8 * 8
+    rt = min(COMPRESS_MAX_ROWS, max(128 // itemsize, fits))
+    return CompressPlan(rt, kt, span, -(-rows // rt) * (kp // kt))
+
+
+def compress_walk(plan: CompressPlan, rows: int, k: int, itemsize: int,
+                  grid: int):
+    """Replay K2's loops on the CPU with ``grid`` persistent blocks:
+    ``(loads, writes)``, how often each element of ``w [rows, k]`` is
+    copied into shared memory (``load_tile``) and how often each ``(group,
+    row)`` of the ``[kp/4, rows]`` planes is stored (``store_tile``), over
+    every block's units."""
+    kp = _round_up(k, 64)
+    rt, kt = plan.rows_per_tile, plan.k_tile
+    ktiles = kp // kt
+    unit = 16 // itemsize
+    loads = torch.zeros(rows * k, dtype=torch.int32)
+    writes = torch.zeros((kp // 4, rows), dtype=torch.int32)
+    groups, octs = kt // 4, rt // 8
+    it = torch.arange(groups * octs)
+    oct_, gl = it % octs, it // octs
+    eight = torch.arange(8)
+    qr = COMPRESS_KTILE // unit  # 16-byte pieces of a k-tile row
+    for block in range(grid):
+        for u in range(block, plan.units, grid):
+            r0, c0 = (u // ktiles) * rt, (u % ktiles) * kt
+            n = min(rt, rows - r0)
+            if plan.span:  # chunks and a tail of one contiguous span
+                loads[r0 * k:(r0 + n) * k] += 1
+            else:  # 16-byte row pieces, masked at k
+                q = torch.arange(n * qr)
+                r = r0 + q // qr
+                el = (c0 + (q % qr) * unit)[:, None] + torch.arange(unit)
+                rr = r[:, None].expand_as(el)
+                keep = el < k
+                loads.index_put_((rr[keep] * k + el[keep],),
+                                 torch.ones(int(keep.sum()),
+                                            dtype=torch.int32),
+                                 accumulate=True)
+            row = (r0 + oct_ * 8)[:, None] + eight
+            grp = (c0 // 4 + gl)[:, None].expand_as(row)
+            keep = row < rows
+            writes.index_put_((grp[keep], row[keep]),
+                              torch.ones(int(keep.sum()), dtype=torch.int32),
+                              accumulate=True)
+    return loads.reshape(rows, k), writes
+
+
 def _compress_launch(
         w2: torch.Tensor,
         what: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -125,14 +201,17 @@ def _compress_launch(
     w2 = w2.contiguous()
     rows, k = w2.shape
     k4 = _round_up(k, 64) // 4
+    plan = compress_plan(rows, k, w2.element_size())
     v0 = torch.empty((k4, rows), dtype=w2.dtype, device=w2.device)
     v1 = torch.empty_like(v0)
     codes = torch.empty((k4, rows), dtype=torch.uint8, device=w2.device)
     launch = _build.load("compress24", "compress24_launch",
-                         "pppp" "iiii" "p")
-    _build.check(launch(  # (w, v0, v1, codes, M, k, K4, dtype, stream)
+                         "pppp" "iiiiiii" "p")
+    _build.check(launch(  # (w, v0, v1, codes, M, k, K4, R, KT, dtype,
+        #                     device, stream)
         w2.data_ptr(), v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), rows,
-        k, k4, DTYPE_CODES[w2.dtype], _build.stream_ptr(w2)), what)
+        k, k4, plan.rows_per_tile, plan.k_tile, DTYPE_CODES[w2.dtype],
+        _build.device_index(w2), _build.stream_ptr(w2)), what)
     return v0, v1, codes
 
 

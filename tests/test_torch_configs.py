@@ -207,11 +207,75 @@ def test_coo_spmm_bound():
     assert roofline.bound_by(flops, 67.0, byts) == "operations"
 
 
-def test_coo_probe_finds_the_depth_constant():
-    """The K6 depth probe rebuilds the source with another kGroup: the
-    constant it replaces must stay in the source."""
+@pytest.mark.parametrize("point", range(3))
+def test_coo_probe_forces_every_route_and_split(point):
+    """The K6 probe's plan list at each kernels-line point (the first three
+    of its points): both routes (only gather on a layout of wide chunks),
+    every split count that leaves no split without chunks, each a plan
+    ``coo_plan`` returns, and the plan K6 picks among them."""
+    from sparsifyme_tpu_torch.bench import coo_probe
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel as ck
+
+    m, n, k, sp = coo_probe.POINTS[point]
+    mb, b = -(-m // 128), coo_probe.BATCH
+    nnz = int(m * k * (1 - sp))
+    kc = ck.coo_kc(nnz, mb, 128, k)
+    plans = coo_probe.plans(mb, 128, k, kc, nnz, b * n)
+    n_chunks = -(-k // kc)
+    splits = [s for s in range(1, ck.MAX_SPLITS + 1)
+              if s <= n_chunks and (s - 1) * -(-n_chunks // s) < n_chunks]
+    routes = coo_probe.ROUTES if kc <= 128 else ("gather",)  # no B tile
+    assert sorted((p.route, p.splits) for p in plans) == sorted(
+        (r, s) for r in routes for s in splits)
+    assert ck.coo_plan(mb, 128, k, kc, nnz, b * n) in plans
+
+
+def test_coo_probe_times_both_layouts_where_the_routes_are_close():
+    """At 0.99 and 0.995 the probe times each route on a staged layout
+    (chunks of 128 rows) and on the gather route's wide chunks, whichever
+    the layout picks; below, the picked layout alone."""
+    from sparsifyme_tpu_torch.bench import coo_probe
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel as ck
+
+    assert coo_probe.layout_kcs(32, 0.9) == [32]
+    assert coo_probe.layout_kcs(128, 0.99) == [128, ck.GATHER_KC]
+    assert coo_probe.layout_kcs(ck.GATHER_KC, 0.995) == [ck.GATHER_KC, 128]
+    m, n, k, _ = coo_probe.POINTS[2]  # 0.995: both routes on 128-row chunks
+    nnz = int(m * k * 0.005)
+    routes = {p.route for p in coo_probe.plans(-(-m // 128), 128, k, 128,
+                                               nnz, coo_probe.BATCH * n)}
+    assert routes == {"staged", "gather"}
+
+
+def test_coo_probe_times_each_route_on_its_own_layout():
+    """``--routes``: at every shape and sparsity a staged plan on 128-row
+    chunks and a gather plan on the gather route's wide chunks."""
+    from sparsifyme_tpu_torch.bench import coo_probe
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel as ck
+
+    for m, n, k in coo_probe.ROUTE_SHAPES:
+        for sp in coo_probe.ROUTE_SPARSITIES:
+            mb = -(-m // 128)
+            got = coo_probe.route_plans(mb, k, int(m * k * (1 - sp)),
+                                        coo_probe.BATCH * n)
+            assert [(kc, p.route) for kc, p in got] == [
+                (128, "staged"), (ck.GATHER_KC, "gather")]
+
+
+@pytest.mark.parametrize("src", ["coo_spmm", "compress24"])
+def test_coo_probe_ablations_find_their_code(src):
+    """Each ablation of the probe edits text the kernel source still holds,
+    and the probe's ctypes spec has one letter per parameter of the C entry
+    point (as the wrappers pass them)."""
+    import re
+
     from sparsifyme_tpu_torch import _build
     from sparsifyme_tpu_torch.bench import coo_probe
 
-    assert coo_probe.CONSTANT in (_build.CSRC / "coo_spmm.cu").read_text()
-    assert 16 in coo_probe.DEPTHS
+    text = (_build.CSRC / f"{src}.cu").read_text()
+    entry, spec, builds = coo_probe.ABLATIONS[src]
+    for edits in builds.values():
+        for old, _ in edits:
+            assert old in text
+    params = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert len(params.group(1).split(",")) == len(spec)

@@ -8,7 +8,9 @@ sparse tensor-core tile at every tile size and at the six bench shapes,
 and a sparse HMMA in the built libraries), K4 ELL gather SpMM, K5 ELL
 expand SpMM, K6 segmented COO SpMM (ragged m, N not a multiple of its
 128-column tile, every value and B type, duplicate and out-of-range
-entries) and K7, the ring step, with both rings on logical ranks of one
+entries, every route and split count forced, bitwise repeatable, and on
+two cards where there are two) and K7, the ring step, with both rings on
+logical ranks of one
 card (P = 1, 2, 3, 4, 8), the sharded SpMMs, the rings' capacity credits
 under a delayed rank, and the rings' CUDA graphs (replay bitwise the eager
 ring, operands read at replay time, launch counts, no capture across
@@ -392,6 +394,180 @@ def test_coo_spmm_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(TypeError):
         coo_kernel.spmm_coo_cuda(v[:, :8].half(), c[:, :8], c[:, :8], b,
                                  m=8, block_rows=16)
+    # a layout describes the planes it was built from, as they were
+    planes = (v[:, :8].contiguous(), c[:, :8].contiguous(),
+              c[:, :8].contiguous())
+    lay = coo_kernel.coo_layout(*planes, k=8, block_rows=16)
+    coo_kernel.spmm_coo_cuda(*planes, b, m=8, block_rows=16, layout=lay)
+    with pytest.raises(ValueError, match="other planes"):
+        coo_kernel.spmm_coo_cuda(planes[0].clone(), *planes[1:], b, m=8,
+                                 block_rows=16, layout=lay)
+    planes[0].add_(1)
+    with pytest.raises(ValueError, match="other planes"):
+        coo_kernel.spmm_coo_cuda(*planes, b, m=8, block_rows=16, layout=lay)
+
+
+def _coo_plans(layout, mb, bm, k, cols, routes=("staged", "gather"),
+               splits=(1, 2, 3)):
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    out = []
+    for route in routes:
+        for s in splits:
+            plan = coo_kernel.coo_plan(mb, bm, k, layout.kc, layout.nnz, cols,
+                                       routes=(route,), split_counts=(s,),
+                                       peak=layout.peak)
+            if plan is not None:
+                out.append(plan)
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,batch,bm,density", [
+    (200, 130, 40, 3, 128, 0.3),     # ragged m, n % 8 != 0 (scalar paths)
+    (300, 1000, 136, 2, 48, 0.1),    # bm 48, N not a multiple of 128
+    (520, 300, 64, 3, 256, 0.05),    # two row groups a block-row
+    (136, 96, 128, 4, 128, 0.6)])    # chunks longer than a window
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.bfloat16])
+def test_coo_spmm_kernel_under_every_plan(gen, monkeypatch, m, k, n, batch,
+                                          bm, density, bdtype):
+    """K6 on its layout, each route and split count forced, against the
+    plain version; each plan's result bitwise the same on a second call."""
+    from sparsifyme_tpu_torch.ops.coo import pack_coo
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    a = _coo_operand(gen, m, k, density, torch.float32)
+    packed = pack_coo(a, bm)
+    kc = 64 if density > 0.5 else None  # several windows a chunk at 0.6
+    lay = coo_kernel.coo_layout(*packed, k=k, block_rows=bm, kc=kc)
+    b = torch.randn((batch, k, n), generator=gen, device="cuda").to(bdtype)
+    want = coo_kernel.spmm_coo_plain(*packed, b, m=m, block_rows=bm)
+    plans = _coo_plans(lay, packed[0].shape[0], bm, k, batch * n)
+    assert {p.route for p in plans} == {"staged", "gather"}
+    for plan in plans:
+        monkeypatch.setattr(coo_kernel, "card_plan", lambda *a_, p=plan: p)
+        got = coo_kernel.spmm_coo_cuda(*packed, b, m=m, block_rows=bm,
+                                       layout=lay)
+        again = coo_kernel.spmm_coo_cuda(*packed, b, m=m, block_rows=bm,
+                                         layout=lay)
+        assert _rel(got, want) < TOL[torch.float32], plan
+        assert torch.equal(got, again), plan
+
+
+@pytest.mark.parametrize("batch,m,n", [(1, 37, 37), (3, 37, 13)])
+@pytest.mark.parametrize("route", ["staged", "gather"])
+def test_coo_spmm_kernel_splits_where_batch_m_n_is_odd(gen, monkeypatch,
+                                                       batch, m, n, route):
+    """Deep k cut in 63 chunks, split 2 to 8 ways, where batch * m * n is
+    odd: each partial plane but the first starts off a 16-byte boundary,
+    and the second pass must still sum them."""
+    from sparsifyme_tpu_torch.ops.coo import pack_coo
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    k = 1000
+    packed = pack_coo(_coo_operand(gen, m, k, 0.1, torch.float32))
+    lay = coo_kernel.coo_layout(*packed, k=k, kc=16)
+    b = torch.randn((batch, k, n), generator=gen, device="cuda")
+    want = coo_kernel.spmm_coo_plain(*packed, b, m=m)
+    plans = _coo_plans(lay, 1, 128, k, batch * n, routes=(route,),
+                       splits=range(2, coo_kernel.MAX_SPLITS + 1))
+    assert [p.splits for p in plans] == list(range(2, 9))
+    for plan in plans:
+        monkeypatch.setattr(coo_kernel, "card_plan", lambda *a_, p=plan: p)
+        got = coo_kernel.spmm_coo_cuda(*packed, b, m=m, layout=lay)
+        assert _rel(got, want) < TOL[torch.float32], plan
+        assert torch.equal(got, coo_kernel.spmm_coo_cuda(
+            *packed, b, m=m, layout=lay)), plan
+
+
+@pytest.mark.parametrize("route,sparsity,splits", [
+    ("staged", 0.5, 4),     # the split route at a 196-row shape
+    ("gather", 0.995, 1),   # the direct-gather route where it is picked
+    ("gather", 0.995, 3)])
+def test_coo_spmm_kernel_routes_at_resnet_widths(gen, monkeypatch, route,
+                                                  sparsity, splits):
+    """196x512x4608 (b=2): the split route, and the gather route at 0.995,
+    against the plain version; the plan picks gather at 0.995."""
+    from sparsifyme_tpu_torch.ops.coo import coo_from_dense, pack_coo
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+    from sparsifyme_tpu_torch.ops.prune import prune_threshold
+
+    m, n, k, batch = 196, 512, 4608, 2
+    w = torch.randn((m, k), generator=gen, device="cuda")
+    thr = float(torch.quantile(w.abs().flatten(), sparsity))
+    packed = pack_coo(coo_from_dense(prune_threshold(w, thr)[0]))
+    lay = coo_kernel.coo_layout(*packed, k=k)
+    if sparsity == 0.995:
+        assert coo_kernel.card_plan(w.device, 2, 128, k, lay.kc, lay.nnz,
+                                    batch * n, lay.peak).route == "gather"
+    plan = coo_kernel.coo_plan(2, 128, k, lay.kc, lay.nnz, batch * n,
+                               routes=(route,), split_counts=(splits,),
+                               peak=lay.peak)
+    monkeypatch.setattr(coo_kernel, "card_plan", lambda *a_: plan)
+    b = torch.randn((batch, k, n), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got = coo_kernel.spmm_coo_cuda(*packed, b, m=m, layout=lay)
+    want = coo_kernel.spmm_coo_plain(*packed, b, m=m)
+    assert _rel(got, want) < TOL[torch.float32]
+    assert torch.equal(got, coo_kernel.spmm_coo_cuda(*packed, b, m=m,
+                                                     layout=lay))
+
+
+def test_coo_spmm_kernel_on_two_cards(gen):
+    """K6 needs more than 48 KB of shared memory, which a kernel is opted
+    into per card: the same call on cuda:0, then cuda:1, each against the
+    plain version (repaired fault C2)."""
+    from sparsifyme_tpu_torch.ops.coo import pack_coo
+    from sparsifyme_tpu_torch.ops.kernels import coo_kernel
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    a = _coo_operand(gen, 300, 512, 0.2, torch.float32)
+    b = torch.randn((4, 512, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for dev in ("cuda:0", "cuda:1"):
+        packed = tuple(p.to(dev) for p in pack_coo(a))
+        bd = b.to(dev)
+        got = coo_kernel.spmm_coo_cuda(*packed, bd, m=300)
+        torch.cuda.synchronize(dev)
+        assert got.device == torch.device(dev)
+        assert _rel(got, coo_kernel.spmm_coo_plain(*packed, bd, m=300)) < \
+            TOL[torch.float32]
+
+
+def test_compress_kernel_on_two_cards(gen):
+    """K2 also takes more than 48 KB of shared memory and switches to its
+    tensor's card in C: the same call on cuda:0, then cuda:1, exactly
+    equal to the plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    w = torch.randn((1001, 147), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for dev in ("cuda:0", "cuda:1"):
+        x = w.to(dev)
+        got = prune_kernel.compress_24_cuda(x)
+        torch.cuda.synchronize(dev)
+        assert all(g.device == torch.device(dev) for g in got)
+        assert all(torch.equal(g, h) for g, h in
+                   zip(got, prune_kernel.compress_24_plain(x)))
+
+
+@pytest.mark.parametrize("rows", [8, 299, 1001])
+@pytest.mark.parametrize("k", [1, 9, 147, 200, 576, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compress_kernel_tiles(gen, rows, k, dtype):
+    """K2's whole-row and k-tile paths at ragged M, and the fused route on
+    the dense rows, exactly equal to the plain versions; also on an input
+    that is not 16-byte aligned (scalar loads)."""
+    w = torch.randn((rows, k + 1), generator=gen, device="cuda").to(dtype)
+    w = (torch.round(w * 2) / 2)  # many equal magnitudes
+    for x in (w[:, :k].contiguous(), w.reshape(-1)[1:rows * k + 1].view(
+            rows, k)):
+        for fn, plain in ((prune_kernel.compress_24_cuda,
+                           prune_kernel.compress_24_plain),
+                          (prune_kernel.prune_compress_24_cuda,
+                           prune_kernel.prune_compress_24_plain)):
+            got, want = fn(x), plain(x)
+            assert all(torch.equal(g, h) for g, h in zip(got, want))
 
 
 def test_coo_path_on_the_card_matches_the_cpu(gen):
