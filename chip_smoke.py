@@ -8,9 +8,11 @@ Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
   2. build the seven Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
-     at full ResNet-50 width (b=32) at the six bench shapes: K1 prune, K2
-     compress and the fused prune+compress route (K2 on dense input)
-     exactly equal; K3 2:4 SpMM (the sparse tensor-core tile, plain,
+     at full ResNet-50 width (b=32) at the six bench shapes: K1 prune (bit
+     for bit, also in f32 and as a view at an odd storage offset at
+     12544x64x147, with NaN/+-Inf/+-0 and m = 4, 5, 8, 32, and in column
+     pieces), K2 compress and the fused prune+compress route (K2 on dense
+     input) exactly equal; K3 2:4 SpMM (the sparse tensor-core tile, plain,
      transposed, packed and alpha/beta/c), its fold=2 route, K4 Blocked-ELL
      gather SpMM and K5 Blocked-ELL expand
      SpMM within a relative error of 2e-2 in bf16 and 1e-4 in f32; K6
@@ -63,8 +65,8 @@ Phases, each raising on failure:
   9. one ``{"kernels": [...]}`` line: each route's time at a main-path
      shape beside its plain version, a PyTorch library call computing the
      same function (where one exists) and its bound, with its launches on
-     the four paths and its error against the plain version there (K2
-     and its fused route have a second entry at their worst main-path
+     the four paths and its error against the plain version there (K1,
+     K2 and its fused route have a second entry at their worst main-path
      shape, 12544x64x147; K6 has three, 3136x128x1152 at 0.9 and 0.995
      sparsity and 196x512x4608 at 0.5, each on a layout built outside the
      timed calls, whose build time is printed on a line of its own, and
@@ -115,7 +117,7 @@ NAMED_FOLD = (12544, 64, 576)  # fold needs k4 <= 256
 COO_SHAPES = [(12544, 64, 576), (196, 512, 4608), (3136, 128, 1152)]
 COO_SPARSITIES = (0.5, 0.9, 0.995)
 COO_RAGGED = (784, 256, 2304)  # m = 784 is not a multiple of 128
-NAMED_COMPRESS = (12544, 64, 147)  # K2's worst main-path shape
+NAMED_COMPRESS = (12544, 64, 147)  # K1 and K2: their worst main-path shape
 # K6's kernels-line points: C (the named shape at 90%), its worst (the
 # deep 196-row shape at 50%) and its sparsest (C at 99.5%, the gather route)
 COO_POINTS = [((3136, 128, 1152), 0.9), ((196, 512, 4608), 0.5),
@@ -194,9 +196,11 @@ def close(name, out, ref, dtype, what):
     return a, e
 
 
-def exact(name, outs, refs, what):
+def exact(name, outs, refs, what, same=torch.equal):
+    """Every output equal to its reference: by value, or by ``same`` (K1:
+    ``prune_kernel.same_bits``, bit for bit)."""
     for o, r in zip(outs, refs):
-        if o.shape != r.shape or o.dtype != r.dtype or not torch.equal(o, r):
+        if o.shape != r.shape or o.dtype != r.dtype or not same(o, r):
             raise AssertionError(f"{name} {what}: not exactly equal")
     print(f"  {name:17s} {what:44s} exactly equal", flush=True)
 
@@ -238,7 +242,8 @@ def phase_kernels() -> None:
             if (m, n, k) in SHAPES:
                 pw, pm = prune_kernel.prune_nm_cuda(a, 2, 4)
                 exact("prune_nm", (pw, pm),
-                      prune_kernel.prune_nm_plain(a, 2, 4), tag)
+                      prune_kernel.prune_nm_plain(a, 2, 4), tag,
+                      prune_kernel.same_bits)
                 w2 = pw.reshape(-1, k)
                 planes = prune_kernel.compress_24_cuda(w2)
                 exact("compress_24", planes,
@@ -317,12 +322,47 @@ def phase_kernels() -> None:
                 del s
             del a, b
             torch.cuda.empty_cache()
+    phase_kernels_prune(gen)
     phase_kernels_coo(gen)
     phase_kernels_ring(gen)
     counts = launch_counts()
     for name in REPLACES:
         if counts[name] <= counts0[name]:
             raise AssertionError(f"{name}: launch counter did not move")
+
+
+def phase_kernels_prune(gen) -> None:
+    """K1 beyond the bench shapes, bit for bit against its plain version on
+    the card: its worst main-path shape (conv1, whole-row tiles) in f32
+    and bf16, the same rows as a view one element into a larger buffer
+    (not 16-byte aligned: scalar copies), other group sizes, NaN, +-Inf
+    and +-0, and column pieces (f32 at k = 5000, m = 32)."""
+    from sparsifyme_tpu_torch.ops.kernels import prune_kernel as pk
+
+    m, _, k = NAMED_COMPRESS
+    rows = BATCH * m
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+        cases.append((f"{rows}x{k} {str(dtype)[6:]}", a, 2, 4))
+    buf = torch.randn(rows * k + 1, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    cases.append((f"{rows}x{k} bf16 at a 1-element offset",
+                  buf[1:].view(rows, k), 2, 4))
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                            -0.0, 1.0, -1.0, 2.0], device="cuda")
+    w = special[torch.randint(0, 8, (4096, k), generator=gen,
+                              device="cuda")].to(torch.bfloat16)
+    for n, mm in ((2, 4), (3, 5), (2, 8), (7, 32)):
+        cases.append((f"4096x{k} bf16 NaN/Inf/+-0 {n}:{mm}", w, n, mm))
+    cases.append(("2000x5000 f32 7:32 (column pieces)",
+                  torch.randn((2000, 5000), generator=gen, device="cuda"),
+                  7, 32))
+    for tag, x, n, mm in cases:
+        exact("prune_nm", pk.prune_nm_cuda(x, n, mm),
+              pk.prune_nm_plain(x, n, mm), tag, pk.same_bits)
+    del cases, buf, w
+    torch.cuda.empty_cache()
 
 
 def coo_operand(m, k, sparsity, gen):
@@ -1022,11 +1062,14 @@ def phase_kernel_line(path_counts) -> dict:
                 rows * kp + 2 * kp * n + 2 * rows * n)),
     ]
 
-    # K2 and its fused route also at their worst main-path shape
+    # K1, K2 and K2's fused route also at their worst main-path shape
     m, n, k = NAMED_COMPRESS
     a, _ = operands(m, n, k)
     tag = f"{m}x{n}x{k}x{BATCH} bf16"
     specs += [
+        ("prune_nm", tag, prune_kernel.prune_nm_cuda,
+         prune_kernel.prune_nm_plain, (a,), None,
+         (rl.prune_sol_ms(m, k, BATCH), "bytes")),
         ("compress_24", tag, prune_kernel.compress_24_cuda,
          prune_kernel.compress_24_plain,
          (prune_kernel.prune_nm_cuda(a)[0].reshape(-1, k),), None,
@@ -1158,7 +1201,9 @@ def phase_kernel_line(path_counts) -> dict:
         else:
             got = kern(*ops)
             if name in ("prune_nm", "compress_24", "prune_compress_24"):
-                exact(name, got, want, f"{shape} (kernels line)")
+                exact(name, got, want, f"{shape} (kernels line)",
+                      prune_kernel.same_bits if name == "prune_nm"
+                      else torch.equal)
                 abs_err = rel_err = 0.0
             else:
                 abs_err, rel_err = close(

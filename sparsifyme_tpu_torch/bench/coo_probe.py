@@ -1,5 +1,5 @@
 """K6 (``csrc/coo_spmm.cu``) under every plan, and K2 (``csrc/compress24.cu``)
-at the bench shapes, on the device.
+and K1 (``csrc/prune_nm.cu``) at the bench shapes, on the device.
 
 * ``--plans`` times K6 at BASELINE config 2 points (b=32, bf16 B) under
   each plan :func:`~sparsifyme_tpu_torch.ops.kernels.coo_kernel.coo_plan`
@@ -19,17 +19,30 @@ at the bench shapes, on the device.
 * ``--compress`` times K2 and its fused route at the six bench shapes
   (b=32, bf16) against ``compress_sol_ms``, each result exactly equal to
   the plain version; it also runs against any tree.
-* ``--ablate`` rebuilds K6 and K2 with parts of their work taken out
+* ``--prune`` times K1 at the 17 unique ResNet-50 shapes (b=32, bf16)
+  against ``prune_sol_ms``, each result exactly equal to the plain
+  version: ``ms`` per call as a caller sees it (CUDA events; where a call
+  is shorter than the host's time to queue it, that time) and
+  ``kernel_ms``, K1's device time (``torch.profiler``); it also runs
+  against any tree.
+* ``--prune-tiles`` times K1's tile kernel at 12544x64x147 under tiles
+  of 8, 16, 24 and 32 KB of input (``prune_kernel.prune_plan``'s
+  ``tile_bytes``, forced in place of the plan's own).
+* ``--ablate`` rebuilds K6, K2 and K1 with parts of their work taken out
   (:data:`ABLATIONS`: K6 without its entry loop, or with its B reads
   replaced by a constant; K2 without its ranking, or without ranking and
-  stores) and gives each build's device time (``torch.profiler``) at the
-  kernels-line points: what is left when a part goes is what that part
-  costs. The results of an ablated build are wrong by design.
+  stores; K1 keeping every member without ranking it, or with loads and
+  stores only: the tiles unranked, the stream route storing what it
+  loaded) and gives each build's device time (``torch.profiler``)
+  at the kernels-line points (K1 at 12544x64x147, 3136x128x1152 and
+  12544x256x64): what is left when a part goes is what that part costs.
+  The results of an ablated build are wrong by design.
 
 A measurement script: the port does not import it.
 
 Usage: PYTHONPATH=. python sparsifyme_tpu_torch/bench/coo_probe.py
-       [--plans | --routes | --shapes | --compress | --ablate]
+       [--plans | --routes | --shapes | --compress | --prune |
+        --prune-tiles | --ablate]
        (needs one GPU)
 """
 
@@ -66,6 +79,11 @@ ROUTE_SHAPES = [(3136, 128, 1152), (196, 512, 4608), (12544, 64, 576),
 ROUTE_SPARSITIES = (0.95, 0.97, 0.98, 0.99, 0.995)
 COMPRESS_SHAPES = [(12544, 64, 147), (12544, 64, 576), (12544, 256, 64),
                    (3136, 128, 1152), (784, 256, 1024), (196, 512, 4608)]
+# K1's --ablate shapes: its worst (odd k: whole-row tiles), the named
+# shape and the shallow one (the stream route); --prune-tiles times the
+# first
+PRUNE_SHAPES = [(12544, 64, 147), (3136, 128, 1152), (12544, 256, 64)]
+PRUNE_TILE_BYTES = (8192, 16384, 24576, 32768)
 ROUTES = ("staged", "gather")
 # source edits of --ablate: (source, C entry point, its ctypes spec,
 # {build name: [(text, replacement), ...]})
@@ -87,6 +105,16 @@ ABLATIONS = {
              "c0);\n", ""),
             ("    store_tile(g, s0, s1, sc, v0, v1, codes, M, r0, c0, "
              "vec_out);\n", "")],
+    }),
+    "prune_nm": ("prune_nm_launch", "ppp" "l" "iiiiiiii" "p", {
+        "no ranking": [("    keep[j] = beaten < n;",
+                        "    keep[j] = true;")],
+        "loads and stores only": [
+            ("    rank_tile<T, MM>(t, buf, mk, n, m);\n", ""),
+            ("reinterpret_cast<uint4*>(out)[c] = pack(o);",
+             "reinterpret_cast<uint4*>(out)[c] = pack(x);"),
+            ("reinterpret_cast<uint4*>(mask)[c] = pack(mk);",
+             "reinterpret_cast<uint4*>(mask)[c] = pack(x);")],
     }),
 }
 
@@ -281,6 +309,54 @@ def run_compress() -> int:
     return 0
 
 
+def _prune_shapes():
+    from sparsifyme_tpu_torch.models.resnet_shapes import resnet_conv_shapes
+
+    return list(dict.fromkeys((s.m, s.n, s.k)
+                              for s in resnet_conv_shapes("resnet50")))
+
+
+def _prune_line(m, n, k, gen, tag=""):
+    """K1 at ``[BATCH * m, k]`` bf16: its time against its bound, the
+    result held to the plain version (bit for bit where the tree defines
+    ``same_bits``, else by value)."""
+    from sparsifyme_tpu_torch.bench.roofline import prune_sol_ms
+
+    same = getattr(pk, "same_bits", torch.equal)
+    a = torch.randn((BATCH * m, k), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ok = all(same(x, y) for x, y in zip(pk.prune_nm_cuda(a),
+                                         pk.prune_nm_plain(a)))
+    bound = prune_sol_ms(m, k, BATCH)
+    ms = time_kernel(pk.prune_nm_cuda, (a,), iters=50, reps=5).ms
+    kernel_ms = _device_ms(pk.prune_nm_cuda, (a,))
+    print(f"K1 {m}x{n}x{k}x{BATCH}{tag} bound_ms={bound:.4f} ms={ms:.4f} "
+          f"frac={bound / ms:.3f} kernel_ms={kernel_ms:.4f}"
+          f"{'' if ok else ' (NOT EQUAL)'}", flush=True)
+    del a
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_prune() -> int:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = [s for s in _prune_shapes() if not _prune_line(*s, gen)]
+    return 1 if bad else 0
+
+
+def run_prune_tiles() -> int:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    saved = pk.prune_plan
+    ok = True
+    try:
+        for tb in PRUNE_TILE_BYTES:
+            pk.prune_plan = lambda *a, tb=tb: saved(*a, tile_bytes=tb)
+            ok &= _prune_line(*PRUNE_SHAPES[0], gen, f" tile_bytes={tb}")
+    finally:
+        pk.prune_plan = saved
+    return 0 if ok else 1
+
+
 def _device_ms(fn, ops, calls=10):
     """Device time per call: every kernel ``fn`` launches, summed by
     ``torch.profiler``."""
@@ -360,9 +436,19 @@ def run_ablate() -> int:
                          f"{_device_ms(pk.compress_24_cuda, (w,)):.4f}")
             _build._entries.pop("compress24")
             print(line, flush=True)
+        for m, n, k in PRUNE_SHAPES:
+            w = torch.randn((BATCH * m, k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            line = (f"K1 {m}x{n}x{k}x{BATCH} device ms: whole "
+                    f"{_device_ms(pk.prune_nm_cuda, (w,)):.4f}")
+            for name, entry in builds["prune_nm"].items():
+                _build._entries["prune_nm"] = entry
+                line += f", {name} {_device_ms(pk.prune_nm_cuda, (w,)):.4f}"
+            _build._entries.pop("prune_nm")
+            print(line, flush=True)
     finally:
-        _build._entries.pop("coo_spmm", None)
-        _build._entries.pop("compress24", None)
+        for src in ABLATIONS:
+            _build._entries.pop(src, None)
     return 0
 
 
@@ -381,6 +467,10 @@ def main() -> int:
         return run_routes()
     if "--compress" in args:
         return run_compress()
+    if "--prune" in args:
+        return run_prune()
+    if "--prune-tiles" in args:
+        return run_prune_tiles()
     if "--ablate" in args:
         return run_ablate()
     return run_shapes()

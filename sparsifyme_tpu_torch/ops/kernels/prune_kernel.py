@@ -21,8 +21,10 @@ from __future__ import annotations
 
 import collections
 import functools
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -76,15 +78,185 @@ def prune_nm_cuda(w: torch.Tensor, n: int = 2,
     rows = w.numel() // k
     out = torch.empty_like(w)
     mask = torch.empty_like(w)
-    launch = _build.load("prune_nm", "prune_nm_launch", "ppp" "l" "iiii" "p")
-    _build.check(launch(  # (w, out, mask, rows, k, n, m, dtype, stream)
+    plan = prune_plan(rows, k, m, w.element_size())
+    launch = _build.load("prune_nm", "prune_nm_launch",
+                         "ppp" "l" "iiiiiiii" "p")
+    _build.check(launch(  # (w, out, mask, rows, k, n, m, mode, R, KT,
+        #                     dtype, device, stream)
         w.data_ptr(), out.data_ptr(), mask.data_ptr(), rows, k, n, m,
-        DTYPE_CODES[w.dtype], _build.stream_ptr(w)), "prune_nm")
+        PRUNE_MODES[plan.mode], plan.rows_per_tile, plan.k_tile,
+        DTYPE_CODES[w.dtype], _build.device_index(w),
+        _build.stream_ptr(w)), "prune_nm")
     prune_nm_cuda.launches += 1
     return out, mask
 
 
 prune_nm_cuda.launches = 0
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True where ``a`` and ``b`` have one shape and type and every element
+    the same bits (the sign of a zero included), any NaN matching any NaN:
+    K1's contract with :func:`prune_nm_plain` (NaN payloads differ between
+    the CPU's and the card's arithmetic)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    b = b.to(a.device)
+    nan = a.isnan()
+    if not torch.equal(nan, b.isnan()):
+        return False
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.masked_fill(nan, 0).view(ints),
+                       b.masked_fill(nan, 0).view(ints))
+
+
+# --- the tile plan of K1 (csrc/prune_nm.cu) ----------------------------------
+
+PRUNE_TILE_BYTES = 16384  # input bytes of a tile, at most
+PRUNE_MODES = {"rows": 0, "cols": 1, "stream": 2}
+
+PrunePlan = collections.namedtuple("PrunePlan",
+                                   "mode rows_per_tile k_tile units")
+
+
+@functools.lru_cache(maxsize=1024)
+def prune_plan(rows: int, k: int, m: int, itemsize: int,
+               tile_bytes: int = PRUNE_TILE_BYTES) -> PrunePlan:
+    """K1's work units for ``w [rows, k]`` of ``itemsize``-byte elements
+    and groups of ``m``. Each unit is a span of ``w`` whose pieces start
+    16-byte aligned (``L = lcm(m, 16 / itemsize)``):
+
+    * ``stream`` where ``k % m == 0`` (no group crosses a row) and a
+      16-byte chunk holds whole groups (m = 4 or 8 and ``m * itemsize <=
+      16``, the 2:4 pattern in either type): the matrix is one stream of
+      ``k_tile = 16 / itemsize``-element chunks (the last may be short),
+      ranked in registers; unit ``u`` is chunks ``256 u..256 u + 255``,
+      one for each thread of a block;
+    * ``rows`` else, where they fit: R whole rows (``k_tile = k``), R a
+      multiple of ``16 / gcd(k * itemsize, 16)`` so that ``R * k``
+      elements fill whole 16-byte chunks; unit ``u`` is rows ``u * R..``;
+    * ``cols`` else: R row pieces of ``k_tile`` columns (a multiple of L);
+      unit ``u`` is row tile ``u // ceil(k / k_tile)``, column tile
+      ``u % ceil(k / k_tile)``.
+
+    The kernel launches one block a unit; block ``x`` of a grid of
+    ``grid`` blocks takes units ``x + i * grid``."""
+    unit = 16 // itemsize
+    if k % m == 0 and m in (4, 8) and unit % m == 0:
+        return PrunePlan("stream", 1, unit, -(-rows * k // (unit * 256)))
+    el = tile_bytes // itemsize
+    align = unit // math.gcd(k, unit)
+    if align * k <= el:
+        rt = el // (align * k) * align
+        return PrunePlan("rows", rt, k, -(-rows // rt))
+    step = math.lcm(m, unit)
+    kt = min(el // step * step, _round_up(k, step))
+    rt = max(1, el // kt)
+    return PrunePlan("cols", rt, kt, -(-rows // rt) * -(-k // kt))
+
+
+PruneWalk = collections.namedtuple("PruneWalk",
+                                   "loads stores ranked crossing")
+
+
+def _tiles(plan: PrunePlan, rows: int, k: int, u: np.ndarray):
+    """``tile_of`` for the units ``u``: ``(base, nrows, len, gld)``, one
+    array each (a tile's row stride in shared memory is ``k_tile``)."""
+    ktiles = -(-k // plan.k_tile) if plan.mode == "cols" else 1
+    r0 = u // ktiles * plan.rows_per_tile
+    c0 = u % ktiles * plan.k_tile
+    nrows = np.minimum(plan.rows_per_tile, rows - r0)
+    length = np.minimum(plan.k_tile, k - c0)
+    return r0 * k + c0, nrows, length, np.full_like(u, k)
+
+
+def _pieces(plan, tiles):
+    """``(start, end)`` in ``w`` of each piece that ``load_tile`` and
+    ``store_tile`` copy: one span of ``nrows * len`` elements a rows tile,
+    ``nrows`` pieces of ``len`` a cols tile."""
+    base, nrows, length, gld = tiles
+    if plan.mode != "cols":
+        return base, base + nrows * length
+    r = np.arange(nrows.sum()) - np.repeat(np.cumsum(nrows) - nrows, nrows)
+    start = np.repeat(base, nrows) + r * np.repeat(gld, nrows)
+    return start, start + np.repeat(length, nrows)
+
+
+def _rank_items(tiles, m, threads):
+    """``(first, past)`` element of every group ``rank_tile`` ranks: thread
+    t takes items t, t + threads, ... of a tile and steps its (row, group)
+    by additions, as the kernel does."""
+    base, nrows, length, gld = tiles
+    gpr = -(-length // m)[:, None]
+    ng = nrows[:, None] * gpr
+    step_r = threads // gpr
+    step_g = threads - step_r * gpr
+    it = np.broadcast_to(np.arange(threads, dtype=base.dtype),
+                         ng.shape[:1] + (threads,))
+    r, g = it // gpr, it % gpr
+    first, past = [], []
+    while True:
+        live = it < ng
+        if not live.any():
+            break
+        col = g * m
+        e0 = base[:, None] + r * gld[:, None] + col
+        e1 = e0 + np.minimum(m, length[:, None] - col)
+        whole = live.all()
+        first.append(e0.ravel() if whole else e0[live])
+        past.append(e1.ravel() if whole else e1[live])
+        it = it + threads
+        g = g + step_g
+        r = r + step_r
+        carry = g >= gpr
+        g -= carry * gpr
+        r += carry
+    if not first:
+        return np.zeros(0, base.dtype), np.zeros(0, base.dtype)
+    return np.concatenate(first), np.concatenate(past)
+
+
+def prune_walk(plan: PrunePlan, rows: int, k: int, m: int, itemsize: int,
+               grid: int, threads: int = 256) -> PruneWalk:
+    """Replay K1's loops on the CPU with ``grid`` blocks of ``threads``:
+    how often each element of ``w [rows, k]`` is loaded
+    (``loads``, ``[rows, k]``), how often each element of ``pruned`` and
+    ``mask`` is stored (``stores``), how often each group ``(row, g)`` is
+    ranked (``ranked``, ``[rows, ceil(k / m)]``, a group known by its
+    first element), and how many ranked groups cross a row's end or stop
+    short of it or of ``m`` (``crossing``). The store loops copy the
+    pieces the load loops copied, piece for piece. ``itemsize`` is the
+    element size the plan was made for."""
+    total = rows * k
+    ix = np.int32 if total < 2**31 - 2**16 else np.int64
+    if plan.mode == "stream":  # thread t: chunks t, t + stride, ...
+        unit = 16 // itemsize
+        chunks = -(-total // unit)
+        stride = grid * threads
+        j = np.arange(-(-chunks // stride), dtype=ix)
+        c = (np.arange(stride, dtype=ix)[:, None] + stride * j).ravel()
+        c = c[c < chunks]
+        start, end = c * unit, np.minimum(c * unit + unit, total)
+        e0 = (c[:, None] * unit + np.arange(0, unit, m, dtype=ix)).ravel()
+        e0 = e0[e0 < total]  # members past total: ranked, never stored
+        e1 = e0 + m
+    else:
+        per = -(-plan.units // grid)
+        u = (np.arange(grid, dtype=ix)[:, None]
+             + grid * np.arange(per, dtype=ix)[None, :]).ravel()
+        tiles = _tiles(plan, rows, k, u[u < plan.units])
+        start, end = _pieces(plan, tiles)
+        e0, e1 = _rank_items(tiles, m, threads)
+    cover = np.cumsum(np.bincount(start, minlength=total + 1)
+                      - np.bincount(end, minlength=total + 1))[:total]
+    row = e0 // k
+    c0 = e0 - row * k
+    # in one row, at a group boundary of it, m wide or up to the row's end
+    bad = (c0 % m != 0) | (e1 - e0 != np.minimum(m, k - c0))
+    gk = -(-k // m)
+    ranked = np.bincount((row * gk + c0 // m)[~bad], minlength=rows * gk)
+    return PruneWalk(cover.reshape(rows, k), cover.reshape(rows, k),
+                     ranked.reshape(rows, gk), int(bad.sum()))
 
 
 def compress_24_plain(

@@ -262,7 +262,7 @@ def test_coo_probe_times_each_route_on_its_own_layout():
                 (128, "staged"), (ck.GATHER_KC, "gather")]
 
 
-@pytest.mark.parametrize("src", ["coo_spmm", "compress24"])
+@pytest.mark.parametrize("src", ["coo_spmm", "compress24", "prune_nm"])
 def test_coo_probe_ablations_find_their_code(src):
     """Each ablation of the probe edits text the kernel source still holds,
     and the probe's ctypes spec has one letter per parameter of the C entry

@@ -44,17 +44,92 @@ def _rel(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
 
-@pytest.mark.parametrize("shape,n,m", [((3, 37, 147), 2, 4),
-                                       ((3, 10, 64), 2, 4), ((4, 64), 2, 8),
-                                       ((5, 70), 2, 8), ((4, 33), 3, 5),
-                                       ((2, 8, 9), 1, 4)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_prune_kernel(gen, shape, n, m, dtype):
-    w = torch.randn(shape, generator=gen, device="cuda")
-    w = (torch.round(w * 2) / 2).to(dtype)  # many equal magnitudes
+NM = [(2, 4), (1, 4), (3, 4), (0, 4), (4, 4), (2, 8), (3, 5), (7, 32)]
+PRUNE_KS = [1, 2, 3, 4, 5, 7, 9, 31, 32, 63, 64, 100, 147, 255, 576, 999,
+            1000, 4608, 5000]
+
+
+def _same_prune(w, n, m):
+    """K1 on the card against the plain version on the CPU, bit for bit
+    (any NaN matching any NaN)."""
     got = prune_kernel.prune_nm_cuda(w, n, m)
-    want = prune_kernel.prune_nm_plain(w, n, m)
-    assert all(torch.equal(g, h) for g, h in zip(got, want))
+    want = prune_kernel.prune_nm_plain(w.cpu(), n, m)
+    torch.cuda.synchronize()
+    return all(prune_kernel.same_bits(g.cpu(), h)
+               for g, h in zip(got, want))
+
+
+@pytest.mark.parametrize("n,m", NM)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prune_kernel(gen, n, m, dtype):
+    """Both routes (the stream of 16-byte chunks where k % m == 0 and m =
+    4 or 8; tiles of whole rows or row pieces) at k from 1 to 5000, 3-D
+    input and ragged row counts, with many equal magnitudes."""
+    for k in PRUNE_KS:
+        for shape in ((3, 5, k), (37, k)):
+            w = torch.randn(shape, generator=gen, device="cuda")
+            w = (torch.round(w * 2) / 2).to(dtype)
+            assert _same_prune(w, n, m), (shape, n, m)
+
+
+@pytest.mark.parametrize("rows,k,m", [(100000, 147, 4), (3000, 5000, 5),
+                                      (2000, 5000, 32), (10000, 1101, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prune_kernel_tiles(gen, rows, k, m, dtype):
+    """Over a thousand tiles in each tile mode: whole rows (k = 147; k =
+    5000 in bf16) and column pieces (k = 5000 in f32; odd k = 1101, too
+    deep for a span of 8 or 4 rows, element-wide copies)."""
+    plan = prune_kernel.prune_plan(rows, k, m, dtype.itemsize)
+    assert plan.units > 1000
+    w = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    assert _same_prune(w, 2, m)
+
+
+@pytest.mark.parametrize("n,m", NM)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prune_kernel_special_values(gen, n, m, dtype):
+    """NaN, +-Inf, +-0 and all-equal groups rank and prune as the plain
+    version does: a NaN neither outranks nor is outranked, a dropped
+    member is x * 0 (a zero of x's sign; NaN for an infinite x)."""
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                            -0.0, 1.0, -1.0, 2.0], device="cuda")
+    for k in (8, 147, 576):
+        idx = torch.randint(0, len(special), (64, k), generator=gen,
+                            device="cuda")
+        w = special[idx]
+        w[:8] = -1.5  # all-equal groups
+        w[8:16] = -0.0
+        assert _same_prune(w.to(dtype), n, m), (k, n, m)
+
+
+@pytest.mark.parametrize("k,m", [(147, 4), (576, 4), (1000, 8), (99, 5),
+                                 (5000, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prune_kernel_at_an_odd_offset(gen, k, m, dtype):
+    """A contiguous view one element into a larger buffer (not 16-byte
+    aligned): the same kernel with scalar copies, bit for bit."""
+    rows = 300
+    buf = torch.randn(rows * k + 1, generator=gen,
+                      device="cuda").to(dtype)
+    w = buf[1:].view(rows, k)
+    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    assert _same_prune(w, 2, m)
+
+
+def test_prune_kernel_on_two_cards(gen):
+    """K1 switches to its tensor's card in C and opts into its shared
+    memory per card: the same call on cuda:0, then cuda:1, bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    w = torch.randn((3001, 147), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for dev in ("cuda:0", "cuda:1"):
+        x = w.to(dev)
+        got = prune_kernel.prune_nm_cuda(x)
+        torch.cuda.synchronize(dev)
+        assert all(g.device == torch.device(dev) for g in got)
+        assert all(prune_kernel.same_bits(g, h) for g, h in
+                   zip(got, prune_kernel.prune_nm_plain(x)))
 
 
 @pytest.mark.parametrize("rows,k", [(1, 4), (37, 147), (130, 64),

@@ -68,6 +68,26 @@ def test_prune_nm_tie_rule_pinned():
     assert pw[0, 4:].tolist() == [0.0, 0.0, 2.0, 2.0]
 
 
+@pytest.mark.parametrize("n,m", [(2, 4), (1, 4), (3, 5), (0, 4)])
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_prune_nm_special_values_match_jax(rng, n, m, jdt, tdt):
+    """NaN, +-Inf and +-0, the values K1 is held to bit for bit against
+    this plain version: the same mask as JAX's ``prune_nm``, and the same
+    pruned values (``w * mask``: a dropped member is a zero of its sign,
+    NaN for an infinite one), the sign of every zero included."""
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 2.0],
+                       np.float32)
+    jw, tw = _both(special[rng.integers(0, 8, size=(16, 27))], jdt)
+    pw, pm = jprune.prune_nm(jw, n, m)
+    qw, qm = tprune.prune_nm(tw, n, m)
+    assert qw.dtype == tdt and _eq(pm, qm)
+    a, b = np.asarray(pw, np.float32), tensor_to_numpy(qw)
+    nan = np.isnan(a)
+    assert nan.any() and np.array_equal(nan, np.isnan(b))
+    assert np.array_equal(a[~nan], b[~nan])
+    assert np.array_equal(np.signbit(a[~nan]), np.signbit(b[~nan]))
+
+
 def test_prune_check_nm_matches_jax(rng):
     w = rng.normal(size=(6, 40)).astype(np.float32)
     jw, tw = _both(w, jnp.float32)
