@@ -59,13 +59,32 @@ Phases, each raising on failure:
      called three times from an empty graph cache (eager, capture and
      replay, replay), every result held to ``spmm_24`` and the replays
      bitwise equal to the eager ring;
+  7b. the model path, counters set to 0 once before it and checked after
+     each part: (1) ``SparseConv2d`` on ResNet-50's conv1 (7x7/2, 3->64,
+     32x224x224x3 NHWC), ``SparseConv2d`` and ``EllConv2d`` on
+     layer2.0.conv2 (3x3/2, XLA's (0, 1) padding, 32x56x56x128) and a
+     layer3 conv2 (3x3/1, 32x14x14x256), bf16, built on the card (K1, K2)
+     and run once (K3, K4); (2) the flagship MLP forward through
+     ``entry()`` (256-512-512-256, batch 128, bf16); (3) ten SGD steps of
+     the dp x tp train step on a 2 x 2 mesh (ranks on one card, or one a
+     card on four); parts 1-3 run once inside ``profile_trace`` and the
+     device's busy share of that window is printed; (4)
+     ``dryrun_multichip(4)`` (K7 on both routes). Then each conv layer's
+     output is held to its ``dense_reference`` (``F.conv2d``) within 2e-2
+     and timed against cuDNN on the dense pruned weight (paired), the
+     forward against the same forward on the CPU, the parameters after
+     three steps against three steps on CPU ranks within 2e-2 (codes
+     exactly), and the loss must fall; the busy share of three more
+     (warm) steps, traced, is printed too; prints ``{"model_path":
+     {...}}`` (busy shares, per-layer ms / cudnn_ms / patch_ms, step_ms,
+     forward_ms, losses);
   8. the drivers: each of the five (``sparsify gemm spmm spmma
      batched_coo``) once at a ResNet-50 shape, held to its stdout contract,
      and configs 1 and 3 with ``quick=True``;
   9. one ``{"kernels": [...]}`` line: each route's time at a main-path
      shape beside its plain version, a PyTorch library call computing the
      same function (where one exists) and its bound, with its launches on
-     the four paths and its error against the plain version there (K1,
+     the five paths and its error against the plain version there (K1,
      K2 and its fused route have a second entry at their worst main-path
      shape, 12544x64x147; K6 has three, 3136x128x1152 at 0.9 and 0.995
      sparsity and 196x512x4608 at 0.5, each on a layout built outside the
@@ -166,7 +185,10 @@ PLAN_ROUTES = ("prune_nm", "compress_24", "prune_compress_24", "spmm_24",
 COO_ROUTES = ("spmm_coo",)
 RING_ROUTES = ("prune_nm", "compress_24", "spmm_24", "ring_step",
                "ring_step_tiled")
-PATHS = ("bench", "plan", "coo", "ring")
+MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
+MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
+PATHS = ("bench", "plan", "coo", "ring", "model")
+MODEL_STEPS = 10
 
 
 def card_line() -> str:
@@ -881,6 +903,148 @@ def phase_ring_path():
     return counts
 
 
+def conv_layers(gen):
+    """The model path's conv layers at full ResNet-50 width (b=32, bf16,
+    He-scaled weights): ``(name, layer, x)`` for each 2:4 layer, and an ELL
+    layer where out_ch fills the 128-row block. Building them runs K1 and
+    K2."""
+    from sparsifyme_tpu_torch.bench.conv_probe import CONVS
+    from sparsifyme_tpu_torch.models.sparse_conv import (EllConv2d,
+                                                         SparseConv2d)
+
+    out = []
+    for name, cin, cout, ksz, stride, hw in CONVS:
+        k = cin * ksz * ksz
+        w = (torch.randn((cout, cin, ksz, ksz), generator=gen, device="cuda")
+             * (2.0 / k) ** 0.5).to(torch.bfloat16)
+        x = torch.randn((BATCH, hw, hw, cin), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out.append((name, SparseConv2d(w, stride=stride), x))
+        if cout % 128 == 0:
+            out.append((name, EllConv2d(w, stride=stride), x))
+    return out
+
+
+def phase_model_path(trace_dir="traces/model_path"):
+    """The model layer at full width, launch counters set to 0 once before
+    it: (1) the three conv layers, (2) the flagship MLP forward through
+    ``entry()``, (3) ten SGD steps of the dp x tp train step on a 2 x 2
+    mesh, all three run once inside ``profile_trace`` (the busy share of
+    that window is printed), then (4) ``dryrun_multichip(4)``. The oracles
+    and the CPU runs they are held to come after the trace; so do the
+    timings, each layer against cuDNN."""
+    import sparsifyme_tpu_torch.entry as tentry
+    from sparsifyme_tpu_torch import make_mesh
+    from sparsifyme_tpu_torch.bench.conv_probe import cudnn_conv
+    from sparsifyme_tpu_torch.models import sparse_mlp as tmlp
+    from sparsifyme_tpu_torch.models.sparse_conv import _patch_columns
+    from sparsifyme_tpu_torch.utils.timing import time_kernel, \
+        time_kernel_pair
+    from sparsifyme_tpu_torch.utils.trace import busy_share, profile_trace
+
+    def check_part(part, routes):
+        counts = launch_counts()
+        check_launched(counts, routes, f"model ({part})")
+        print(f"  model {part}: launches so far {counts}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cpu_gen = torch.Generator().manual_seed(32)
+    x_mlp = torch.randn((tentry.ENTRY_BATCH, 256), generator=cpu_gen)
+    y_mlp = (x_mlp @ (0.1 * torch.randn((256, 256), generator=cpu_gen)))
+    x_mlp, y_mlp = (t.to(torch.bfloat16).cuda() for t in (x_mlp, y_mlp))
+    config = tentry.ENTRY_CONFIG
+    mesh = make_mesh((2, 2), ("data", "model"), devices=ring_devices(4))
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile_trace(trace_dir) as prof:
+        t0 = time.perf_counter()
+        layers = conv_layers(gen)
+        with torch.no_grad():
+            conv_outs = [layer(x) for _, layer, x in layers]
+        check_part("1 conv layers", MODEL_CONV_ROUTES)
+        fn, (params0, x0) = tentry.entry()
+        mlp_out = fn(params0, x0)
+        check_part("2 flagship forward", MODEL_MLP_ROUTES)
+        step = tmlp.make_train_step(mesh, config, lr=1e-2)
+        params, losses = params0, []
+        for i in range(MODEL_STEPS):
+            loss, params = step(params, x_mlp, y_mlp)
+            losses.append(loss)
+            if i == 2:
+                params3 = params
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    check_part("3 train steps", ("spmm_24",))
+    share = busy_share(prof)
+    print(f"model path: device busy share {share:.4f} of the traced window "
+          f"(parts 1-3, {traced_s:.3f} s, torch.profiler; trace in "
+          f"{trace_dir})", flush=True)
+    if not share > 0:
+        raise AssertionError("the trace holds no device work")
+
+    # part 4, and what parts 1-3 are held to
+    tentry.dryrun_multichip(4)
+    counts = launch_counts()
+    check_part("4 dryrun_multichip(4)", RING_ROUTES)
+    result = {"busy_share": share, "traced_s": traced_s, "convs": []}
+    for (name, layer, x), out in zip(layers, conv_outs):
+        with torch.no_grad():
+            err = close(type(layer).__name__, out, layer.dense_reference(x),
+                        torch.bfloat16, f"{name} {tuple(x.shape)} vs F.conv2d")
+            pair = time_kernel_pair(layer, (x,), cudnn_conv(layer), (x,),
+                                    iters=10, reps=3)
+            patch_ms = time_kernel(lambda t, lay=layer: _patch_columns(
+                t, lay.kh, lay.kw, lay.stride, lay.padding), (x,),
+                iters=10, reps=3).ms
+        rows = out.shape[0] * out.shape[1] * out.shape[2]
+        k = layer.in_ch * layer.kh * layer.kw
+        result["convs"].append({
+            "layer": name, "class": type(layer).__name__,
+            "input": list(x.shape), "patches": [rows, k],
+            "ms": pair.a.ms, "cudnn_ms": pair.b.ms, "ratio": pair.ratio,
+            "patch_ms": patch_ms, "max_abs_err": err[0], "max_err": err[1]})
+        del out
+    params_cpu = [tuple(t.cpu() for t in layer) for layer in params0]
+    close("model_mlp", mlp_out.cpu(), fn(params_cpu, x0.cpu()),
+          torch.bfloat16, "flagship forward 128x256 vs the CPU")
+    cpu_step = tmlp.make_train_step(
+        make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4), config,
+        lr=1e-2)
+    cpu_params = params_cpu
+    for _ in range(3):
+        _, cpu_params = cpu_step(cpu_params, x_mlp.cpu(), y_mlp.cpu())
+    for i, (lc, lg) in enumerate(zip(cpu_params, params3)):
+        exact("model_step", (lg[2].cpu(),), (lc[2],),
+              f"layer {i} codes after 3 steps (card vs CPU)")
+        for j in (0, 1, 3):
+            close("model_step", lg[j].cpu(), lc[j], torch.bfloat16,
+                  f"layer {i} param {j} after 3 steps (card vs CPU)")
+    losses = [float(t) for t in losses]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MODEL_STEPS):
+        _, params = step(params, x_mlp, y_mlp)
+    torch.cuda.synchronize()
+    result["step_ms"] = (time.perf_counter() - t0) * 1e3 / MODEL_STEPS
+    # the steady state: three more steps, traced (the profiler's own host
+    # cost lowers this share)
+    with profile_trace(trace_dir + "_steps") as prof:
+        for _ in range(3):
+            _, params = step(params, x_mlp, y_mlp)
+    result["step_busy_share"] = busy_share(prof)
+    print(f"model path: device busy share {result['step_busy_share']:.4f} "
+          "over three warm train steps (torch.profiler)", flush=True)
+    result["forward_ms"] = time_kernel(lambda t: fn(params0, t), (x0,),
+                                       iters=20, reps=3).ms
+    result["losses"] = losses
+    print(json.dumps({"model_path": result}), flush=True)
+    del layers, conv_outs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_drivers() -> None:
     """Each driver once on the card at a ResNet-50 shape, held to its
     stdout contract; configs 1 and 3 in their quick form."""
@@ -1279,6 +1443,8 @@ def main() -> int:
     counts["plan"] = phase_plan_path()
     counts["coo"] = phase_coo_path()
     counts["ring"] = phase_ring_path()
+    print("model path:", flush=True)
+    counts["model"] = phase_model_path()
     print("drivers and quick configs:", flush=True)
     phase_drivers()
     print(json.dumps(phase_kernel_line(counts)), flush=True)

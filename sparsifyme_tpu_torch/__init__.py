@@ -27,10 +27,12 @@ from .ops.prune import (
 from .ops.sparse24 import (
     compress_24,
     decompress_24,
+    pack_codes,
     pack_codes_fp,
     prune_compress_24,
     spmm_24,
     spmm_24_reference,
+    unpack_codes,
 )
 from .parallel.mesh import Mesh, init_distributed, make_mesh, replicate, \
     shard_batch
@@ -68,6 +70,7 @@ __all__ = [
     "get_plan",
     "init_distributed",
     "make_mesh",
+    "pack_codes",
     "pack_codes_fp",
     "pack_coo",
     "prune_24",
@@ -94,5 +97,6 @@ __all__ = [
     "spmm_ell",
     "spmm_ell_expand",
     "spmma",
+    "unpack_codes",
     "write_shapes",
 ]

@@ -85,3 +85,19 @@ def coo_to_numpy(a: Coo) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
     """``(rows, cols, values, shape)``."""
     return (tensor_to_numpy(a.rows), tensor_to_numpy(a.cols),
             tensor_to_numpy(a.values), tuple(a.shape))
+
+
+def mlp_params_from_numpy(params, device=None):
+    """The sparse MLP's parameters (``models.sparse_mlp``) from numpy: one
+    ``(values0, values1, codes, bias)`` tuple per layer, as the JAX
+    ``init_params`` gives them, carried bit for bit (bfloat16 included)."""
+    return [(tensor_from_numpy(v0, device), tensor_from_numpy(v1, device),
+             tensor_from_numpy(np.asarray(codes, np.uint8), device),
+             tensor_from_numpy(bias, device))
+            for v0, v1, codes, bias in params]
+
+
+def mlp_params_to_numpy(params):
+    """Inverse of :func:`mlp_params_from_numpy`: numpy tuples, bfloat16
+    as float32 (exact)."""
+    return [tuple(tensor_to_numpy(t) for t in layer) for layer in params]

@@ -7,8 +7,11 @@ replaces the reference's dataset generator
 non-downsample Conv2d of torchvision ResNets into an im2col GEMM shape
 `(m, n, k, b)` with m = output H*W, n = out_channels, k = in_ch*kh*kw,
 b = 32. The shapes are computed analytically from the published ResNet
-architecture instead of tracing torchvision modules. The MobileNet and
-DenseNet zoo (``conv_zoo``) is not ported yet.
+architecture instead of tracing torchvision modules; the MobileNet and
+DenseNet members of the zoo come from :mod:`.conv_zoo`.
+:func:`main` writes every model's CSV, as the JAX module's does::
+
+    python -m sparsifyme_tpu_torch.models.resnet_shapes <outdir> [--batch 32]
 
 Quirk replicated deliberately: the reference's spatial bookkeeping ignores
 the stem max-pool (its committed CSVs show layer1 convs at 112x112, e.g.
@@ -20,7 +23,7 @@ both behaviors via `include_maxpool`, defaulting to the reference's
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..utils.shapes import LayerShape
 
@@ -92,6 +95,16 @@ def resnet_conv_shapes(
     return shapes
 
 
+def all_model_shapes(batch: int = 32) -> Dict[str, List[LayerShape]]:
+    """Every model in the reference datagen zoo (`get_shapes.py:87-98`):
+    the ResNet family here, MobileNet/DenseNet from :mod:`.conv_zoo`."""
+    from .conv_zoo import zoo_conv_shapes
+
+    out = {name: resnet_conv_shapes(name, batch=batch) for name in _ARCH}
+    out.update(zoo_conv_shapes(batch=batch))
+    return out
+
+
 def benchmark_shapes(batch: int = 32) -> List[LayerShape]:
     """The published benchmark sweep: ResNet-50's 49 conv shapes.
 
@@ -100,3 +113,27 @@ def benchmark_shapes(batch: int = 32) -> List[LayerShape]:
     benchmark is the ResNet-50 sweep.
     """
     return resnet_conv_shapes("resnet50", batch=batch)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """CLI: write the m,n,k,b CSVs for every model, and the benchmark's
+    ``shapes.csv``, into a directory."""
+    import argparse
+    import os
+
+    from ..utils.shapes import write_shapes
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("outdir", help="directory to write <model>.csv files into")
+    p.add_argument("--batch", type=int, default=32)
+    args = p.parse_args(argv)
+    os.makedirs(args.outdir, exist_ok=True)
+    for name, shapes in all_model_shapes(batch=args.batch).items():
+        write_shapes(os.path.join(args.outdir, f"{name}.csv"), shapes)
+    write_shapes(
+        os.path.join(args.outdir, "shapes.csv"), benchmark_shapes(args.batch)
+    )
+
+
+if __name__ == "__main__":
+    main()

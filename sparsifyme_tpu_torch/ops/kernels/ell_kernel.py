@@ -254,12 +254,14 @@ def ell_spmm_cuda(values, cols, b, *, block_size: int, block_k: int,
     #  dtype, out_dtype, bn, bk_step, stages, splits, ctas, grid, stream)
     launch = _build.load("ell_spmm", "ell_spmm_launch",
                          "pppppp" "iiiiii" "ff" "iii" "iiiiii" "p")
-    _build.check(launch(
-        values.data_ptr(), cols.data_ptr(), b.data_ptr(), _build.ptr(c32),
-        out.data_ptr(), _build.ptr(ws), m, n, kb, bs, bk, ell, float(alpha),
-        float(beta) if c32 is not None else 0.0, int(transpose_out),
-        DTYPE_CODES[dtype], DTYPE_CODES[out_dtype], *plan_args(plan),
-        _build.stream_ptr(values)), "ell_spmm")
+    # the entry point launches on the current card: make it the tensors'
+    with torch.cuda.device(values.device):
+        _build.check(launch(
+            values.data_ptr(), cols.data_ptr(), b.data_ptr(),
+            _build.ptr(c32), out.data_ptr(), _build.ptr(ws), m, n, kb, bs,
+            bk, ell, float(alpha), float(beta) if c32 is not None else 0.0,
+            int(transpose_out), DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+            *plan_args(plan), _build.stream_ptr(values)), "ell_spmm")
     ell_spmm_cuda.launches += 1
     return out
 
@@ -338,11 +340,12 @@ def ell_expand_spmm_cuda(values_km, cols, b, *, block_size: int,
     #  out_dtype, bn, bk_step, stages, splits, ctas, grid, stream)
     launch = _build.load("ell_expand", "ell_expand_launch",
                          "ppppp" "iiiiiii" "ii" "iiiiii" "p")
-    _build.check(launch(
-        values_km.data_ptr(), cols.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _build.ptr(ws), m, n, kb, bs, bk, ell, int(transpose_out),
-        DTYPE_CODES[dtype], DTYPE_CODES[out_dtype], *plan_args(plan),
-        _build.stream_ptr(values_km)), "ell_expand")
+    with torch.cuda.device(values_km.device):  # as in ell_spmm_cuda
+        _build.check(launch(
+            values_km.data_ptr(), cols.data_ptr(), b.data_ptr(),
+            out.data_ptr(), _build.ptr(ws), m, n, kb, bs, bk, ell,
+            int(transpose_out), DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+            *plan_args(plan), _build.stream_ptr(values_km)), "ell_expand")
     ell_expand_spmm_cuda.launches += 1
     return out
 

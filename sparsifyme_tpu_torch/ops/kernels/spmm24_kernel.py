@@ -318,13 +318,16 @@ def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
     #  fold, dtype, out_dtype, tile, stream)
     launch = _build.load("spmm24", "spmm24_launch",
                          "pppppp" "iiii" "ff" "iiiiii" "p")
-    _build.check(launch(
-        v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), b.data_ptr(),
-        _build.ptr(c32), out.data_ptr(), m, n, k_logical, k4, float(alpha),
-        float(beta) if c32 is not None else 0.0, int(transpose_out),
-        int(packed_codes), fold, DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
-        card_tile(v0.device, m, n, k_logical, fold), _build.stream_ptr(v0)),
-        what)
+    # the entry point launches on the current card: make it the tensors'
+    with torch.cuda.device(v0.device):
+        _build.check(launch(
+            v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), b.data_ptr(),
+            _build.ptr(c32), out.data_ptr(), m, n, k_logical, k4,
+            float(alpha), float(beta) if c32 is not None else 0.0,
+            int(transpose_out), int(packed_codes), fold, DTYPE_CODES[dtype],
+            DTYPE_CODES[out_dtype],
+            card_tile(v0.device, m, n, k_logical, fold),
+            _build.stream_ptr(v0)), what)
     return out
 
 

@@ -232,3 +232,26 @@ def pack_codes_fp(codes: torch.Tensor) -> torch.Tensor:
     half = k4 // 2
     return (codes[..., :half, :] | (codes[..., half:, :] << 4)).to(
         torch.uint8)
+
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Pack two uint8 group codes (4 bits used each) per byte: adjacent
+    groups along the k-major group axis (``-2``), the first in the low
+    nibble; an odd group count is padded with a zero code. The storage
+    layout (0.125 B per logical element), distinct from the kernel's
+    split-half :func:`pack_codes_fp`."""
+    if codes.shape[-2] % 2:
+        pad = torch.zeros_like(codes[..., :1, :])
+        codes = torch.cat([codes, pad], dim=-2)
+    *lead, k4p, m = codes.shape
+    pairs = codes.reshape(*lead, k4p // 2, 2, m)
+    return (pairs[..., 0, :] | (pairs[..., 1, :] << 4)).to(torch.uint8)
+
+
+def unpack_codes(packed: torch.Tensor, k4: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`: the first ``k4`` group codes."""
+    lo = packed & 0xF
+    hi = (packed >> 4) & 0xF
+    codes = torch.stack([lo, hi], dim=-2).reshape(
+        *packed.shape[:-2], packed.shape[-2] * 2, packed.shape[-1])
+    return codes[..., :k4, :].to(torch.uint8)

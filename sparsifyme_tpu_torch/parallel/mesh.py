@@ -112,23 +112,38 @@ def make_mesh(
     return Mesh(arr.reshape(tuple(shape)), tuple(axis_names))
 
 
-def _rank_index(mesh: Mesh, axis: str) -> np.ndarray:
-    """Each rank's index along ``axis``, in the mesh's (row-major) order."""
-    ax = mesh.axis_names.index(axis)
-    return np.indices(mesh.devices.shape)[ax].reshape(-1)
+def shard(x: torch.Tensor, spec: Tuple[Optional[str], ...],
+          mesh: Mesh) -> List[torch.Tensor]:
+    """One tensor per rank (mesh order): the rank's block of ``x`` on its
+    device, a view where ``x`` already lies there. ``spec`` names, for
+    each axis of ``x``, the mesh axis it is split over evenly, or None
+    where it is whole, as a JAX ``PartitionSpec`` does."""
+    if len(spec) != x.ndim:
+        raise ValueError(f"spec {spec} does not fit a {x.ndim}-d tensor")
+    for ax, name in enumerate(spec):
+        if name is not None and x.shape[ax] % mesh.shape[name]:
+            raise ValueError(f"axis {ax} of size {x.shape[ax]} not "
+                             f"divisible by mesh axis {name!r} of size "
+                             f"{mesh.shape[name]}")
+    out = []
+    for idx in np.ndindex(mesh.devices.shape):
+        sl = []
+        for ax, name in enumerate(spec):
+            if name is None:
+                sl.append(slice(None))
+                continue
+            size = x.shape[ax] // mesh.shape[name]
+            i = idx[mesh.axis_names.index(name)]
+            sl.append(slice(i * size, (i + 1) * size))
+        out.append(x[tuple(sl)].to(mesh.devices[idx]))
+    return out
 
 
 def shard_batch(x: torch.Tensor, mesh: Mesh,
                 axis: str = "data") -> List[torch.Tensor]:
     """One tensor per rank (mesh order): the rank's slice of ``x``'s
     leading dim, split evenly over ``axis``, on the rank's device."""
-    p = mesh.shape[axis]
-    if x.shape[0] % p:
-        raise ValueError(f"leading dim {x.shape[0]} not divisible by axis "
-                         f"size {p}")
-    chunks = torch.chunk(x, p, dim=0)
-    return [chunks[i].to(d) for i, d in zip(_rank_index(mesh, axis),
-                                            mesh.devices.reshape(-1))]
+    return shard(x, (axis,) + (None,) * (x.ndim - 1), mesh)
 
 
 def replicate(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:

@@ -14,7 +14,9 @@ logical ranks of one
 card (P = 1, 2, 3, 4, 8), the sharded SpMMs, the rings' capacity credits
 under a delayed rank, and the rings' CUDA graphs (replay bitwise the eager
 ring, operands read at replay time, launch counts, no capture across
-cards).
+cards); and the model layer: both conv layers at a ragged shape, the ELL
+layer's gradient, three dp x tp train steps and the entry points on the
+card against the CPU.
 
 These tests need a CUDA card and skip without one. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -1165,3 +1167,167 @@ def test_routes_without_a_backward_raise_under_grad(gen):
             call()
         with torch.no_grad():
             assert call().grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_kernels_on_two_cards(gen, dtype):
+    """K3 (and its fold route), K4 and K5 launch on their tensors' card
+    whatever the current card is (ROADMAP C3): each op on cuda:1 tensors
+    with cuda:0 current, right and on cuda:1, with the later work of
+    cuda:1's stream ordered after it."""
+    import sparsifyme_tpu_torch as sp
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    g = torch.Generator().manual_seed(4)
+    a = torch.randn((2, 256, 576), generator=g).to(dtype)
+    b = torch.randn((576, 136), generator=g).to(dtype)
+    e = sp.ell_from_dense(a, 128, 4, 64)
+    ops = [lambda d: sp.spmm_24(sp.compress_24(sp.prune_24(a.to(d))[0]),
+                                b.to(d)),
+           lambda d: sp.spmm_24(sp.prune_compress_24(a.to(d), fold=2),
+                                b.to(d)),
+           lambda d: sp.spmm_ell(e.__class__(e.values.to(d),
+                                             e.col_indices.to(d), e.shape,
+                                             128, 64), b.to(d)),
+           lambda d: sp.spmm_ell_expand(e.__class__(
+               e.values.to(d), e.col_indices.to(d), e.shape, 128, 64),
+               b.to(d))]
+    with torch.cuda.device(0):
+        for op in ops:
+            want = op("cpu")
+            got = op("cuda:1")
+            assert got.device == torch.device("cuda:1")
+            got = (got * 1).cpu()  # a later kernel on cuda:1's stream
+            assert _rel(got, want) < TOL[dtype]
+
+
+# --------------------------------------------------------------------------
+# The model layer: conv layers, the sparse MLP's train step, entry points
+# --------------------------------------------------------------------------
+# --------------------------------------------------------------------------
+# The model layer: conv layers, the sparse MLP's train step, entry points
+# --------------------------------------------------------------------------
+
+def _launches():
+    from sparsifyme_tpu_torch.parallel import ring_kernel
+    return (prune_kernel.prune_nm_cuda.launches,
+            prune_kernel.compress_24_cuda.launches,
+            spmm24_kernel.spmm24_cuda.launches,
+            ell_kernel.ell_spmm_cuda.launches,
+            ring_kernel.ring_step_cuda.launches,
+            ring_kernel.ring_step_tiled_cuda.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_layers_on_the_card(gen, dtype):
+    """Both conv layers at a ragged shape (15x15 input, stride 2 with XLA's
+    padding, k = 29 * 9 = 261: not a multiple of 64 nor of the ELL block):
+    built with K1 and K2 (the 2:4 layer), run through K3 and K4, against
+    their dense references on the card and the same layers on the CPU."""
+    from sparsifyme_tpu_torch.models.sparse_conv import (EllConv2d,
+                                                         SparseConv2d)
+
+    w = torch.randn((128, 29, 3, 3), generator=gen, device="cuda").to(dtype)
+    x = torch.randn((3, 15, 15, 29), generator=gen, device="cuda").to(dtype)
+    n0 = _launches()
+    layers = [SparseConv2d(w, stride=2), EllConv2d(w, stride=2)]
+    cpu_layers = [SparseConv2d(w.cpu(), stride=2), EllConv2d(w.cpu(),
+                                                             stride=2)]
+    for t, c in zip((layers[0].values0, layers[0].values1, layers[0].codes,
+                     layers[1].values, layers[1].col_indices),
+                    (cpu_layers[0].values0, cpu_layers[0].values1,
+                     cpu_layers[0].codes, cpu_layers[1].values,
+                     cpu_layers[1].col_indices)):
+        assert torch.equal(t.detach().cpu(), c.detach())
+    with torch.no_grad():
+        for layer, cpu_layer in zip(layers, cpu_layers):
+            out = layer(x)
+            assert tuple(out.shape) == (3, 8, 8, 128)
+            assert _rel(out, layer.dense_reference(x)) < TOL[dtype]
+            assert _rel(out.cpu(), cpu_layer(x.cpu())) < TOL[dtype]
+    n1 = _launches()
+    assert all(b > a for a, b in list(zip(n0, n1))[:4]), (n0, n1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_conv_grad_on_the_card_matches_the_cpu(gen, dtype):
+    from sparsifyme_tpu_torch.models.sparse_conv import EllConv2d
+
+    g = torch.Generator().manual_seed(5)
+    w = torch.randn((128, 16, 3, 3), generator=g).to(dtype)
+    x = torch.randn((2, 9, 9, 16), generator=g).to(dtype)
+    y = torch.randn((2, 5, 5, 128), generator=g).to(dtype)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        layer = EllConv2d(w.to(dev), stride=2)
+        loss = torch.mean((layer(x.to(dev)).float() - y.to(dev).float())
+                          ** 2)
+        loss.backward()
+        grads[dev] = layer.values.grad
+    assert _rel(grads["cuda"].cpu(), grads["cpu"]) < TOL[dtype]
+
+
+def _train_on(devices, dtype):
+    """Three steps of the dp x tp train step on a 2 x 2 mesh of ranks on
+    ``devices``, against the same steps on CPU ranks."""
+    from sparsifyme_tpu_torch import make_mesh
+    from sparsifyme_tpu_torch.models import sparse_mlp as tmlp
+
+    config = tmlp.MlpConfig(dims=(64, 128, 64), dtype=dtype)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((16, 64), generator=g).to(config.torch_dtype)
+    y = torch.randn((16, 64), generator=g).to(config.torch_dtype)
+    runs = {}
+    for devs in (["cpu"] * 4, devices):
+        params = tmlp.init_params(config, torch.Generator().manual_seed(0),
+                                  devs[0])
+        step = tmlp.make_train_step(
+            make_mesh((2, 2), ("data", "model"), devices=devs), config)
+        losses = []
+        for _ in range(3):
+            loss, params = step(params, x.to(devs[0]), y.to(devs[0]))
+            losses.append(float(loss))
+        runs[devs[0]] = losses, params
+    tol = TOL[config.torch_dtype]
+    for a, b in zip(runs[devices[0]][0], runs["cpu"][0]):
+        assert abs(a - b) <= tol * abs(b)
+    for lc, lg in zip(runs["cpu"][1], runs[devices[0]][1]):
+        assert torch.equal(lc[2], lg[2].cpu())
+        for i in (0, 1, 3):
+            assert lg[i].device == torch.device(devices[0])
+            assert _rel(lg[i].cpu(), lc[i]) < tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_the_card_matches_the_cpu(gen, dtype):
+    """Four ranks on one card."""
+    _train_on(["cuda:0"] * 4, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_across_cards_matches_the_cpu(gen, dtype):
+    """Ranks round-robin over the cards: the all-gather and its backward
+    copy between cards."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    _train_on([f"cuda:{r % cards}" for r in range(4)], dtype)
+
+
+def test_entry_points_on_the_card(gen, capsys):
+    """The flagship forward on the card against the same forward on the
+    CPU, and ``dryrun_multichip(4)`` on ranks of the card (its checks
+    raise), which launches K7 on both routes."""
+    from sparsifyme_tpu_torch import entry
+
+    fn, (params, x) = entry.entry()
+    out = fn(params, x)
+    assert out.is_cuda and tuple(out.shape) == (128, 256)
+    cpu = [tuple(t.cpu() for t in layer) for layer in params]
+    assert _rel(out.cpu(), fn(cpu, x.cpu())) < TOL[torch.bfloat16]
+    n0 = _launches()
+    entry.dryrun_multichip(4)
+    n1 = _launches()
+    assert n1[4] > n0[4] and n1[5] > n0[5]
+    assert "rdma-ring-tiled OK" in capsys.readouterr().out
