@@ -189,6 +189,10 @@ MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
 MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
 PATHS = ("bench", "plan", "coo", "ring", "model")
 MODEL_STEPS = 10
+# the update of three f32 train steps, card against CPU ranks, relative to
+# its largest element: the parameters are about 1000x the update, so their
+# f32 rounding (an ulp or two a step) is about 1e-4 of it
+UPDATE_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -208,9 +212,9 @@ def errors(out: torch.Tensor, ref: torch.Tensor):
     return abs_err, abs_err / max(float(ref.abs().max()), 1e-30)
 
 
-def close(name, out, ref, dtype, what):
+def close(name, out, ref, dtype, what, tol=None):
     a, e = errors(out, ref)
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     print(f"  {name:17s} {what:44s} rel_err={e:.3e} (tol {tol:g})",
           flush=True)
     if not e <= tol:
@@ -905,9 +909,9 @@ def phase_ring_path():
 
 def conv_layers(gen):
     """The model path's conv layers at full ResNet-50 width (b=32, bf16,
-    He-scaled weights): ``(name, layer, x)`` for each 2:4 layer, and an ELL
-    layer where out_ch fills the 128-row block. Building them runs K1 and
-    K2."""
+    He-scaled weights): ``(name, layer, x, w)`` for each 2:4 layer, and an
+    ELL layer where out_ch fills the 128-row block (``w``: the dense OIHW
+    weight). Building them runs K1 and K2."""
     from sparsifyme_tpu_torch.bench.conv_probe import CONVS
     from sparsifyme_tpu_torch.models.sparse_conv import (EllConv2d,
                                                          SparseConv2d)
@@ -919,33 +923,61 @@ def conv_layers(gen):
              * (2.0 / k) ** 0.5).to(torch.bfloat16)
         x = torch.randn((BATCH, hw, hw, cin), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        out.append((name, SparseConv2d(w, stride=stride), x))
+        out.append((name, SparseConv2d(w, stride=stride), x, w))
         if cout % 128 == 0:
-            out.append((name, EllConv2d(w, stride=stride), x))
+            out.append((name, EllConv2d(w, stride=stride), x, w))
     return out
 
 
 def phase_model_path(trace_dir="traces/model_path"):
     """The model layer at full width, launch counters set to 0 once before
-    it: (1) the three conv layers, (2) the flagship MLP forward through
-    ``entry()``, (3) ten SGD steps of the dp x tp train step on a 2 x 2
-    mesh, all three run once inside ``profile_trace`` (the busy share of
-    that window is printed), then (4) ``dryrun_multichip(4)``. The oracles
-    and the CPU runs they are held to come after the trace; so do the
-    timings, each layer against cuDNN."""
+    it and each part required to launch its kernels: (1) the three conv
+    layers, (2) the flagship MLP forward through ``entry()``, (3) ten SGD
+    steps of the dp x tp train step on a 2 x 2 mesh, all three run once
+    inside ``profile_trace`` (the busy share of that window is printed),
+    then (4) ``dryrun_multichip(4)``. The oracles and the CPU runs they are
+    held to come after the trace: K1 and K2 at the path's weight shapes
+    against their plain versions, bit for bit; the layers against
+    ``dense_reference``; the forward and three train steps (bf16, and the
+    f32 update) against the CPU; then the timings, each layer against
+    cuDNN."""
+    import dataclasses
+
     import sparsifyme_tpu_torch.entry as tentry
     from sparsifyme_tpu_torch import make_mesh
     from sparsifyme_tpu_torch.bench.conv_probe import cudnn_conv
     from sparsifyme_tpu_torch.models import sparse_mlp as tmlp
-    from sparsifyme_tpu_torch.models.sparse_conv import _patch_columns
+    from sparsifyme_tpu_torch.models.sparse_conv import (
+        SparseConv2d, _patch_columns, conv_weight_as_matrix)
+    from sparsifyme_tpu_torch.ops.kernels.prune_kernel import (
+        compress_24_plain, prune_nm_plain, same_bits)
     from sparsifyme_tpu_torch.utils.timing import time_kernel, \
         time_kernel_pair
     from sparsifyme_tpu_torch.utils.trace import busy_share, profile_trace
 
-    def check_part(part, routes):
-        counts = launch_counts()
-        check_launched(counts, routes, f"model ({part})")
-        print(f"  model {part}: launches so far {counts}", flush=True)
+    def check_part(part, routes, before):
+        """Every route in ``routes`` launched during the part (since the
+        snapshot ``before``); returns the counts after it."""
+        after = launch_counts()
+        check_launched({k: after[k] - before[k] for k in after}, routes,
+                       f"model ({part})")
+        print(f"  model {part}: launches in the part "
+              f"{ {k: after[k] - before[k] for k in routes} }", flush=True)
+        return after
+
+    def planes_exact(what, got, want):
+        """``(values0, values1, codes)`` built on the card against the
+        plain versions' on the CPU: the values bit for bit, the codes
+        equal."""
+        got = [t.detach().cpu() for t in got]
+        exact("model_k1_k2", got[:2], want[:2], f"{what} values",
+              same=same_bits)
+        exact("model_k1_k2", got[2:], want[2:], f"{what} codes")
+
+    def three_steps(step, params, x, y):
+        for _ in range(3):
+            _, params = step(params, x, y)
+        return params
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     cpu_gen = torch.Generator().manual_seed(32)
@@ -956,15 +988,16 @@ def phase_model_path(trace_dir="traces/model_path"):
     mesh = make_mesh((2, 2), ("data", "model"), devices=ring_devices(4))
     torch.cuda.synchronize()
     reset_counts()
+    seen = launch_counts()
     with profile_trace(trace_dir) as prof:
         t0 = time.perf_counter()
         layers = conv_layers(gen)
         with torch.no_grad():
-            conv_outs = [layer(x) for _, layer, x in layers]
-        check_part("1 conv layers", MODEL_CONV_ROUTES)
+            conv_outs = [layer(x) for _, layer, x, _ in layers]
+        seen = check_part("1 conv layers", MODEL_CONV_ROUTES, seen)
         fn, (params0, x0) = tentry.entry()
         mlp_out = fn(params0, x0)
-        check_part("2 flagship forward", MODEL_MLP_ROUTES)
+        seen = check_part("2 flagship forward", MODEL_MLP_ROUTES, seen)
         step = tmlp.make_train_step(mesh, config, lr=1e-2)
         params, losses = params0, []
         for i in range(MODEL_STEPS):
@@ -974,7 +1007,7 @@ def phase_model_path(trace_dir="traces/model_path"):
                 params3 = params
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    check_part("3 train steps", ("spmm_24",))
+    seen = check_part("3 train steps", ("spmm_24",), seen)
     share = busy_share(prof)
     print(f"model path: device busy share {share:.4f} of the traced window "
           f"(parts 1-3, {traced_s:.3f} s, torch.profiler; trace in "
@@ -984,10 +1017,16 @@ def phase_model_path(trace_dir="traces/model_path"):
 
     # part 4, and what parts 1-3 are held to
     tentry.dryrun_multichip(4)
+    check_part("4 dryrun_multichip(4)", RING_ROUTES, seen)
     counts = launch_counts()
-    check_part("4 dryrun_multichip(4)", RING_ROUTES)
+    print(f"  model path launches {counts}", flush=True)
     result = {"busy_share": share, "traced_s": traced_s, "convs": []}
-    for (name, layer, x), out in zip(layers, conv_outs):
+    for (name, layer, x, w), out in zip(layers, conv_outs):
+        if isinstance(layer, SparseConv2d):
+            wm = conv_weight_as_matrix(w).cpu()
+            planes_exact(f"{name} {tuple(wm.shape)}",
+                         (layer.values0, layer.values1, layer.codes),
+                         compress_24_plain(prune_nm_plain(wm, 2, 4)[0]))
         with torch.no_grad():
             err = close(type(layer).__name__, out, layer.dense_reference(x),
                         torch.bfloat16, f"{name} {tuple(x.shape)} vs F.conv2d")
@@ -1004,21 +1043,44 @@ def phase_model_path(trace_dir="traces/model_path"):
             "ms": pair.a.ms, "cudnn_ms": pair.b.ms, "ratio": pair.ratio,
             "patch_ms": patch_ms, "max_abs_err": err[0], "max_err": err[1]})
         del out
-    params_cpu = [tuple(t.cpu() for t in layer) for layer in params0]
+    # init_params on the CPU draws the same weights and runs the plain
+    # prune and compress
+    params_cpu = tmlp.init_params(config, torch.Generator().manual_seed(0),
+                                  "cpu")
+    for i, (lg, lc) in enumerate(zip(params0, params_cpu)):
+        planes_exact(f"entry() layer {i} {tuple(lg[0].shape)}", lg[:3],
+                     lc[:3])
+        exact("model_mlp", (lg[3].cpu(),), (lc[3],), f"layer {i} bias")
     close("model_mlp", mlp_out.cpu(), fn(params_cpu, x0.cpu()),
           torch.bfloat16, "flagship forward 128x256 vs the CPU")
-    cpu_step = tmlp.make_train_step(
-        make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4), config,
-        lr=1e-2)
-    cpu_params = params_cpu
-    for _ in range(3):
-        _, cpu_params = cpu_step(cpu_params, x_mlp.cpu(), y_mlp.cpu())
+    cpu_mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    cpu_params = three_steps(tmlp.make_train_step(cpu_mesh, config, lr=1e-2),
+                             params_cpu, x_mlp.cpu(), y_mlp.cpu())
     for i, (lc, lg) in enumerate(zip(cpu_params, params3)):
         exact("model_step", (lg[2].cpu(),), (lc[2],),
               f"layer {i} codes after 3 steps (card vs CPU)")
         for j in (0, 1, 3):
             close("model_step", lg[j].cpu(), lc[j], torch.bfloat16,
                   f"layer {i} param {j} after 3 steps (card vs CPU)")
+    # bf16 rounding hides a small or missing update in the parameters: the
+    # same three steps in f32, the update itself held to the CPU's
+    config32 = dataclasses.replace(config, dtype="float32")
+    runs = []
+    for m, dev in ((mesh, "cuda"), (cpu_mesh, "cpu")):
+        start = [tuple(t.to(dev).float() if t.is_floating_point()
+                       else t.to(dev) for t in layer) for layer in params0]
+        end = three_steps(tmlp.make_train_step(m, config32, lr=1e-2), start,
+                          x_mlp.to(dev).float(), y_mlp.to(dev).float())
+        runs.append([[e.cpu() - s.cpu() if j != 2 else e.cpu()
+                      for j, (s, e) in enumerate(zip(ls, le))]
+                     for ls, le in zip(start, end)])
+    for i, (lg, lc) in enumerate(zip(*runs)):
+        exact("model_step_f32", (lg[2],), (lc[2],),
+              f"layer {i} codes after 3 f32 steps (card vs CPU)")
+        for j in (0, 1, 3):
+            close("model_step_f32", lg[j], lc[j], torch.float32,
+                  f"layer {i} param {j} update, 3 f32 steps (card vs CPU)",
+                  tol=UPDATE_TOL)
     losses = [float(t) for t in losses]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")

@@ -7,11 +7,10 @@ layer2.0.conv2 3x3/2, a layer3 conv2 3x3/1; b=32, bf16) each layer
 :class:`~..models.sparse_conv.EllConv2d` where out_ch fills a 128-row
 block) is timed whole, its SpMM alone on a prepared B (K3 or K4), its
 patch gather alone (``patch`` — one copy from a padded NCHW copy of the
-input, the layer's route) beside two routes the layer does not take: one
-copy from the NHWC windows (``nhwc``) and ``F.unfold`` followed by the
-copy to ``[k, rows]`` (``unfold``), and ``F.conv2d`` on the dense pruned
-weight, channels-last (``cudnn``). The three gathers are checked equal.
-Each row is timed in turns with the others in one process.
+input, the layer's route) beside ``F.unfold`` followed by the copy to
+``[k, rows]`` (``unfold``, the reference it is checked equal to), and
+``F.conv2d`` on the dense pruned weight, channels-last (``cudnn``). Each
+row is timed in turns with the others in one process.
 
 A measurement script: the port does not import it.
 
@@ -28,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.sparse_conv import (EllConv2d, SparseConv2d, _pads,
-                                  _patch_columns, _windows)
+                                  _patch_columns)
 from ..ops.ell import spmm_ell
 from ..ops.sparse24 import spmm_24
 from ..utils.timing import time_kernel
@@ -49,32 +48,6 @@ def unfold_columns(x, kh, kw, stride, padding):
                _pads(*x.shape[1:3], kh, kw, stride, padding))
     cols = F.unfold(xp, (kh, kw), stride=stride)  # [b, k, L]
     return cols.permute(1, 0, 2).reshape(cols.shape[1], -1)
-
-
-def nhwc_columns(x, kh, kw, stride, padding):
-    """``patches^T`` in one copy from the NHWC windows of the padded
-    input."""
-    win = _windows(x, kh, kw, stride, padding)
-    b, oh, ow = win.shape[:3]
-    return win.permute(3, 4, 5, 0, 1, 2).reshape(-1, b * oh * ow)
-
-
-def tap_columns(x, kh, kw, stride, padding):
-    """``patches^T`` from a padded NCHW copy, one 4-d copy a filter tap
-    (``kh * kw`` copies of ``[b, in_ch, oh, ow]``)."""
-    b, h, w, c = x.shape
-    left, right, top, bottom = _pads(h, w, kh, kw, stride, padding)
-    xp = x.new_zeros((b, c, h + top + bottom, w + left + right))
-    xp[:, :, top:top + h, left:left + w] = x.permute(0, 3, 1, 2)
-    oh = (xp.shape[2] - kh) // stride + 1
-    ow = (xp.shape[3] - kw) // stride + 1
-    out = x.new_empty((c, kh, kw, b, oh, ow))
-    for i in range(kh):
-        for j in range(kw):
-            tap = xp[:, :, i:i + stride * (oh - 1) + 1:stride,
-                     j:j + stride * (ow - 1) + 1:stride]
-            out[:, i, j] = tap.transpose(0, 1)
-    return out.reshape(c * kh * kw, b * oh * ow)
 
 
 def cudnn_conv(layer):
@@ -116,10 +89,8 @@ def main() -> int:
                 layers.append(EllConv2d(w, stride=stride))
             geo = (ksz, ksz, stride, "SAME")
             bt = _patch_columns(x, *geo)[0]
-            if not (torch.equal(bt, unfold_columns(x, *geo))
-                    and torch.equal(bt, nhwc_columns(x, *geo))
-                    and torch.equal(bt, tap_columns(x, *geo))):
-                raise AssertionError(f"{name}: the gathers differ")
+            if not torch.equal(bt, unfold_columns(x, *geo)):
+                raise AssertionError(f"{name}: the gather differs from F.unfold")
             for layer in layers:
                 if isinstance(layer, SparseConv2d):
                     spmm = (lambda b, lay=layer: spmm_24(
@@ -136,10 +107,6 @@ def main() -> int:
                             ("layer_ms", layer, (x,)),
                             ("spmm_ms", spmm, (b_op,)),
                             ("patch_ms", lambda t: _patch_columns(t, *geo),
-                             (x,)),
-                            ("nhwc_ms", lambda t: nhwc_columns(t, *geo),
-                             (x,)),
-                            ("taps_ms", lambda t: tap_columns(t, *geo),
                              (x,)),
                             ("unfold_ms", lambda t: unfold_columns(t, *geo),
                              (x,)),

@@ -53,30 +53,6 @@ def _pads(h: int, w: int, kh: int, kw: int, stride: int,
             *xla_padding(h, kh, stride, padding))
 
 
-def _windows(x: torch.Tensor, kh: int, kw: int, stride: int,
-             padding: str) -> torch.Tensor:
-    """The conv's windows of NHWC ``x`` as a strided view ``[b, oh, ow,
-    in_ch, kh, kw]`` of the padded input (one input-sized copy)."""
-    b, h, w, c = x.shape
-    left, right, top, bottom = _pads(h, w, kh, kw, stride, padding)
-    xp = F.pad(x, (0, 0, left, right, top, bottom)).contiguous()
-    hp, wp = xp.shape[1:3]
-    oh, ow = (hp - kh) // stride + 1, (wp - kw) // stride + 1
-    sb, sh, sw, sc = xp.stride()
-    return xp.as_strided((b, oh, ow, c, kh, kw),
-                         (sb, sh * stride, sw * stride, sc, sh, sw))
-
-
-def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
-           padding: str = "SAME") -> torch.Tensor:
-    """Unfold NHWC input into patches ``(batch, oh, ow, in_ch*kh*kw)``,
-    features ordered ``(in_ch, kh, kw)`` as XLA's
-    ``conv_general_dilated_patches`` orders them, which is the order of the
-    OIHW weight flatten (:func:`conv_weight_as_matrix`)."""
-    win = _windows(x, kh, kw, stride, padding)
-    return win.reshape(*win.shape[:3], -1)
-
-
 def conv_weight_as_matrix(w_oihw: torch.Tensor) -> torch.Tensor:
     """``(out_ch, in_ch, kh, kw)`` -> ``(out_ch, in_ch*kh*kw)``, matching
     :func:`im2col`'s feature order."""
@@ -100,6 +76,17 @@ def _patch_columns(x: torch.Tensor, kh: int, kw: int, stride: int,
     win = xp.as_strided((c, kh, kw, b, oh, ow),
                         (sc, sh, sw, sb, sh * stride, sw * stride))
     return win.reshape(c * kh * kw, b * oh * ow), oh, ow
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """Unfold NHWC input into patches ``(batch, oh, ow, in_ch*kh*kw)``,
+    features ordered ``(in_ch, kh, kw)`` as XLA's
+    ``conv_general_dilated_patches`` orders them, which is the order of the
+    OIHW weight flatten (:func:`conv_weight_as_matrix`): the layers' B
+    (:func:`_patch_columns`), transposed."""
+    bt, oh, ow = _patch_columns(x, kh, kw, stride, padding)
+    return bt.T.reshape(x.shape[0], oh, ow, -1)
 
 
 def _dense_conv(x: torch.Tensor, w_oihw: torch.Tensor, stride: int,

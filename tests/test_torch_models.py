@@ -85,15 +85,13 @@ def test_im2col_matches_jax(rng, hw, padding, stride, kernel):
                                             (2, "VALID")])
 def test_patch_columns_equal_the_unfold_route(rng, stride, padding):
     """The layers' B, gathered from a strided view of the padded input,
-    equals the routes ``bench/conv_probe.py`` times beside it (the NHWC
-    windows, ``F.unfold``) and im2col's patches transposed."""
-    from sparsifyme_tpu_torch.bench.conv_probe import (nhwc_columns,
-                                                       unfold_columns)
+    equals the route ``bench/conv_probe.py`` times beside it
+    (``F.unfold``) and im2col's patches transposed."""
+    from sparsifyme_tpu_torch.bench.conv_probe import unfold_columns
 
     x = torch.from_numpy(rng.normal(size=(3, 12, 11, 6)).astype(np.float32))
     got, oh, ow = tconv._patch_columns(x, 3, 3, stride, padding)
     assert torch.equal(got, unfold_columns(x, 3, 3, stride, padding))
-    assert torch.equal(got, nhwc_columns(x, 3, 3, stride, padding))
     p = tconv.im2col(x, 3, 3, stride, padding)
     assert p.shape[1:3] == (oh, ow)
     assert torch.equal(got, p.reshape(-1, p.shape[-1]).T)
