@@ -1,13 +1,32 @@
 """Per-shape kernel-configuration table (the algorithm-cache analog).
 
-Counterpart of ``sparsifyme_tpu.bench.tuning``: a JSON table mapping
-``(m, n, k, b)`` to the winning configuration per op family, in the JAX
-package's schema (``{"spmm24": {"transpose_out": ..., "packed": ...,
-"fold": ...}, "ell": {...}, "gemm": {...}}``). :class:`~..plan.SpmmaPlan`
-reads its ``spmm24`` entry. The port keeps its own file beside this module;
-none is committed (the TPU's winners mean nothing on an H100), and
-:func:`lookup` returns ``None`` while the file is missing. The tuner that
-would write it (``bench/tune.py``) is not ported yet.
+Counterpart of ``sparsifyme_tpu.bench.tuning``: a JSON table, one entry per
+``"{m}x{n}x{k}x{b}"`` key, holding the winning configuration of each op
+family in the port's own knobs. The offline tuner
+(``python -m sparsifyme_tpu_torch.bench.tune``) measures it on the card and
+writes it beside this module; the harness's tuned path and
+:class:`~..plan.SpmmaPlan` read it. Schema of an entry::
+
+    "3136x128x1152x32": {
+      "gemm":   {"fold": true, "ms": 0.1},
+      "fused":  {"fold": 1, "ms": 0.17},
+      "spmm24": {"tile": 1, "transpose_out": true, "packed": false,
+                 "fold": 1, "ms": 0.095},
+      "ell":    {"formulation": "gather", "transpose_out": false,
+                 "block_size": 128, "block_k": 64, "fold_first": false,
+                 "block_n": 128, "splits": 1, "ms": 0.055},
+      "card":   "NVIDIA H100 80GB HBM3, 700.00 W"
+    }
+
+``tile`` is an index of ``spmm24_kernel.SP_TILES`` (``null``: the kernel's
+``pick_tile``); ``packed`` and ``fold`` name K3's packed-codes and fold=2
+routes. ``block_n`` and ``splits`` force K4's Hopper-tile plan (``null``:
+``ell_plan``'s pick, always so for K5, whose plans the tuner does not
+race); ``formulation`` is K4 (``gather``) or K5 (``expand``). ``ms`` is the tuner's reading, ``card`` the ``nvidia-smi
+--query-gpu=name,power.limit`` line of the card that took it (``cpu`` for
+a run on CPU tensors), since the winners depend on the card's SM count.
+A shape without an entry takes the harness's untuned race, so the table
+speeds the sweep up and never decides a result's correctness.
 """
 
 from __future__ import annotations

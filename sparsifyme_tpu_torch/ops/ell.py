@@ -83,6 +83,8 @@ def spmm_ell(
     transpose_a: bool = False,
     transpose_b: bool = False,
     transpose_out: bool = False,
+    block_n: Optional[int] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Batched Blocked-ELL SpMM ``alpha * ell_to_dense(e) @ b + beta * c``
     with the zero blocks skipped.
@@ -91,6 +93,11 @@ def spmm_ell(
     ``transpose_out`` returns C^T ``[n, M]`` (batch folded); ``c`` then has
     that layout, else ``(..., m, n)`` or ``[M, n]``. Accumulation is f32;
     ``out_dtype`` defaults to the promoted type of ``e`` and ``b``.
+    ``block_n`` (a tile width of ``ell_kernel.TILE_NS``) and ``splits``
+    (split-k count) force K4's Hopper-tile plan, the counterparts of the
+    JAX op's ``block_n`` / ``split_n``; ``None`` keeps ``ell_plan``'s pick.
+    On the card a plan the tile cannot take raises ``ValueError`` before
+    the launch; the plain version ignores both.
     """
     if transpose_a:
         raise NotImplementedError(
@@ -108,7 +115,8 @@ def spmm_ell(
         c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
     if c is None or beta == 0.0:
         c = None
-    cfg = (e.block_size, e.block_k, out_dtype, alpha, beta, transpose_out)
+    cfg = (e.block_size, e.block_k, out_dtype, alpha, beta, transpose_out,
+           block_n, splits)
     args = (values, cols, b, c)
     out = (_SpmmEll.apply(*args, cfg) if _build.needs_grad(*args)
            else _ell_forward(*args, cfg))
@@ -119,11 +127,11 @@ def spmm_ell(
 
 def _ell_forward(values, cols, b, c, cfg) -> torch.Tensor:
     """K4 on CUDA values, its plain version on CPU ones."""
-    bs, bk, out_dtype, alpha, beta, transpose_out = cfg
+    bs, bk, out_dtype, alpha, beta, transpose_out, block_n, splits = cfg
     fn = ell_spmm_cuda if _build.use_kernel(values) else ell_spmm_plain
     return fn(values, cols, b, block_size=bs, block_k=bk,
               out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
-              transpose_out=transpose_out)
+              transpose_out=transpose_out, block_n=block_n, splits=splits)
 
 
 def _ell_adjoints(values, cols, b, gc, bs, bk, need_values, need_b):
@@ -166,7 +174,7 @@ class _SpmmEll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         values, cols, b = ctx.saved_tensors
-        bs, bk, _, alpha, beta, transpose_out = ctx.cfg
+        bs, bk, _, alpha, beta, transpose_out, _, _ = ctx.cfg
         need_values, _, need_b, need_c, _ = ctx.needs_input_grad
         g32 = g.to(torch.float32)
         gc = (g32.T if transpose_out else g32) * alpha

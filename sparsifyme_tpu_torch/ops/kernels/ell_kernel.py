@@ -142,11 +142,12 @@ def ell_plan(m: int, n: int, ell: int, bk: int, bs: int,
 
 
 def card_plan(device: torch.device, m: int, n: int, ell: int, bk: int,
-              bs: int) -> Optional[EllPlan]:
+              bs: int, widths=TILE_NS,
+              split_counts=None) -> Optional[EllPlan]:
     """:func:`ell_plan` on the card that holds ``device``."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    return ell_plan(m, n, ell, bk, bs, sm_count(index))
+    return ell_plan(m, n, ell, bk, bs, sm_count(index), widths, split_counts)
 
 
 def plan_walk(plan: EllPlan, m: int, n: int, ell: int, bk: int, bs: int,
@@ -179,12 +180,32 @@ def plan_args(plan: Optional[EllPlan]):
             plan.grid)
 
 
-def _plan_for(device, m, n, ell, bk, bs, dtype, *tensors):
-    """The tile's plan where dtype and alignment allow it, else None."""
-    if dtype != torch.bfloat16 or any(
-            t is not None and t.data_ptr() % 16 for t in tensors):
-        return None
-    return card_plan(device, m, n, ell, bk, bs)
+def _plan_for(device, m, n, ell, bk, bs, dtype, tensors, block_n=None,
+              splits=None):
+    """The tile's plan where dtype and alignment allow it, else None.
+    ``block_n`` (one of :data:`TILE_NS`) and ``splits`` (1 to
+    :data:`MAX_SPLITS`) force the plan's tile width and split count, the
+    knobs the tuner races; a forced plan that the tile cannot take raises
+    ``ValueError`` here, before anything is launched."""
+    tile_ok = dtype == torch.bfloat16 and not any(
+        t is not None and t.data_ptr() % 16 for t in tensors)
+    if block_n is None and splits is None:
+        return card_plan(device, m, n, ell, bk, bs) if tile_ok else None
+    if block_n is not None and block_n not in TILE_NS:
+        raise ValueError(f"block_n {block_n} is not one of {TILE_NS}")
+    if splits is not None and splits not in range(1, MAX_SPLITS + 1):
+        raise ValueError(f"splits {splits} is not in 1..{MAX_SPLITS}")
+    plan = None
+    if tile_ok:
+        plan = card_plan(device, m, n, ell, bk, bs,
+                         TILE_NS if block_n is None else (block_n,),
+                         None if splits is None else (splits,))
+    if plan is None:
+        raise ValueError(
+            f"no plan of the Hopper tile with block_n={block_n}, "
+            f"splits={splits} for values [{m}, {ell}x{bk}], n={n}, block "
+            f"rows {bs}, {dtype}{'' if tile_ok else ', misaligned'}")
+    return plan
 
 
 def _workspace(plan, m, n, device) -> Optional[torch.Tensor]:
@@ -198,9 +219,12 @@ def _workspace(plan, m, n, device) -> Optional[torch.Tensor]:
 def ell_spmm_plain(values, cols, b, *, block_size: int, block_k: int,
                    out_dtype: torch.dtype, alpha: float = 1.0,
                    beta: float = 0.0, c: Optional[torch.Tensor] = None,
-                   transpose_out: bool = False) -> torch.Tensor:
+                   transpose_out: bool = False,
+                   block_n: Optional[int] = None,
+                   splits: Optional[int] = None) -> torch.Tensor:
     """Plain version of K4: gather each block-row's B slabs, one batched
-    f32 product."""
+    f32 product (the plan knobs ``block_n`` and ``splits`` are
+    ignored)."""
     bs, bk = block_size, block_k or block_size
     m, ellk = values.shape
     ell = ellk // bk
@@ -216,9 +240,13 @@ def ell_spmm_plain(values, cols, b, *, block_size: int, block_k: int,
 def ell_spmm_cuda(values, cols, b, *, block_size: int, block_k: int,
                   out_dtype: torch.dtype, alpha: float = 1.0,
                   beta: float = 0.0, c: Optional[torch.Tensor] = None,
-                  transpose_out: bool = False) -> torch.Tensor:
+                  transpose_out: bool = False,
+                  block_n: Optional[int] = None,
+                  splits: Optional[int] = None) -> torch.Tensor:
     """Launch K4. ``values`` and ``b`` are brought to their promoted type;
-    ``c`` goes to the kernel as f32."""
+    ``c`` goes to the kernel as f32. ``block_n`` and ``splits`` force the
+    Hopper tile's plan (``None``: :func:`ell_plan`'s pick); a plan it
+    cannot take raises ``ValueError`` before the launch."""
     bs, bk = block_size, block_k or block_size
     m, ellk = values.shape
     kb, n = b.shape
@@ -247,8 +275,8 @@ def ell_spmm_cuda(values, cols, b, *, block_size: int, block_k: int,
     if c is not None and beta != 0.0:
         c32 = c.to(torch.float32).reshape(out_shape).contiguous()
     out = torch.empty(out_shape, dtype=out_dtype, device=values.device)
-    plan = _plan_for(values.device, m, n, ell, bk, bs, dtype, values, b, out,
-                     c32)
+    plan = _plan_for(values.device, m, n, ell, bk, bs, dtype,
+                     (values, b, out, c32), block_n, splits)
     ws = _workspace(plan, m, n, values.device)
     # (values, cols, b, c, out, ws, M, N, Kb, bs, bk, ell, alpha, beta, tout,
     #  dtype, out_dtype, bn, bk_step, stages, splits, ctas, grid, stream)
@@ -333,8 +361,8 @@ def ell_expand_spmm_cuda(values_km, cols, b, *, block_size: int,
     cols = cols.to(torch.int32).contiguous()
     out = torch.empty((n, m) if transpose_out else (m, n), dtype=out_dtype,
                       device=values_km.device)
-    plan = _plan_for(values_km.device, m, n, ell, bk, bs, dtype, values_km,
-                     b, out)
+    plan = _plan_for(values_km.device, m, n, ell, bk, bs, dtype,
+                     (values_km, b, out))
     ws = _workspace(plan, m, n, values_km.device)
     # (values_km, cols, b, out, ws, M, N, Kb, bs, bk, ell, tout, dtype,
     #  out_dtype, bn, bk_step, stages, splits, ctas, grid, stream)

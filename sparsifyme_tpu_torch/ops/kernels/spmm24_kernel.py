@@ -20,8 +20,10 @@ Contract: ``C[M, n] = decompress24(v0, v1, codes)[:, :k_logical] @ b`` with
 planes ``[k4, M]`` (or split-half packed codes ``[k4/2, M]``), ``b
 [k_logical, n]``, f32 accumulation, ``alpha * C + beta * c`` and, with
 ``transpose_out``, C^T ``[n, M]``. The fold route takes planes ``[2*k4,
-M/2]`` and returns row-major C ``[M, n]``. The TPU scheduling knobs (tiles,
-``pipeline``, chunking, VMEM budgets) have no counterpart.
+M/2]`` and returns row-major C ``[M, n]``. The one scheduling knob is
+``tile``, an index of :data:`SP_TILES` (``None``: :func:`pick_tile`), which
+the tuner races; the TPU's (``block_m/block_n/block_k4``, ``pipeline``,
+chunking, VMEM budgets) have no counterpart.
 """
 
 from __future__ import annotations
@@ -248,9 +250,10 @@ def _epilogue_plain(acc: torch.Tensor, alpha: float, beta: float,
 def spmm24_plain(v0, v1, codes, b, *, k_logical: int,
                  out_dtype: torch.dtype, alpha: float = 1.0,
                  beta: float = 0.0, c: Optional[torch.Tensor] = None,
-                 transpose_out: bool = False,
-                 packed_codes: bool = False) -> torch.Tensor:
-    """Plain version of K3: decompress, then an f32 product."""
+                 transpose_out: bool = False, packed_codes: bool = False,
+                 tile: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K3: decompress, then an f32 product (``tile``, a
+    scheduling knob of the kernel, is ignored)."""
     if packed_codes:
         codes = unpack_codes_fp(codes, v0.shape[0])
     a_t = expand_planes(v0, v1, codes)[:k_logical].to(torch.float32)
@@ -260,8 +263,8 @@ def spmm24_plain(v0, v1, codes, b, *, k_logical: int,
 
 def spmm24_fold_plain(v0, v1, codes, b, *, k_logical: int,
                       out_dtype: torch.dtype, alpha: float = 1.0,
-                      beta: float = 0.0,
-                      c: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      beta: float = 0.0, c: Optional[torch.Tensor] = None,
+                      tile: Optional[int] = None) -> torch.Tensor:
     """Plain version of the fold route: un-fold the planes, then
     :func:`spmm24_plain`."""
     _check_fold(v0, k_logical)
@@ -285,8 +288,11 @@ def _check_fold(v0: torch.Tensor, k_logical: int) -> None:
 
 
 def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
-            transpose_out, packed_codes, fold, what) -> torch.Tensor:
+            transpose_out, packed_codes, fold, tile, what) -> torch.Tensor:
     k4, m = v0.shape
+    if tile is not None and tile not in range(len(SP_TILES)):
+        raise ValueError(f"tile {tile} is not an index of SP_TILES "
+                         f"(0..{len(SP_TILES) - 1})")
     k4 //= fold
     kb, n = b.shape
     if not (v0.is_cuda and b.is_cuda):
@@ -326,7 +332,8 @@ def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
             float(alpha), float(beta) if c32 is not None else 0.0,
             int(transpose_out), int(packed_codes), fold, DTYPE_CODES[dtype],
             DTYPE_CODES[out_dtype],
-            card_tile(v0.device, m, n, k_logical, fold),
+            card_tile(v0.device, m, n, k_logical, fold) if tile is None
+            else tile,
             _build.stream_ptr(v0)), what)
     return out
 
@@ -334,13 +341,16 @@ def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
 def spmm24_cuda(v0, v1, codes, b, *, k_logical: int,
                 out_dtype: torch.dtype, alpha: float = 1.0,
                 beta: float = 0.0, c: Optional[torch.Tensor] = None,
-                transpose_out: bool = False,
-                packed_codes: bool = False) -> torch.Tensor:
+                transpose_out: bool = False, packed_codes: bool = False,
+                tile: Optional[int] = None) -> torch.Tensor:
     """Launch K3. Planes and ``b`` are brought to their promoted type (the
-    kernel multiplies like types); ``c`` goes to the kernel as f32."""
+    kernel multiplies like types); ``c`` goes to the kernel as f32.
+    ``tile`` forces an index of :data:`SP_TILES` on the sparse tile's fast
+    path (``None``: :func:`pick_tile`); the simple kernels ignore it."""
     out = _launch(v0, v1, codes, b, k_logical=k_logical, out_dtype=out_dtype,
                   alpha=alpha, beta=beta, c=c, transpose_out=transpose_out,
-                  packed_codes=packed_codes, fold=1, what="spmm24_cuda")
+                  packed_codes=packed_codes, fold=1, tile=tile,
+                  what="spmm24_cuda")
     spmm24_cuda.launches += 1
     return out
 
@@ -350,14 +360,15 @@ spmm24_cuda.launches = 0
 
 def spmm24_fold_cuda(v0, v1, codes, b, *, k_logical: int,
                      out_dtype: torch.dtype, alpha: float = 1.0,
-                     beta: float = 0.0,
-                     c: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     beta: float = 0.0, c: Optional[torch.Tensor] = None,
+                     tile: Optional[int] = None) -> torch.Tensor:
     """Launch K3 on fold=2 planes ``[2*k4, M/2]``; returns row-major
-    ``C [M, n]``."""
+    ``C [M, n]``. ``tile`` as in :func:`spmm24_cuda`."""
     _check_fold(v0, k_logical)
     out = _launch(v0, v1, codes, b, k_logical=k_logical, out_dtype=out_dtype,
                   alpha=alpha, beta=beta, c=c, transpose_out=False,
-                  packed_codes=False, fold=2, what="spmm24_fold_cuda")
+                  packed_codes=False, fold=2, tile=tile,
+                  what="spmm24_fold_cuda")
     spmm24_fold_cuda.launches += 1
     return out
 

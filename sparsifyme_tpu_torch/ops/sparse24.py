@@ -116,6 +116,7 @@ def spmm_24(
     transpose_b: bool = False,
     transpose_out: bool = False,
     packed_codes: bool = False,
+    tile: Optional[int] = None,
 ) -> torch.Tensor:
     """Structured-sparse matmul ``alpha * decompress(s) @ b + beta * c``.
 
@@ -125,6 +126,10 @@ def spmm_24(
     ``[M, n]``. ``packed_codes`` hands the kernel split-half packed codes
     (:func:`pack_codes_fp`, packed per call here). Accumulation is f32;
     ``out_dtype`` defaults to the promoted type of ``s`` and ``b``.
+    ``tile`` forces K3's tile, an index of ``spmm24_kernel.SP_TILES``
+    (``None``: ``pick_tile``'s); the plain version ignores it. It is the
+    counterpart of the TPU tiling (``block_m``, ``block_n``, ``block_k4``)
+    that the JAX ``spmm_24`` takes, and what the tuner races.
     """
     if transpose_a:
         raise NotImplementedError(
@@ -151,13 +156,13 @@ def spmm_24(
         else:
             fn = spmm24_fold_plain
         out = fn(s.values0, s.values1, s.codes, b, k_logical=k,
-                 out_dtype=out_dtype, alpha=alpha, beta=beta, c=c)
+                 out_dtype=out_dtype, alpha=alpha, beta=beta, c=c, tile=tile)
         return out.reshape(*lead, m, n)
     if c is not None and beta != 0.0 and not transpose_out:
         c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
     if c is None or beta == 0.0:
         c = None
-    cfg = (k, out_dtype, alpha, beta, transpose_out, packed_codes)
+    cfg = (k, out_dtype, alpha, beta, transpose_out, packed_codes, tile)
     args = (s.values0, s.values1, s.codes, b, c)
     out = (_Spmm24.apply(*args, cfg) if _build.needs_grad(*args)
            else _spmm24_forward(*args, cfg))
@@ -168,12 +173,12 @@ def spmm_24(
 
 def _spmm24_forward(v0, v1, codes, b, c, cfg) -> torch.Tensor:
     """K3 on CUDA planes, its plain version on CPU ones."""
-    k_logical, out_dtype, alpha, beta, transpose_out, packed = cfg
+    k_logical, out_dtype, alpha, beta, transpose_out, packed, tile = cfg
     fn = spmm24_cuda if _build.use_kernel(v0) else spmm24_plain
     return fn(v0, v1, pack_codes_fp(codes) if packed else codes, b,
               k_logical=k_logical, out_dtype=out_dtype, alpha=alpha,
               beta=beta, c=c, transpose_out=transpose_out,
-              packed_codes=packed)
+              packed_codes=packed, tile=tile)
 
 
 class _Spmm24(torch.autograd.Function):
@@ -197,7 +202,7 @@ class _Spmm24(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         v0, v1, codes, b = ctx.saved_tensors
-        k_logical, _, alpha, beta, transpose_out, _ = ctx.cfg
+        k_logical, _, alpha, beta, transpose_out, _, _ = ctx.cfg
         need_v0, need_v1, _, need_b, need_c, _ = ctx.needs_input_grad
         g32 = g.to(torch.float32)
         gc = (g32.T if transpose_out else g32) * alpha  # [M, n]

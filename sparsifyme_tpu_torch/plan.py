@@ -10,10 +10,14 @@ operand, and searches the formulations (``matmul_search``, the
 ``cusparseLtMatmulSearch`` analog). :func:`get_plan` keeps an LRU of plans
 keyed on the full config.
 
-The TPU tiling fields (``block_m``, ``block_n``, ``block_k4``) and the
-candidate slots ``pipeline``, ``row_chunks`` and ``budget_mb`` keep the JAX
-shapes of :class:`SpmmaConfig` and ``plan.algorithm``, but K3 has one
-tiling per shape and ignores them.
+Without an explicit tiling the plan reads the shape's ``spmm24`` entry of
+the port's tuning table (:mod:`.bench.tuning`): K3's ``tile``, ``packed``
+codes and the ``fold``. The TPU tiling fields (``block_m``, ``block_n``,
+``block_k4``) and the candidate slots ``pipeline``, ``row_chunks`` and
+``budget_mb`` keep the JAX shapes of :class:`SpmmaConfig` and
+``plan.algorithm``; K3 has no such knobs, so an explicit tiling only keeps
+the table out (``pick_tile`` tiles the launch), as it wins over the table
+in JAX.
 """
 
 from __future__ import annotations
@@ -95,26 +99,23 @@ class SpmmaPlan:
                 " (the reference rejects these shapes, spmma.hxx:45-49);"
                 " expect below-peak throughput", stacklevel=2)
         # An explicit tiling wins; otherwise the tuning table's spmm24
-        # entry picks packed codes and the fold. transpose_out is not taken
-        # from the table: plan.matmul returns row-major C, as spmma does.
-        block_m, block_n, block_k4 = cfg.block_m, cfg.block_n, cfg.block_k4
+        # entry picks K3's tile, packed codes and the fold. transpose_out is
+        # not taken from the table: plan.matmul returns row-major C, as
+        # spmma does.
         entry: Dict = {}
-        if block_m is None and block_n is None and block_k4 is None:
+        if cfg.block_m is None and cfg.block_n is None \
+                and cfg.block_k4 is None:
             entry = (tuning.lookup(cfg.m, cfg.n, cfg.k, cfg.batch)
                      or {}).get("spmm24") or {}
         packed = bool(entry.get("packed"))
-        if entry and not packed:
-            block_m = entry.get("block_m")
-            block_n = entry.get("block_n")
-            block_k4 = entry.get("block_k4")
-        pipeline = bool(entry.get("pipeline", True))
-        self.algorithm = (block_m, block_n, block_k4, False, pipeline,
-                          packed)
+        self.tile: Optional[int] = entry.get("tile")
+        self.algorithm = (cfg.block_m, cfg.block_n, cfg.block_k4, False,
+                          True, packed)
         self._packed = packed
         self._operand: Optional[Sparse24] = None
         self._operand_packed: Optional[torch.Tensor] = None
         self._matmul = functools.partial(spmm_24, out_dtype=self.out_dtype,
-                                         packed_codes=packed)
+                                         packed_codes=packed, tile=self.tile)
         # A fold entry routes the whole fused pipeline through the fold=2
         # layout: prune_compress_24 emits folded planes and spmm_24
         # dispatches on the operand's fold.
@@ -157,7 +158,7 @@ class SpmmaPlan:
         fn = spmm24_cuda if _build.use_kernel(s.values0) else spmm24_plain
         out = fn(s.values0, s.values1, self._operand_packed, b, k_logical=k,
                  out_dtype=self.out_dtype, transpose_out=tout,
-                 packed_codes=True)
+                 packed_codes=True, tile=self.tile)
         if tout:
             return out
         return out.reshape(*lead, m, out.shape[-1])
@@ -176,7 +177,8 @@ class SpmmaPlan:
         into this plan; returns it (the ``alg_id`` analog). A candidate is
         ``(block_m, block_n, block_k4, transpose_out[, pipeline[, packed[,
         row_chunks[, budget_mb]]]])`` as in the JAX package; the tiling,
-        ``pipeline``, ``row_chunks`` and ``budget_mb`` slots are ignored.
+        ``pipeline``, ``row_chunks`` and ``budget_mb`` slots are ignored,
+        and every candidate runs on the plan's :attr:`tile`.
         The default races ``transpose_out`` and, where ``k <= 1024``,
         packed codes. A C^T winner makes ``matmul`` return C^T ``[n, M]``,
         as it does in the JAX package."""
@@ -205,7 +207,7 @@ class SpmmaPlan:
     def _formulation(self, cand: Tuple):
         return functools.partial(
             spmm_24, out_dtype=self.out_dtype, transpose_out=bool(cand[3]),
-            packed_codes=len(cand) > 5 and bool(cand[5]))
+            packed_codes=len(cand) > 5 and bool(cand[5]), tile=self.tile)
 
     # -- timed pipeline (the reference's return contract) ---------------
     def timed(self, a: torch.Tensor, b: torch.Tensor, *, iters: int = 8,

@@ -1331,3 +1331,131 @@ def test_entry_points_on_the_card(gen, capsys):
     n1 = _launches()
     assert n1[4] > n0[4] and n1[5] > n0[5]
     assert "rdma-ring-tiled OK" in capsys.readouterr().out
+
+
+# --- the tuner's knobs and the harness's tuned path --------------------------
+
+TUNE_SHAPES = [(3136, 128, 1152), (12544, 256, 64), (196, 512, 4608),
+               (12544, 64, 147)]  # N, E, D and the shape of the 16 edge
+
+
+@pytest.mark.parametrize("m,n,k", TUNE_SHAPES)
+@pytest.mark.parametrize("tile", range(len(spmm24_kernel.SP_TILES)))
+@pytest.mark.parametrize("tout", [False, True])
+def test_spmm_24_with_every_tile_forced(gen, m, n, k, tile, tout):
+    """``spmm_24(tile=)`` launches K3 on that tile (b=4 folded into rows)
+    and matches the plain version."""
+    from sparsifyme_tpu_torch.ops import sparse24 as ts
+
+    a = torch.randn((4, m, k), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    s = ts.prune_compress_24(a)
+    n0 = spmm24_kernel.spmm24_cuda.launches
+    got = ts.spmm_24(s, b, transpose_out=tout, tile=tile)
+    assert spmm24_kernel.spmm24_cuda.launches == n0 + 1
+    want = spmm24_kernel.spmm24_plain(
+        s.values0, s.values1, s.codes, b, k_logical=k,
+        out_dtype=torch.bfloat16, transpose_out=tout)
+    assert _rel(got if tout else got.reshape(-1, n), want) < \
+        TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("m,n,k", TUNE_SHAPES)
+def test_spmm_ell_under_every_plan_the_tuner_races(gen, m, n, k):
+    """Every ELL candidate of the tuner's full grid (each edge, layout and
+    admitted plan, width x splits, forced through ``spmm_ell(block_n=,
+    splits=)``; K5 on its edges) at b=4 against the plain versions."""
+    import torch.nn.functional as F
+
+    from sparsifyme_tpu_torch.bench import harness, tune
+
+    b = 4
+    a = torch.randn((b, m, k), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    bm = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    cands = tune.ell_candidates(m, n, k, b, full=True,
+                                sms=spmm24_kernel.sm_count(0))
+    for key in dict.fromkeys((c["block_k"], c["fold_first"]) for c in cands):
+        e, kp = harness.build_ell_operand(a, block_size=128, block_k=key[0],
+                                          fold_first=key[1])
+        bp = F.pad(bm, (0, 0, 0, kp - k))
+        values = e.values.reshape(-1, e.values.shape[-1])
+        cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
+        for cand in (c for c in cands
+                     if (c["block_k"], c["fold_first"]) == key):
+            fn, ops = harness.ell_call(cand, e, bp, torch.bfloat16)
+            got = fn(*ops)
+            kw = dict(block_size=128, block_k=key[0],
+                      out_dtype=torch.bfloat16,
+                      transpose_out=cand["transpose_out"])
+            if cand["formulation"] == "gather":
+                want = ell_kernel.ell_spmm_plain(values, cols, bp, **kw)
+            else:
+                want = ell_kernel.ell_expand_spmm_plain(values.T, cols, bp,
+                                                        **kw)
+            if not cand["transpose_out"]:
+                got = got.reshape(want.shape)
+            assert _rel(got, want) < TOL[torch.bfloat16], cand
+
+
+def test_forced_infeasible_knobs_raise_before_any_launch(gen):
+    from sparsifyme_tpu_torch.ops import ell as te
+    from sparsifyme_tpu_torch.ops import sparse24 as ts
+
+    a = torch.randn((256, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    b = torch.randn((128, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    e = te.ell_from_dense(a, 128, 2, 32)
+    s = ts.prune_compress_24(a)
+    n4 = ell_kernel.ell_spmm_cuda.launches
+    n5 = ell_kernel.ell_expand_spmm_cuda.launches
+    n3 = spmm24_kernel.spmm24_cuda.launches
+    with pytest.raises(ValueError, match="no plan"):
+        te.spmm_ell(e, b, block_n=256)  # wider than n = 64 needs
+    with pytest.raises(ValueError, match="no plan"):
+        te.spmm_ell(e, b, splits=3)  # 2 slots: a split would be empty
+    with pytest.raises(ValueError, match="no plan"):
+        te.spmm_ell(te.ell_from_dense(a.float(), 128, 2, 32), b.float(),
+                    block_n=64)  # f32: the Hopper tile does not apply
+    with pytest.raises(ValueError, match="tile 4"):
+        ts.spmm_24(s, b, tile=4)
+    torch.cuda.synchronize()
+    assert (ell_kernel.ell_spmm_cuda.launches,
+            ell_kernel.ell_expand_spmm_cuda.launches,
+            spmm24_kernel.spmm24_cuda.launches) == (n4, n5, n3)
+
+
+@pytest.mark.parametrize("expand", [False, True])
+def test_bench_shape_on_a_one_entry_table_launches_the_tuned_routes(
+        gen, monkeypatch, tmp_path, expand):
+    """A tuned shape with k < 512, where the untuned race would launch K5:
+    with a gather winner K5 never launches, nor the fold route; with an
+    expand winner K5 launches beside K4 (the gather alternative)."""
+    from sparsifyme_tpu_torch.bench import harness, tuning
+    from sparsifyme_tpu_torch.utils.shapes import LayerShape
+
+    shape = (784, 128, 256, 4)
+    ell = {"formulation": "gather", "transpose_out": False,
+           "block_size": 128, "block_k": 32, "fold_first": True,
+           "block_n": 128, "splits": 1}
+    if expand:
+        ell.update(formulation="expand", block_n=None, splits=None)
+    path = str(tmp_path / "table.json")
+    tuning.save_table({tuning.shape_key(*shape): {
+        "gemm": {"fold": True}, "fused": {"fold": 1},
+        "spmm24": {"tile": 2, "transpose_out": False, "packed": False,
+                   "fold": 1},
+        "ell": ell, "card": "test"}}, path)
+    monkeypatch.setattr(tuning, "TABLE_PATH", path)
+    tuning._load.cache_clear()
+    fns = (spmm24_kernel.spmm24_cuda, spmm24_kernel.spmm24_fold_cuda,
+           ell_kernel.ell_spmm_cuda, ell_kernel.ell_expand_spmm_cuda,
+           prune_kernel.prune_compress_24_cuda)
+    before = [f.launches for f in fns]
+    out = harness.bench_shape(LayerShape(*shape), iters=2, reps=1)
+    tuning._load.cache_clear()
+    d = [f.launches - n for f, n in zip(fns, before)]
+    assert d[0] > 0 and d[1] == 0 and d[2] > 0 and d[4] > 0
+    assert (d[3] > 0) == expand
+    assert out["spmm24_ms"] > 0 and out["ell_ms"] > 0

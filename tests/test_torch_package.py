@@ -190,9 +190,23 @@ def test_smoke_ring_bound_counts_what_the_ring_must_move(p, tiles):
 
 
 def test_no_tuning_table_is_shipped():
-    """The TPU's winners mean nothing on the card: the port ships no
-    table, so plans and the harness use their defaults."""
-    from sparsifyme_tpu_torch.bench import tuning
+    """No TPU table is shipped: the TPU's winners mean nothing on the card.
+    The table beside the port's tuning module is the port's own, written
+    by its tuner on an NVIDIA card: one entry per unique ResNet-50 shape
+    (b=32), each naming its card and holding the port's knobs only."""
+    import json
 
-    assert not pathlib.Path(tuning.TABLE_PATH).exists()
-    assert tuning.lookup(12544, 64, 147, 32) is None
+    from sparsifyme_tpu_torch.bench import tuning
+    from sparsifyme_tpu_torch.models.resnet_shapes import resnet_conv_shapes
+
+    table = json.loads(pathlib.Path(tuning.TABLE_PATH).read_text())
+    shapes = set(resnet_conv_shapes("resnet50"))
+    assert set(table) == {tuning.shape_key(*s) for s in shapes}
+    schema = {"gemm": {"fold", "ms"}, "fused": {"fold", "ms"},
+              "spmm24": {"tile", "transpose_out", "packed", "fold", "ms"},
+              "ell": {"formulation", "transpose_out", "block_size",
+                      "block_k", "fold_first", "block_n", "splits", "ms"}}
+    for entry in table.values():
+        assert entry["card"].startswith("NVIDIA")
+        assert {f: set(entry[f]) for f in schema} == schema
+    assert tuning.lookup(12544, 64, 147, 32) == table["12544x64x147x32"]
