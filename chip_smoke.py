@@ -134,6 +134,26 @@ Phases, each raising on failure:
      their kernels' device time per call (a profiler session with no
      device time is run again, three sessions at most), and
      ``enqueue_ms``);
+  9b. the process path, after the kernels line's measurements (like
+     ``profiling_cli`` in step 8, it runs other processes on the card):
+     ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
+     sparsifyme_tpu_torch.entry --processes`` with a time limit, one rank
+     per process over NCCL, at P = 2 and then 4 where the machine has the
+     cards, at P = 1 on one card (P >= 2 needs a card per rank; a line
+     says so): ``dryrun_multichip``'s checks on the process mesh, config 4
+     at full size (``ring_ms``, ``ideal_ms``, ``comm_efficiency``), ten
+     steps of the flagship MLP's dp x tp step (``step_ms``, the losses,
+     which must fall) and both K7 rings at 784x256x1024 (b=32) against
+     single-card ``spmm_24`` (2e-2), each held to the one-process port on
+     the same seeds (2e-2; codes exactly), and both K7 rings and config
+     4's ppermute ring to their plain version on CPU copies of each
+     rank's blocks (bf16 2e-2, f32 1e-4); rank 0's ``{"processes":
+     ...}`` line is printed, with every rank's launch counts, and the
+     phase fails unless K3 and both K7 routes launched on every rank or
+     the launcher exits non-zero; its launches join the kernels line's
+     per-path counts (path ``procs``); then ``measure_machine()``'s rates
+     (dense bf16, memory, f32) beside the data sheet's, with the card
+     line, on a line of their own;
   10. the card line again, then ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -218,7 +238,11 @@ RING_ROUTES = ("prune_nm", "compress_24", "spmm_24", "ring_step",
                "ring_step_tiled")
 MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
 MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
-PATHS = ("bench", "plan", "coo", "ring", "model", "tune")
+PATHS = ("bench", "plan", "coo", "ring", "model", "tune", "procs")
+# the process path's kernels that must launch on every rank (K1 and K2
+# build its operands where a card prunes and compresses)
+PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled")
+PROCESS_TIMEOUT_S = 420  # one launcher run, all ranks
 # N, E and D: the tune phase's shapes (b=32)
 TUNE_SHAPES = [(3136, 128, 1152), (12544, 256, 64), (196, 512, 4608)]
 TUNE_ROUTES = SWEEP_ROUTES + ("spmm_24_fold",)
@@ -1404,6 +1428,94 @@ def phase_profiling_cli() -> None:
                              f"{_build.build_dir()}")
 
 
+def run_launcher(p: int) -> dict:
+    """One ``torch.distributed.run`` job of ``p`` processes running the
+    port's entry ``--processes``; rank 0's record. Its process group is
+    killed at the time limit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={p}", "-m", "sparsifyme_tpu_torch.entry",
+           "--processes"]
+    proc = subprocess.Popen(cmd, cwd=root, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=PROCESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"process path P={p}: past "
+                             f"{PROCESS_TIMEOUT_S} s")
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"processes"')]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(
+            f"process path P={p}: launcher exit {proc.returncode}, "
+            f"{len(lines)} result lines\n{out[-4000:]}\n{err[-8000:]}")
+    for ln in out.splitlines():
+        if ln.startswith("dryrun_processes"):
+            print(f"  {ln}", flush=True)
+    return json.loads(lines[0])["processes"]
+
+
+def phase_process_path() -> dict:
+    """The port's run with one rank per process (step 9b); the launch
+    counts summed over every rank of every run."""
+    cards = torch.cuda.device_count()
+    sizes = [1] if cards < 2 else [p for p in (2, 4) if p <= cards]
+    if cards < 2:
+        print("process path: one card, so world size 1 only: P >= 2 needs "
+              "one card per process (NCCL refuses two ranks on one card)",
+              flush=True)
+    counts = {name: 0 for name in _wrappers()}
+    summary = []
+    for p in sizes:
+        t0 = time.perf_counter()
+        rec = run_launcher(p)
+        print(json.dumps({"processes": rec}), flush=True)
+        for r, launches in enumerate(rec["launches_by_rank"]):
+            for name in PROCESS_MUST:
+                if launches[name] <= 0:
+                    raise AssertionError(f"process path P={p}: {name} never "
+                                         f"launched on rank {r}")
+            for name, n in launches.items():
+                counts[name] += n
+        c4, train = rec["config4"], rec["train"]
+        summary.append({
+            "processes": p, "ring_ms": c4["ring_ms"],
+            "ideal_ms": c4["ideal_ms"],
+            "comm_efficiency": c4["comm_efficiency"],
+            "step_ms": train["step_ms"], "losses": train["losses"],
+            "busy_share": train["busy_share"],
+            "launches_by_rank": rec["launches_by_rank"],
+            "max_err_vs_one_process": rec["max_err_vs_one_process"],
+            "launcher_s": time.perf_counter() - t0})
+    print(json.dumps({"process_path": summary}), flush=True)
+    return counts
+
+
+def phase_machine(line: str) -> None:
+    """``measure_machine()``'s rates beside the data sheet's."""
+    from sparsifyme_tpu_torch.bench import roofline as rl
+
+    report = rl.machine_report(rl.measure_machine())
+    for key in ("dense_tflops", "hbm_gbps", "f32_tflops"):
+        v = report[key]["measured"]
+        if not (math.isfinite(v) and v > 0):
+            raise AssertionError(f"measure_machine: {key} = {v}")
+    print(json.dumps({"machine": report, "card": line}), flush=True)
+
+
+def add_path_counts(kernels_line: dict, path: str, counts: dict) -> None:
+    """Add one path's launches to the kernels line's entries."""
+    for entry in kernels_line["kernels"]:
+        n = counts.get(entry["name"], 0)
+        entry["launches_by_path"][path] = n
+        entry["launches"] += n
+
+
 def _bound(flops, tflops, byts):
     from sparsifyme_tpu_torch.bench import roofline as rl
     ms = max(flops / (tflops * 1e12), byts / (rl.H100.hbm_gbps * 1e9)) * 1e3
@@ -1711,7 +1823,8 @@ def phase_kernel_line(path_counts) -> dict:
         plain_ms = time_kernel(plain, ops, iters=3, reps=3).ms
         lib_ms = (time_kernel(lib[0], lib[1], iters=20, reps=5).ms
                   if lib else None)
-        by_path = {p: path_counts[p][name] for p in PATHS}
+        by_path = {p: path_counts[p][name] for p in PATHS
+                   if p in path_counts}
         if name.startswith(("ring_step", "spmm_ell", "spmm_coo")):
             # "ms" times calls as a caller sees them; the kernels' own
             # device time beside it, and the host's time to queue one call
@@ -1781,6 +1894,9 @@ def main() -> int:
     print("drivers and quick configs:", flush=True)
     phase_drivers()
     kernels_line = phase_kernel_line(counts)
+    print("process path (one rank per process):", flush=True)
+    add_path_counts(kernels_line, "procs", phase_process_path())
+    phase_machine(line)
     # after the kernels line: once the driver processes of profiling_cli
     # had run, torch.profiler in this process missed kernel records (it
     # read a matmul under its bound on an H100), and _device_ms needs them

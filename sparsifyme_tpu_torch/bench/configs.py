@@ -17,9 +17,15 @@ Counterpart of ``sparsifyme_tpu.bench.configs``; each runner returns (and
 
 Runners take ``device``: ``None`` is the GPU (config 0: the CPU). With
 ``--cpu`` the plain versions run on the CPU (config 4 on eight CPU ranks);
-their times mean nothing.
+their times mean nothing. Config 4 with ``--processes`` runs one rank per
+process at P = the world size, under ``torch.distributed.run`` (NCCL: one
+card per rank; with ``--cpu``, gloo ranks on the CPU); rank 0 prints the
+line.
 
 Usage: python -m sparsifyme_tpu_torch.bench.configs <0..4> [--quick] [--cpu]
+       python -m torch.distributed.run --standalone --nproc-per-node=P \
+           -m sparsifyme_tpu_torch.bench.configs 4 --processes [--quick] \
+           [--cpu]
 """
 
 from __future__ import annotations
@@ -259,6 +265,24 @@ def config3_fused_pipeline_resnet152(quick: bool = False,
 RANKS = 8  # config 4's largest mesh: the JAX tests' 8-device CPU mesh
 
 
+def _config4_point(p: int, cards: int, bsz: int, m: int, n: int, k: int,
+                   ring_ms: float, ideal_ms: float) -> Dict:
+    nnz = bsz * m * (k // 2)
+    return {
+        "devices": p,
+        "cards": cards,
+        "batch": bsz,
+        "ring_ms": ring_ms,
+        "ideal_ms": ideal_ms,
+        "comm_efficiency": ideal_ms / ring_ms if ring_ms > 0
+        else float("nan"),
+        "nnz_per_s_per_device": nnz / (ring_ms * 1e-3) / p,
+        # what the ring moves per rank: P-1 forwards of its [k/P, n] f32
+        # B shard
+        "halo_bytes_per_device": (p - 1) * (k // p) * n * 4,
+    }
+
+
 def config4_row_partitioned_scaling(quick: bool = False,
                                     device=None) -> Dict:
     """Row-partitioned batched 2:4 SpMM over P = 1, 2, 4, 8 ranks with the
@@ -304,20 +328,8 @@ def config4_row_partitioned_scaling(quick: bool = False,
         t_ideal = time_kernel(
             lambda ss, y: spmm_24_row_sharded(ss, y, mesh, "model"),
             (s, bm), iters=4, reps=3)
-        nnz = bsz * m * (k // 2)
-        return {
-            "devices": p,
-            "cards": len(set(ranks[:p])),
-            "batch": bsz,
-            "ring_ms": t_ring.ms,
-            "ideal_ms": t_ideal.ms,
-            "comm_efficiency": t_ideal.ms / t_ring.ms if t_ring.ms > 0
-            else float("nan"),
-            "nnz_per_s_per_device": nnz / (t_ring.ms * 1e-3) / p,
-            # what the ring moves per rank: P-1 forwards of its [k/P, n]
-            # f32 B shard
-            "halo_bytes_per_device": (p - 1) * (k // p) * n * 4,
-        }
+        return _config4_point(p, len(set(ranks[:p])), bsz, m, n, k,
+                              t_ring.ms, t_ideal.ms)
 
     points = []
     p = 1
@@ -391,6 +403,122 @@ def config4_row_partitioned_scaling(quick: bool = False,
     }
 
 
+def plain_block(s, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The plain version of a ring on this rank's blocks: ``spmm_24`` on
+    CPU copies of its planes (whole in k) and of the whole B, back on the
+    planes' device."""
+    import dataclasses
+
+    from ..ops.sparse24 import spmm_24
+
+    cpu = dataclasses.replace(s, values0=s.values0.cpu(),
+                              values1=s.values1.cpu(), codes=s.codes.cpu())
+    return spmm_24(cpu, b.cpu(), out_dtype=out_dtype).to(s.values0.device)
+
+
+def config4_processes(quick: bool = False) -> Dict:
+    """Config 4 with one rank per process: the ppermute ring and its
+    zero-communication ideal at P = the world size of the running process
+    group (:func:`~..parallel.mesh.init_distributed`), at the same full size
+    and the same weak scaling as :func:`config4_row_partitioned_scaling`.
+    Each rank makes the whole A from the same seed, keeps its block of
+    ``bsz0`` batch elements (pruned and compressed there) and its k-shard
+    of B, and times the ring on its blocks without gathering C; ``ring_ms``
+    and ``ideal_ms`` are the slowest rank's. K7's two rings are held to the
+    ppermute ring on the same blocks, and the ppermute ring to its plain
+    version (:func:`plain_block`), each the largest error over the ranks.
+    Every process must call it."""
+    import torch.distributed as dist
+
+    from ..ops.prune import prune_nm
+    from ..ops.sparse24 import compress_24
+    from ..parallel.mesh import make_mesh, shard
+    from ..parallel.ring_kernel import spmm_24_ring_explicit, \
+        spmm_24_ring_tiled
+    from ..parallel.spmm_sharded import (pad_rows, spmm_24_ring,
+                                         spmm_24_row_sharded)
+
+    mesh = make_mesh(None, ("model",))
+    if not mesh.is_process_mesh:
+        raise RuntimeError("config4_processes needs a running process group "
+                           "(torch.distributed.run)")
+    p, dev = mesh.shape["model"], mesh.device
+    bsz0, m, n, k = (2, 256, 128, 512) if quick else (4, 1024, 256, 2048)
+
+    def operands(seed, rows_shape):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        a = torch.randn(rows_shape, generator=gen, device=dev)
+        gen.manual_seed(1)
+        bm = torch.randn((k, n), generator=gen, device=dev)
+        # this rank's rows: compressed, they are its block of planes
+        a = shard(a, ("model",) + (None,) * (a.ndim - 1), mesh)[0]
+        blk = compress_24(prune_nm(a, 2, 4)[0])
+        bp = pad_rows(bm, 4 * blk.values0.shape[0])
+        return blk, bm, shard(bp, ("model", None), mesh)[0]
+
+    def slowest(x: float) -> float:
+        t = torch.tensor([x], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
+
+    def max_rel(got, want) -> float:
+        t = torch.stack([(got - want).abs().max(), want.abs().max()]).to(
+            torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t[0] / (t[1] + 1e-9))
+
+    bsz = bsz0 * p
+    s, bm, b_shard = operands(0, (bsz, m, k))
+    t_ring = time_kernel(
+        lambda ss, y: spmm_24_ring(ss, y, mesh, "model"), (s, b_shard),
+        iters=4, reps=3)
+    t_ideal = time_kernel(
+        lambda ss, y: spmm_24_row_sharded(ss, y, mesh, "model"), (s, bm),
+        iters=4, reps=3)
+    point = _config4_point(p, len({str(d) for d in mesh.devices.flat}),
+                           bsz, m, n, k, slowest(t_ring.ms),
+                           slowest(t_ideal.ms))
+    want = spmm_24_ring(s, b_shard, mesh, "model", out_dtype=torch.float32)
+    err_plain = max_rel(want, plain_block(s, bm, torch.float32))
+    got = spmm_24_ring_explicit(s, b_shard, mesh, "model",
+                                out_dtype=torch.float32)
+    err = max_rel(got, want)
+    mt = 128
+    s_t, _, b_t = operands(2, (mt * p * 2, k))
+    want_t = spmm_24_ring(s_t, b_t, mesh, "model", out_dtype=torch.float32)
+    got_t = spmm_24_ring_tiled(s_t, b_t, mesh, "model",
+                               out_dtype=torch.float32, m_tile=mt)
+    err_t = max_rel(got_t, want_t)
+    return {
+        "config": 4,
+        "backend": dist.get_backend(),
+        "shape": {"b_per_device": bsz0, "m": m, "n": n, "k": k},
+        "points": [point],
+        "ppermute_ring": {
+            "kernel": "parallel.spmm_sharded.spmm_24_ring (K3 per step, "
+                      "batch_isend_irecv between processes)",
+            "max_rel_err_vs_plain": err_plain,
+        },
+        "explicit_overlap_ring": {
+            "kernel": "parallel.ring_kernel.spmm_24_ring_explicit (K7, "
+                      "csrc/ring24.cu; two comm slots per process, "
+                      "batch_isend_irecv under slot-free events)",
+            "devices": p,
+            "max_rel_err_vs_ppermute": err,
+        },
+        "tiled_ring": {
+            "kernel": "parallel.ring_kernel.spmm_24_ring_tiled (K7 per "
+                      "m-tile, a whole ring per tile)",
+            "devices": p,
+            "m_tiles_per_shard": 2,
+            "max_rel_err_vs_ppermute": err_t,
+        },
+        "note": "one rank per process (torch.distributed.run), weak "
+                "scaling at P = the world size; ring_ms and ideal_ms are "
+                "the slowest rank's, C stays sharded",
+    }
+
+
 RUNNERS = {
     0: config0_threshold_gemm_cpu,
     1: config1_spmm24_resnet50,
@@ -407,7 +535,24 @@ def main(argv=None) -> int:
     p.add_argument("--cpu", action="store_true",
                    help="run the plain versions on the CPU (times mean "
                         "nothing on a device)")
+    p.add_argument("--processes", action="store_true",
+                   help="config 4 with one rank per process (run under "
+                        "torch.distributed.run; NCCL ranks on cards, gloo "
+                        "ranks with --cpu)")
     args = p.parse_args(argv)
+    if args.processes:
+        import torch.distributed as dist
+
+        from ..parallel.mesh import start_processes
+
+        if args.config != 4:
+            p.error("--processes runs config 4 only")
+        start_processes(cpu=args.cpu)
+        result = config4_processes(quick=args.quick)
+        if dist.get_rank() == 0:
+            print(json.dumps(result, default=float), flush=True)
+        dist.destroy_process_group()
+        return 0
     kw = {"device": "cpu"} if args.cpu else {}
     result = RUNNERS[args.config](quick=args.quick, **kw)
     print(json.dumps(result, default=float), flush=True)

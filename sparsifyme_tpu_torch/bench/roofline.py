@@ -7,11 +7,20 @@ their type and the bytes that must move (each input read once, each
 output written once) over the device-memory bandwidth. Times are for the
 bf16 sweep (2 bytes per dense element), except :func:`coo_spmm_work`'s,
 whose products run in f32 on the CUDA cores.
+
+:func:`measure_machine` measures this card's achieved rates; ``H100``
+(the data sheet) stays the default machine of every bound, so that no
+published bound moves with a measurement. ``python -m
+sparsifyme_tpu_torch.bench.roofline`` prints the measured rates beside
+the data sheet's (needs a card).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import subprocess
+from typing import Dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +114,90 @@ def bound_by(flops: float, tflops: float, byts: float,
     ``"bytes"``."""
     ops_s = flops / (tflops * 1e12)
     return "operations" if ops_s >= byts / (mc.hbm_gbps * 1e9) else "bytes"
+
+
+def shape_roofline(m: int, n: int, k: int, b: int,
+                   mc: Machine = H100) -> Dict[str, float]:
+    """Each format's bound at one shape, and its speedup over the dense
+    bound (not over a measured dense time)."""
+    d = dense_sol_ms(m, n, k, b, mc)
+    s24 = spmm24_sol_ms(m, n, k, b, mc)
+    ell = ell_sol_ms(m, n, k, b, mc)
+    return {
+        "dense_sol_ms": d,
+        "spmm24_sol_ms": s24,
+        "ell_sol_ms": ell,
+        "spmm24_sol_speedup": d / s24,
+        "ell_sol_speedup": d / ell,
+    }
+
+
+def measure_machine(device=None, n: int = 4096,
+                    copy_n: int = 8192) -> Machine:
+    """This device's achieved rates, timed with ``utils.timing.time_kernel``
+    (on the card unless ``device`` says otherwise):
+
+    * ``dense_tflops``: an ``n``-cubed bf16 ``torch.matmul``;
+    * ``hbm_gbps``: a bf16 ``copy_n``-square add, counted as JAX counts it
+      (two reads and one write);
+    * ``f32_tflops``: an ``n``-cubed f32 ``torch.matmul`` with TF32 off
+      (the CUDA cores).
+
+    ``sparse24_tflops`` is not measured: it is the data sheet's (``H100``).
+    The defaults are the JAX function's sizes; a CPU run may pass small
+    ones (its rates are the CPU's)."""
+    import torch
+
+    from .._build import resolve_device
+    from ..utils.timing import time_kernel
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def normal(size, dtype):
+        return torch.randn((size, size), generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    bf16 = torch.bfloat16
+    t = time_kernel(torch.matmul, (normal(n, bf16), normal(n, bf16)))
+    dense = 2.0 * n ** 3 / (t.ms * 1e9)
+    big = normal(copy_n, bf16)
+    t = time_kernel(torch.add, (big, big + 1))
+    hbm = 3.0 * big.numel() * big.element_size() / (t.ms * 1e6)
+    del big
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32
+    try:
+        t = time_kernel(torch.matmul, (normal(n, torch.float32),
+                                       normal(n, torch.float32)))
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    f32 = 2.0 * n ** 3 / (t.ms * 1e9)
+    return Machine(dense_tflops=dense, sparse24_tflops=H100.sparse24_tflops,
+                   hbm_gbps=hbm, f32_tflops=f32)
+
+
+def machine_report(mc: Machine) -> Dict[str, Dict[str, object]]:
+    """Each rate measured beside the data sheet's and its share of it."""
+    out = {}
+    for field in dataclasses.fields(Machine):
+        got, sheet = getattr(mc, field.name), getattr(H100, field.name)
+        measured = field.name != "sparse24_tflops"
+        out[field.name] = {
+            "measured": got if measured else "not measured",
+            "data_sheet": sheet,
+            "share": got / sheet if measured else None,
+        }
+    return out
+
+
+if __name__ == "__main__":
+    import torch
+
+    measured = measure_machine()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
+                      "machine": machine_report(measured)}))

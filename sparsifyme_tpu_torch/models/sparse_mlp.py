@@ -102,19 +102,40 @@ def loss_fn(params, x, y, config: MlpConfig) -> torch.Tensor:
 # SPMD training step: data-parallel batch x tensor-parallel (row-sharded W)
 # --------------------------------------------------------------------------
 
+def _layer_specs(model_axis: str):
+    return (
+        (None, model_axis),  # values0
+        (None, model_axis),  # values1
+        (None, model_axis),  # codes
+        (model_axis,),       # bias
+    )
+
+
 def param_specs(config: MlpConfig, model_axis: str = "model"):
     """Per layer, the spec of each parameter (see
     :func:`~..parallel.mesh.shard`): the planes' d_out axis (their last)
     and the bias split over ``model_axis``."""
-    return tuple(
-        (
-            (None, model_axis),  # values0
-            (None, model_axis),  # values1
-            (None, model_axis),  # codes
-            (model_axis,),       # bias
-        )
-        for _ in range(config.n_layers)
-    )
+    return tuple(_layer_specs(model_axis) for _ in range(config.n_layers))
+
+
+def shard_params(params: Sequence[LayerParams], mesh: Mesh,
+                 model_axis: str = "model") -> List[LayerParams]:
+    """This rank's slabs of whole parameters on a process mesh (what the
+    process-mesh train step takes): each tensor cut by
+    :func:`param_specs`."""
+    spec = _layer_specs(model_axis)
+    return [tuple(shard(t, sp, mesh)[0] for t, sp in zip(p, spec))
+            for p in params]
+
+
+def unshard_params(params: Sequence[LayerParams], mesh: Mesh,
+                   model_axis: str = "model") -> List[LayerParams]:
+    """The whole parameters from this rank's slabs on a process mesh, on
+    every process (the inverse of :func:`shard_params`)."""
+    spec = _layer_specs(model_axis)
+    return [tuple(collectives.unshard([t], sp, mesh)
+                  for t, sp in zip(p, spec))
+            for p in params]
 
 
 def make_train_step(
@@ -141,21 +162,32 @@ def make_train_step(
     cotangents, so each weight moves by ``tp * lr * dloss/dW``
     (pinned by ``tests/test_torch_models.py::``
     ``test_train_step_scales_the_gradient_by_tp``).
+
+    On a process mesh (one rank per process) the step takes and returns
+    this rank's blocks (the process contract of :mod:`..parallel.mesh`):
+    its slabs of the parameters (:func:`shard_params`) and its batch shard
+    of ``x`` and ``y``, and gathers nothing but each layer's activations;
+    the loss is the same mean on every process.
     """
     specs = param_specs(config, model_axis)
     n_layers = config.n_layers
+    procs = mesh.is_process_mesh
 
     def train_step(params: Sequence[LayerParams], x: torch.Tensor,
                    y: torch.Tensor):
         home = params[0][0].device
-        xs = shard_batch(x, mesh, data_axis)
-        ys = shard_batch(y, mesh, data_axis)
+        if procs:
+            mesh.check("train_step", x, y, *params[0])
+            xs, ys = [x], [y]
+        else:
+            xs = shard_batch(x, mesh, data_axis)
+            ys = shard_batch(y, mesh, data_axis)
         # layers[i][j]: parameter j of layer i, one tensor per rank
         layers = []
         for p, spec in zip(params, specs):
             slabs = []
             for j, (t, sp) in enumerate(zip(p, spec)):
-                parts = shard(t, sp, mesh)
+                parts = [t] if procs else shard(t, sp, mesh)
                 if j != 2:  # codes are structural: no gradient
                     parts = [q.detach().requires_grad_() for q in parts]
                 slabs.append(parts)
@@ -182,14 +214,14 @@ def make_train_step(
             for slabs, spec in zip(layers, specs):
                 new = []
                 for j, (parts, sp) in enumerate(zip(slabs, spec)):
-                    if j == 2:
-                        new.append(collectives.unshard(parts, sp, mesh, home))
-                        continue
-                    grads = collectives.pmean([q.grad for q in parts], mesh,
-                                              data_axis)
-                    upd = [(q.to(torch.float32) - lr * g.to(torch.float32))
-                           .to(q.dtype) for q, g in zip(parts, grads)]
-                    new.append(collectives.unshard(upd, sp, mesh, home))
+                    if j != 2:
+                        grads = collectives.pmean([q.grad for q in parts],
+                                                  mesh, data_axis)
+                        parts = [(q.to(torch.float32)
+                                  - lr * g.to(torch.float32)).to(q.dtype)
+                                 for q, g in zip(parts, grads)]
+                    new.append(parts[0] if procs else
+                               collectives.unshard(parts, sp, mesh, home))
                 new_params.append(tuple(new))
         return loss, new_params
 

@@ -39,6 +39,19 @@ second captures and replays. Meshes over several cards queue every call
 eagerly.
 Ranks on CPU devices run the same schedule in order with the plain version
 of K7, and never capture.
+
+On a process mesh (one rank per process, :mod:`.mesh`) each process runs
+its rank's ring on its blocks (the process contract: this rank's planes
+from :func:`~.spmm_sharded.shard_planes`, its k-shard of B zero-padded to
+``4 * k4`` rows, its block of C back), eagerly. It keeps the two comm
+slots: the contraction of step i is K7 on the caller's stream, while one
+``dist.batch_isend_irecv`` pair, issued on a comm stream, sends the held
+slot to the right neighbour's other slot and receives the left one's into
+this rank's other slot. The capacity credit becomes the order of the NCCL
+calls against the compute stream: the receive into a slot is issued only
+after the event that the last K7 reading that slot has run (the restaging
+of slot 0 for the next m-tile likewise), and K7 waits for the event after
+the exchange that filled its slot.
 """
 
 from __future__ import annotations
@@ -53,7 +66,8 @@ from ..ops.kernels.prune_kernel import DTYPE_CODES
 from ..ops.kernels.spmm24_kernel import card_tile, expand_planes
 from . import ring_graph
 from .mesh import Mesh
-from .spmm_sharded import (Ranks, on, pad_rows, plane_slabs, record,
+from .spmm_sharded import (Rank, Ranks, check_shard, finish, on,
+                           p2p_exchange, pad_rows, plane_slabs, record,
                            rows_of, send, wait)
 
 
@@ -187,6 +201,9 @@ def _ring(s: Sparse24, b: torch.Tensor, mesh: Mesh, axis: str, out_dtype,
     if len(mesh.shape) != 1:
         # The Pallas kernels address neighbours by the flat device id.
         raise ValueError(f"{name} needs a 1-D mesh (got {mesh.shape})")
+    if mesh.is_process_mesh:
+        return _ring_processes(s, b, mesh, axis, out_dtype, m_tile, tiled,
+                               name)
     p = mesh.shape[axis]
     m_total = rows_of(s)
     if m_total % p:
@@ -304,6 +321,64 @@ def _schedule(s: Sparse24, b: torch.Tensor, devices, p: int, k4s: int,
                 out[r * mloc:(r + 1) * mloc].copy_(outs[r], non_blocking=True)
     ranks.end()
     return out
+
+
+def _ring_processes(s: Sparse24, b: torch.Tensor, mesh: Mesh, axis: str,
+                    out_dtype, m_tile: Optional[int], tiled: bool,
+                    name: str) -> torch.Tensor:
+    """This rank's ring on a process mesh (the module docstring)."""
+    mesh.check(name, s.values0, b)
+    p = mesh.shape[axis]
+    k4s = check_shard(s, b, p)
+    n, mloc = b.shape[-1], s.values0.shape[-1]
+    mt = (m_tile or _pick_mt(mloc)) if tiled else mloc
+    if mloc % mt:
+        raise ValueError(f"m_tile {mt} must divide mloc {mloc}")
+    out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
+    dtype = torch.promote_types(s.dtype, b.dtype)
+    dev = s.values0.device
+    cuda = dev.type == "cuda"
+    if cuda and (dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES):
+        raise TypeError(f"{name} takes float32/bfloat16, not {dtype} -> "
+                        f"{out_dtype}")
+    if cuda:
+        _build.refuse_grad(name, s.values0, s.values1, b)
+    step = ((ring_step_tiled_cuda if tiled else ring_step_cuda) if cuda
+            else ring_step_plain)
+    v0, v1, codes = s.values0, s.values1, s.codes
+    if s.dtype != dtype:  # K7 multiplies like types
+        v0, v1 = v0.to(dtype), v1.to(dtype)
+    shard = b.to(dtype).contiguous()
+    slots = torch.empty((2, 4 * k4s, n), dtype=dtype, device=dev)
+    acc = (torch.empty((mloc, n), dtype=torch.float32, device=dev)
+           if p > 1 else None)
+    out = torch.empty((mloc, n), dtype=out_dtype, device=dev)
+    me = mesh.axis_index(axis)
+    main = torch.cuda.current_stream(dev) if cuda else None
+    comm = Rank(dev).comm
+    # free[x]: after the last K7 that read slot x (the capacity credit)
+    free = [record(main), None]
+    for j in range(mloc // mt):
+        for i in range(p):
+            slot, nxt = i % 2, (i + 1) % 2
+            if i == 0:  # (re-)stage the local shard into slot 0
+                wait(comm, free[0])
+                with on(comm):
+                    slots[0].copy_(shard, non_blocking=True)
+                arrived = record(comm)
+            works = []
+            if i + 1 < p:
+                wait(comm, free[nxt])
+                with on(comm):
+                    works = p2p_exchange(slots[slot], slots[nxt], mesh, axis)
+            wait(main, arrived)
+            step(v0, v1, codes, slots[slot], acc, out, src=(me - i) % p,
+                 c0=j * mt, mt=mt, first=i == 0, last=i == p - 1)
+            free[slot] = record(main)
+            if works:
+                arrived = finish(comm, works)
+    wait(main, record(comm))
+    return out.reshape(*s.shape[:-1], n)
 
 
 def spmm_24_ring_explicit(s: Sparse24, b: torch.Tensor, mesh: Mesh,

@@ -24,6 +24,23 @@ result is ready in stream order and CUDA events on that stream time the whole
 call. On a 2-D mesh the functions run along ``axis`` at index 0 of the other
 axes, which gives JAX's (replicated) result. CPU ranks run the same schedule
 one step at a time with the plain versions.
+
+On a process mesh (one rank per process, :mod:`.mesh`) each function runs
+this rank's part of the ``shard_map`` body on its block (the process
+contract): ``s`` is this rank's block of the planes
+(:func:`shard_planes`), B is whole for the batch- and row-sharded
+functions and this rank's k-shard of B (zero-padded to the planes' ``4 *
+k4`` rows) for the ring, and the result is this rank's block of C, of
+shape ``(*s.shape[:-1], n)``. The batch- and row-sharded functions run K3
+on the block and communicate nothing. The ring's P steps each run K3 (f32
+out) on the k-slice of the block that matches the held shard, while one
+``dist.batch_isend_irecv`` pair sends the shard to ``(me+1) % P`` and
+receives the one of ``(me-1) % P`` into a fresh buffer; the exchange is
+issued on a comm stream of its own, so it overlaps the step's K3 on the
+caller's stream, which waits for the shard before the next step. The comm
+stream waits for the caller's stream before each exchange: the fresh buffer
+is allocated on the caller's stream and may reuse the block of a shard that
+the previous step's K3 still reads there.
 """
 
 from __future__ import annotations
@@ -37,7 +54,7 @@ import torch.nn.functional as F
 
 from ..containers import Sparse24
 from ..ops.sparse24 import spmm_24
-from .mesh import Mesh
+from .mesh import Mesh, shard
 
 
 class Rank:
@@ -124,6 +141,28 @@ def plane_slabs(s: Sparse24, p: int, devices: Sequence[torch.device]):
             for r, d in enumerate(devices)]
 
 
+def shard_planes(s: Sparse24, mesh: Mesh, axis: str) -> List[Sparse24]:
+    """One :class:`Sparse24` per rank that this process plays (mesh
+    order): the rank's block of ``s`` with its folded rows split over
+    ``axis`` (planes ``[k4, M/P]``, spec ``(None, axis)``). A block of
+    whole batch elements keeps the batch axis (``(bsz/P, ..., m, k)``),
+    any other the folded form ``(M/P, k)``."""
+    *lead, m, k = s.shape
+    p = mesh.shape[axis]
+    if s.values0.shape[-1] % p:
+        raise ValueError(f"rows {s.values0.shape[-1]} not divisible by axis "
+                         f"size {p}")
+    mloc = s.values0.shape[-1] // p
+    if lead and lead[0] % p == 0:
+        shape = (lead[0] // p, *lead[1:], m, k)
+    else:
+        shape = (mloc, k)
+    planes = [shard(x, (None, axis), mesh)
+              for x in (s.values0, s.values1, s.codes)]
+    return [Sparse24(v0, v1, codes, shape=shape)
+            for v0, v1, codes in zip(*planes)]
+
+
 def pad_rows(b: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(b, (0, 0, 0, rows - b.shape[0])) if b.shape[0] < rows else b
 
@@ -159,6 +198,9 @@ def spmm_24_batch_sharded(s: Sparse24, b: torch.Tensor, mesh: Mesh,
     """
     if len(s.shape) < 3:
         raise ValueError("batch-sharded spmm needs a leading batch dim")
+    if mesh.is_process_mesh:
+        mesh.check("spmm_24_batch_sharded", s.values0, b)
+        return spmm_24(s, b)
     *lead, m, k = s.shape
     bsz = int(np.prod(lead))
     p = mesh.shape[axis]
@@ -179,6 +221,9 @@ def spmm_24_row_sharded(s: Sparse24, b: torch.Tensor, mesh: Mesh,
     """2:4 SpMM with A's (batch-folded) rows sharded over ``axis``, B
     replicated. The planes are k-major ``[k4, M]``, so the row shard is a
     column slab of them; the output ``(..., m, n)`` gathers the slabs."""
+    if mesh.is_process_mesh:
+        mesh.check("spmm_24_row_sharded", s.values0, b)
+        return spmm_24(s, b)
     *lead, m, k = s.shape
     p = mesh.shape[axis]
     if s.values0.shape[-1] % p:
@@ -219,8 +264,11 @@ def spmm_24_ring(s: Sparse24, b: torch.Tensor, mesh: Mesh,
     elements and the output unfolds for free. B is zero-padded to the
     planes' ``4 * k4`` rows.
 
-    Requires: prod(batch)*m % P == 0 and k4 % P == 0.
+    Requires: prod(batch)*m % P == 0 and k4 % P == 0. On a process mesh
+    ``s`` and B are this rank's blocks (the module docstring).
     """
+    if mesh.is_process_mesh:
+        return _ring_processes(s, b, mesh, axis, out_dtype)
     *lead, m, _ = s.shape
     p = check_ring(s, mesh, axis)
     k4s = s.values0.shape[-2] // p
@@ -262,3 +310,77 @@ def spmm_24_ring(s: Sparse24, b: torch.Tensor, mesh: Mesh,
             out[r * mloc:(r + 1) * mloc].copy_(accs[r], non_blocking=True)
     ranks.end()
     return out.reshape(*lead, m, n)
+
+
+def check_shard(s: Sparse24, b: torch.Tensor, p: int) -> int:
+    """A process ring's contract on this rank's blocks; returns ``k4 / P``.
+    """
+    k4 = s.values0.shape[-2]
+    if k4 % p:
+        raise ValueError(f"k4 {k4} not divisible by axis size {p}")
+    k4s = k4 // p
+    if b.shape[0] != 4 * k4s:
+        raise ValueError(
+            f"B's shard has {b.shape[0]} rows, not 4 * k4 / P = {4 * k4s}: "
+            f"pad B to the planes' {4 * k4} rows before sharding it")
+    return k4s
+
+
+def p2p_exchange(send_buf: torch.Tensor, recv_buf: torch.Tensor,
+                 mesh: Mesh, axis: str):
+    """Send ``send_buf`` to the right neighbour on ``axis`` and receive
+    the left one's into ``recv_buf``, both in one ``batch_isend_irecv``
+    group (every rank posts both, so none blocks on the other); returns
+    the works. NCCL orders the exchange after the current stream."""
+    import torch.distributed as dist
+
+    left, right = mesh.ring_peers(axis)
+    group = mesh.group(axis)
+    return dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send_buf, right, group),
+        dist.P2POp(dist.irecv, recv_buf, left, group)])
+
+
+def finish(stream, works) -> Optional[torch.cuda.Event]:
+    """Order ``stream`` after ``works`` (a CPU rank waits for them) and
+    return an event at its end."""
+    with on(stream):
+        for w in works:
+            w.wait()
+    return record(stream)
+
+
+def _ring_processes(s: Sparse24, b: torch.Tensor, mesh: Mesh, axis: str,
+                    out_dtype) -> torch.Tensor:
+    """:func:`spmm_24_ring`'s body on this rank's blocks."""
+    mesh.check("spmm_24_ring", s.values0, b)
+    p = mesh.shape[axis]
+    k4s = check_shard(s, b, p)
+    me = mesh.axis_index(axis)
+    n, mloc = b.shape[-1], s.values0.shape[-1]
+    out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
+    dev = s.values0.device
+    main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    comm = Rank(dev).comm
+    cur = b.contiguous()
+    acc = None
+    for i in range(p):
+        works = []
+        if i + 1 < p:
+            nxt = torch.empty_like(cur)  # as lax.ppermute: a new array
+            # nxt may be the block of a shard that the last step's K3 still
+            # reads on main: the receive into it waits for main.
+            wait(comm, record(main))
+            with on(comm):
+                works = p2p_exchange(cur, nxt, mesh, axis)
+        src = (me - i) % p
+        g = slice(src * k4s, (src + 1) * k4s)
+        part = spmm_24(Sparse24(s.values0[g], s.values1[g], s.codes[g],
+                                shape=(mloc, 4 * k4s)),
+                       cur, out_dtype=torch.float32)
+        acc = part if acc is None else acc.add_(part)
+        if works:
+            ready = finish(comm, works)
+            wait(main, ready)
+            cur = nxt
+    return acc.to(out_dtype).reshape(*s.shape[:-1], n)
