@@ -6,7 +6,7 @@ kernels from ``sparsifyme_tpu_torch/csrc`` with nvcc at first use)
 
 Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
-  2. build the seven Hopper kernel sources (one nvcc each, in parallel);
+  2. build the nine Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
      at full ResNet-50 width (b=32) at the six bench shapes: K1 prune (bit
      for bit, also in f32 and as a view at an odd storage offset at
@@ -134,6 +134,20 @@ Phases, each raising on failure:
      their kernels' device time per call (a profiler session with no
      device time is run again, three sessions at most), and
      ``enqueue_ms``);
+  8b. the probe path: ``units_probe.probe_shape`` at 25088x256x1024 (b=32
+     folded) and ``fused_probe.probe_shape`` at 401408x256 (bf16), counters
+     set to 0 just before and read just after: every mode of K3's tile
+     (``feed`` and ``mma`` at 4 and 2 stages, ``full`` at 4, 2 and the
+     serial ring), the expand-then-dense tile (``fp1``) and K2's body in
+     each probe mode (``io``, ``rank``, ``dot1``, ``rm``) held to its plain
+     version (the tile's outputs within 2e-2 and its side words exactly;
+     io and rank within 2e-2, dot1 and rm exactly) and timed, with
+     ``overlap_frac`` printed; fails unless each of the nine probe kernels
+     launched. The kernels line (step 9) gets their nine entries
+     (``units_feed``, ``units_mma``, ``units_both_s2``, ``units_chain``,
+     ``units_fp1``, ``fused_io``, ``fused_rank``, ``fused_dot1``,
+     ``fused_rm``, the last with ``transposed_ms``: the planes transposed
+     after it), launches on path ``probes``;
   9b. the process path, after the kernels line's measurements (like
      ``profiling_cli`` in step 8, it runs other processes on the card):
      ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
@@ -238,7 +252,8 @@ RING_ROUTES = ("prune_nm", "compress_24", "spmm_24", "ring_step",
                "ring_step_tiled")
 MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
 MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
-PATHS = ("bench", "plan", "coo", "ring", "model", "tune", "procs")
+PATHS = ("bench", "plan", "coo", "ring", "model", "tune", "probes",
+         "procs")
 # the process path's kernels that must launch on every rank (K1 and K2
 # build its operands where a card prunes and compresses)
 PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled")
@@ -255,6 +270,32 @@ MODEL_STEPS = 10
 UPDATE_TOL = 1e-3
 # profiler sessions tried before a trace without device events fails
 PROFILE_SESSIONS = 3
+# the probe path's shapes: the JAX units probe's second (b = 32 folded) and
+# the JAX fused probe's first
+PROBE_UNITS = (25088, 256, 1024)
+PROBE_FUSED = (401408, 256)
+# the probes' kernels-line entries: (mode, stages) of units_cuda, "fp1",
+# or a mode of fused_cuda; the TPU kernel each replaces
+PROBES = {
+    "units_feed": (("feed", 4), "experiments/units.py:158 run_probe "
+                   "(probe_kernel :25, mode expand)"),
+    "units_mma": (("mma", 4), "experiments/units.py:158 run_probe "
+                  "(probe_kernel :25, mode dot)"),
+    "units_both_s2": (("full", 2), "experiments/units.py:158 run_probe "
+                      "(probe_kernel :25, modes both and parity)"),
+    "units_chain": (("full", 1), "experiments/units.py:158 run_probe "
+                    "(probe_kernel :25, mode chain)"),
+    "units_fp1": ("fp1", "experiments/units.py:79 run_probe_fp1 "
+                  "(kernel :93)"),
+    "fused_io": ("io", "experiments/tpu_fused_probe.py:130 run_variant "
+                 "(kernel_io :54)"),
+    "fused_rank": ("rank", "experiments/tpu_fused_probe.py:130 run_variant "
+                   "(kernel_rank :66)"),
+    "fused_dot1": ("dot1", "experiments/tpu_fused_probe.py:130 run_variant "
+                   "(kernel_dot1 :81)"),
+    "fused_rm": ("rm", "experiments/tpu_fused_probe.py:130 run_variant "
+                 "(kernel_rm :101)"),
+}
 
 
 def card_line() -> str:
@@ -804,13 +845,34 @@ def _wrappers():
     }
 
 
+def probe_counts():
+    """The probe kernels' launches, by kernels-line entry."""
+    from sparsifyme_tpu_torch.bench import fused_probe, units_probe
+
+    out = {}
+    for name, (what, _) in PROBES.items():
+        if name.startswith("fused_"):
+            out[name] = fused_probe.fused_cuda.launches[what]
+        elif what == "fp1":
+            out[name] = units_probe.fp1_cuda.launches
+        else:
+            out[name] = units_probe.units_cuda.launches[what]
+    return out
+
+
 def launch_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {**{name: fn.launches for name, fn in _wrappers().items()},
+            **probe_counts()}
 
 
 def reset_counts() -> None:
+    from sparsifyme_tpu_torch.bench import fused_probe, units_probe
+
     for fn in _wrappers().values():
         fn.launches = 0
+    units_probe.fp1_cuda.launches = 0
+    units_probe.units_cuda.launches.clear()
+    fused_probe.fused_cuda.launches.clear()
 
 
 def check_launched(counts, routes, path):
@@ -1428,6 +1490,26 @@ def phase_profiling_cli() -> None:
                              f"{_build.build_dir()}")
 
 
+def phase_probe_path() -> dict:
+    """The probes of K3's tile and K2's fused route, once each at one shape
+    (step 8b)."""
+    from sparsifyme_tpu_torch.bench import fused_probe, units_probe
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_counts()
+    u = units_probe.probe_shape(*PROBE_UNITS, gen, iters=10, reps=3)
+    f = fused_probe.probe_shape(*PROBE_FUSED, gen, iters=5, reps=3)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"probe path: {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: counts[k] for k in PROBES} }", flush=True)
+    check_launched(counts, list(PROBES), "probes")
+    print(json.dumps({"probes": {"units": u, "fused": f}}), flush=True)
+    return counts
+
+
 def run_launcher(p: int) -> dict:
     """One ``torch.distributed.run`` job of ``p`` processes running the
     port's entry ``--processes``; rank 0's record. Its process group is
@@ -1858,7 +1940,83 @@ def phase_kernel_line(path_counts) -> dict:
         reps=5).ms
     next(o for o in out if o["name"] == "spmm_ell_expand")["gather_ms"] = \
         gather_ms
+    out += probe_entries(path_counts, gen)
     return {"kernels": out}
+
+
+def probe_entries(path_counts, gen) -> list:
+    """The nine probe kernels' kernels-line entries, at the probe path's
+    shapes: each held to its plain version on the same card tensors by the
+    probe's own ``check``, then timed beside it."""
+    from sparsifyme_tpu_torch.bench import fused_probe as fp
+    from sparsifyme_tpu_torch.bench import units_probe as up
+    from sparsifyme_tpu_torch.bench.roofline import H100
+    from sparsifyme_tpu_torch.ops.kernels.spmm24_kernel import expand_planes
+    from sparsifyme_tpu_torch.utils.timing import time_kernel
+
+    m, n, k = PROBE_UNITS
+    ops = up.operands(m, n, k, gen)
+    v0, v1, codes, b = ops
+    bm, bn = up.units_tile(v0, b)
+    bq = up.fp1_operand(b)
+    dense_a = expand_planes(v0, v1, codes).T.contiguous()
+    bounds = up.bounds_ms(m, n, k)
+    rows, kp = PROBE_FUSED
+    x = torch.randn(PROBE_FUSED, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = []
+    for name, (what, replaces) in PROBES.items():
+        extra = {}
+        lib = None
+        if name.startswith("fused_"):
+            shape = f"{rows}x{kp} bf16"
+            kern = lambda y, md=what: fp.fused_cuda(y, md)  # noqa: E731
+            plain = lambda y, md=what: fp.fused_plain(y, md)  # noqa: E731
+            kops = pops = (x,)
+            bound = (fp.floor_ms(rows, kp, H100.hbm_gbps), "bytes")
+            abs_err, rel_err = fp.check(x, what)
+            if what == "rm":
+                extra["transposed_ms"] = time_kernel(
+                    lambda y: [p.t().contiguous() for p in fp.fused_cuda(
+                        y, "rm")], (x,), iters=10, reps=5).ms
+        else:
+            shape = f"{m}x{n}x{k} tile {bm}x{bn} bf16"
+            abs_err, rel_err = up.check(*ops, what)
+            if what == "fp1":
+                kern, plain = up.fp1_cuda, up.fp1_plain
+                kops, pops = (v0, v1, codes, bq), ops
+                lib = (torch.matmul, (dense_a, bq))
+                bound = bounds["full"]
+            else:
+                mode, st = what
+                kern = lambda *y, md=mode, s=st: up.units_cuda(  # noqa: E731
+                    *y, mode=md, stages=s)
+                plain = lambda *y, md=mode, s=st: up.units_plain(  # noqa
+                    *y, mode=md, stages=s, bm=bm, bn=bn)
+                kops = pops = ops
+                bound = bounds[mode]
+                if mode == "full":
+                    lib = (torch.matmul, (dense_a, b))
+        print(f"  {name:17s} {shape + ' (kernels line)':44s} "
+              f"rel_err={rel_err:.3e}", flush=True)
+        by_path = {p: path_counts[p][name] for p in PATHS
+                   if p in path_counts}
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "sparsifyme_tpu_torch/csrc/"
+                      + ("compress_units.cu" if name.startswith("fused_")
+                         else "sp24_units.cu"),
+            "replaces": replaces, "shape": shape,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": abs_err, "max_err": rel_err,
+            "ms": time_kernel(kern, kops, iters=20, reps=5).ms,
+            "plain_ms": time_kernel(plain, pops, iters=3, reps=3).ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": (time_kernel(lib[0], lib[1], iters=20, reps=5).ms
+                           if lib else None),
+            **extra,
+        })
+    return out
 
 
 def main() -> int:
@@ -1893,6 +2051,8 @@ def main() -> int:
     counts["model"] = phase_model_path()
     print("drivers and quick configs:", flush=True)
     phase_drivers()
+    print("probe path:", flush=True)
+    counts["probes"] = phase_probe_path()
     kernels_line = phase_kernel_line(counts)
     print("process path (one rank per process):", flush=True)
     add_path_counts(kernels_line, "procs", phase_process_path())

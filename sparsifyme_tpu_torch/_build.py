@@ -21,20 +21,20 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prune_nm", "compress24", "spmm24", "ell_spmm", "ell_expand",
-           "coo_spmm", "ring24")
+           "coo_spmm", "ring24", "sp24_units", "compress_units")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _lock = threading.Lock()
-_entries: Dict[str, "ctypes._CFuncPtr"] = {}
+_entries: Dict[Tuple[str, str], "ctypes._CFuncPtr"] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -146,7 +146,7 @@ def load(name: str, entry: str, spec: str):
     types set from ``spec`` (see :func:`argtypes`), building all sources
     first if needed."""
     with _lock:
-        fn = _entries.get(name)
+        fn = _entries.get((name, entry))
         if fn is None:
             build_all()
             path = build_dir() / f"lib{name}.so"
@@ -156,7 +156,7 @@ def load(name: str, entry: str, spec: str):
                 raise KernelBuildError(f"cannot load {path}: {e}") from e
             fn.argtypes = argtypes(spec)
             fn.restype = ctypes.c_int
-            _entries[name] = fn
+            _entries[(name, entry)] = fn
         return fn
 
 

@@ -98,12 +98,12 @@ ABLATIONS = {
     }),
     "compress24": ("compress24_launch", "pppp" "iiiiiii" "p", {
         "no ranking": [(
-            "    rank_tile(g, in + stage * g.in_el, s0, s1, sc, M, k, r0, "
-            "c0);\n", "")],
+            "      rank_tile<T, MODE>(g, tile, s0, s1, sc, M, k, r0, c0);\n",
+            "")],
         "loads only": [
-            ("    rank_tile(g, in + stage * g.in_el, s0, s1, sc, M, k, r0, "
-             "c0);\n", ""),
-            ("    store_tile(g, s0, s1, sc, v0, v1, codes, M, r0, c0, "
+            ("      rank_tile<T, MODE>(g, tile, s0, s1, sc, M, k, r0, c0);\n",
+             ""),
+            ("      store_tile(g, s0, s1, sc, v0, v1, codes, M, r0, c0, "
              "vec_out);\n", "")],
     }),
     "prune_nm": ("prune_nm_launch", "ppp" "l" "iiiiiiii" "p", {
@@ -117,6 +117,13 @@ ABLATIONS = {
              "reinterpret_cast<uint4*>(mask)[c] = pack(x);")],
     }),
 }
+# the file whose text a source's ablations edit, where it is not the source
+# itself: K2's body is compress24_tile.cuh (the .cu includes it)
+ABLATED_FILES = {"compress24": "compress24_tile.cuh"}
+
+
+def ablated_file(src: str) -> str:
+    return ABLATED_FILES.get(src, f"{src}.cu")
 
 
 def layout_kcs(kc, sp):
@@ -375,16 +382,22 @@ def _device_ms(fn, ops, calls=10):
 
 
 def _ablated(src, entry, spec, edits, out, nvcc):
-    """``src`` rebuilt with ``edits`` into ``out``: its C entry point."""
+    """``src`` rebuilt with ``edits`` into ``out``: its C entry point. The
+    edited file goes into ``out``'s directory, beside a copy of the source
+    where the edits are in a header it includes (found there first)."""
     from sparsifyme_tpu_torch import _build
 
-    text = (_build.CSRC / f"{src}.cu").read_text()
+    name = ablated_file(src)
+    text = (_build.CSRC / name).read_text()
     for old, new in edits:
         if old not in text:
-            raise RuntimeError(f"{src}.cu no longer holds {old!r}")
+            raise RuntimeError(f"{name} no longer holds {old!r}")
         text = text.replace(old, new)
-    cu = out.with_suffix(".cu")
-    cu.write_text(text)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    (out.parent / name).write_text(text)
+    cu = out.parent / f"{src}.cu"
+    if name != cu.name:
+        cu.write_text((_build.CSRC / cu.name).read_text())
     subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
                     str(out), str(cu)], check=True, capture_output=True)
     fn = getattr(ctypes.CDLL(str(out)), entry)
@@ -404,7 +417,7 @@ def run_ablate() -> int:
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(
             len(jobs)) as pool:
         futs = [pool.submit(_ablated, src, entry, spec, edits,
-                            Path(tmp) / f"lib{src}_{i}.so", nvcc)
+                            Path(tmp) / str(i) / f"lib{src}.so", nvcc)
                 for i, (src, _, entry, spec, edits) in enumerate(jobs)]
         builds = {}
         for (src, name, *_), f in zip(jobs, futs):
@@ -421,9 +434,9 @@ def run_ablate() -> int:
             line = (f"K6 {m}x{n}x{k}x{BATCH} sp={sp} device ms: whole "
                     f"{_device_ms(fn, (b,)):.4f}")
             for name, entry in builds["coo_spmm"].items():
-                _build._entries["coo_spmm"] = entry
+                _build._entries[("coo_spmm", "coo_spmm_launch")] = entry
                 line += f", {name} {_device_ms(fn, (b,)):.4f}"
-            _build._entries.pop("coo_spmm")
+            _build._entries.pop(("coo_spmm", "coo_spmm_launch"))
             print(line, flush=True)
         for m, n, k in COMPRESS_SHAPES:
             w = torch.randn((BATCH * m, k), generator=gen,
@@ -431,10 +444,10 @@ def run_ablate() -> int:
             line = (f"K2 {m}x{n}x{k}x{BATCH} device ms: whole "
                     f"{_device_ms(pk.compress_24_cuda, (w,)):.4f}")
             for name, entry in builds["compress24"].items():
-                _build._entries["compress24"] = entry
+                _build._entries[("compress24", "compress24_launch")] = entry
                 line += (f", {name} "
                          f"{_device_ms(pk.compress_24_cuda, (w,)):.4f}")
-            _build._entries.pop("compress24")
+            _build._entries.pop(("compress24", "compress24_launch"))
             print(line, flush=True)
         for m, n, k in PRUNE_SHAPES:
             w = torch.randn((BATCH * m, k), generator=gen,
@@ -442,13 +455,13 @@ def run_ablate() -> int:
             line = (f"K1 {m}x{n}x{k}x{BATCH} device ms: whole "
                     f"{_device_ms(pk.prune_nm_cuda, (w,)):.4f}")
             for name, entry in builds["prune_nm"].items():
-                _build._entries["prune_nm"] = entry
+                _build._entries[("prune_nm", "prune_nm_launch")] = entry
                 line += f", {name} {_device_ms(pk.prune_nm_cuda, (w,)):.4f}"
-            _build._entries.pop("prune_nm")
+            _build._entries.pop(("prune_nm", "prune_nm_launch"))
             print(line, flush=True)
     finally:
-        for src in ABLATIONS:
-            _build._entries.pop(src, None)
+        for src, (entry, *_) in ABLATIONS.items():
+            _build._entries.pop((src, entry), None)
     return 0
 
 

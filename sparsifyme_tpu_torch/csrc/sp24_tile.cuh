@@ -28,6 +28,15 @@
 //     Python wrapper (spmm24_kernel.pick_tile) so that a launch fills the
 //     card. wgmma.sp, TMA multicast and a persistent scheduler are left to
 //     a later change.
+//     Two compile-time knobs serve the probes of bench/units_probe.py and
+//     leave K3 and K7 as they were at their defaults: STAGES, the depth of
+//     the ring (kSpStages; 1 is a serial load, wait, MMA loop), and MODE:
+//     kFull (the product), kFeed (every k-step's loads and metadata, no
+//     mma.sp: each row of the tile gets the f32 sum over k of the block's
+//     first row of A, and the metadata words are XORed into one word per
+//     block, `side`) or kMma (the first STAGES k-steps staged and their
+//     metadata built once, then KT k-steps of MMAs on slot kt % STAGES
+//     with no loads: C = sum over kt < KT of A_{kt % S} B_{kt % S}).
 //   * simple_tile: any type and shape; BM x kBN tiles, BK-deep k-steps, A^T
 //     expanded in shared memory, the product on the tensor cores (bf16) or
 //     CUDA-core FMAs (f32, never TF32).
@@ -113,8 +122,10 @@ __device__ void simple_tile(const T* v0, const T* v1, const uint8_t* codes,
 // The sparse tensor-core tile.
 
 constexpr int kSpStages = 4;
+// The modes of sparse_tile (bench/units_probe.py: MODES).
+constexpr int kFull = 0, kFeed = 1, kMma = 2;
 
-template <int BM_, int BN_>
+template <int BM_, int BN_, int STAGES = kSpStages>
 struct SpShape {
   static constexpr int KS = 64;          // logical k per stage
   static constexpr int G = KS / 4;       // groups per stage (16)
@@ -126,7 +137,7 @@ struct SpShape {
   static constexpr int B_BYTES = KS * LDB * 2;
   static constexpr int STAGE = A_BYTES + E_BYTES + B_BYTES;
   static constexpr int META_WORDS = 2 * BM_;  // [half][mf][gid][h]
-  static constexpr int PIPE = kSpStages * STAGE + META_WORDS * 4;
+  static constexpr int PIPE = STAGES * STAGE + META_WORDS * 4;
   static constexpr int LDC = BN_ + 4;
   static constexpr int EPI = BM_ * LDC * 4;
   static constexpr int SMEM = PIPE > EPI ? PIPE : EPI;
@@ -138,6 +149,8 @@ struct SpShape {
   static constexpr int TM = WM / 16, TN = WN / 8;   // m16 x n8 fragments
   static_assert(TM >= 1 && TN >= 1, "tile");
   static_assert(A_BYTES % 16 == 0 && E_BYTES % 16 == 0, "alignment");
+  // kMma keeps each staged k-step's metadata in its code bytes' place
+  static_assert(META_WORDS * 4 <= E_BYTES, "metadata");
 };
 
 using smt::cp16;
@@ -196,20 +209,26 @@ __device__ __forceinline__ void transpose4(const uint32_t* x, uint32_t* r) {
 
 // Tile (m0, n0) of out = alpha * A @ B + beta * c on the sparse tensor
 // cores, with c and out as in simple_tile. packed: split-half nibble codes
-// [K4/2, ldp]. smem: SpShape<BM_, BN_>::SMEM bytes of dynamic shared memory.
-template <int BM_, int BN_, typename O>
+// [K4/2, ldp]. smem: SpShape<BM_, BN_, STAGES>::SMEM bytes of dynamic shared
+// memory. MODE and STAGES as in the header; side (kFeed only): the block's
+// word, zeroed before the tile's first barrier, which the block's metadata
+// words are XORed into.
+template <int BM_, int BN_, typename O, int MODE = kFull,
+          int STAGES = kSpStages>
 __device__ __forceinline__ void sparse_tile(
     const bf16* v0, const bf16* v1, const uint8_t* codes, const bf16* B,
     const float* c, O* out, int M, int N, int K, int K4, int ldp, bool packed,
     float alpha, float beta, bool tout, int ldo, int m0, int n0,
-    unsigned char* smem) {
-  using S = SpShape<BM_, BN_>;
+    unsigned char* smem, uint32_t* side = nullptr) {
+  using S = SpShape<BM_, BN_, STAGES>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm = warp % S::WARPS_M, wn = warp / S::WARPS_M;
   const int half_k4 = K4 / 2;
-  uint32_t* meta = reinterpret_cast<uint32_t*>(smem + kSpStages * S::STAGE);
+  uint32_t* meta = reinterpret_cast<uint32_t*>(smem + STAGES * S::STAGE);
   const int KT = (K + S::KS - 1) / S::KS;
+  uint32_t meta_xor = 0;  // kFeed: the XOR of the words this thread built
+  float first_row = 0.f;  // kFeed: this lane's part of the first row's sum
 
   // Stage kt (64 logical k: groups 16kt.., B rows 64kt..) into ring slot.
   auto load = [&](int slot, int kt) {
@@ -281,9 +300,18 @@ __device__ __forceinline__ void sparse_tile(
       transpose4(U, hi);
       uint32_t* w = meta + ((hf * MF + mf) * 8 + gq * 4) * 2 + h;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
         w[2 * i] = nibbles16(lo[i]) | (nibbles16(hi[i]) << 16);
+        if constexpr (MODE == kFeed) meta_xor ^= w[2 * i];
+      }
     }
+  };
+  // kFeed: the staged plane rows of the block's first row (interleaved row
+  // r = 2 * group + plane; rows past the planes are zero), one per lane.
+  auto feed_first_row = [&](int slot) {
+    static_assert(S::KC == 32, "one staged plane row per lane");
+    const bf16* As = reinterpret_cast<const bf16*>(smem + slot * S::STAGE);
+    first_row += __bfloat162float(As[lane * S::LDA]);
   };
 
   float acc[S::TM][S::TN][4];
@@ -294,10 +322,12 @@ __device__ __forceinline__ void sparse_tile(
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
+  if constexpr (MODE != kMma && STAGES > 1) {
 #pragma unroll
-  for (int s = 0; s < kSpStages - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_commit();
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < KT) load(s, s);
+      cp_commit();
+    }
   }
   const int q = lane >> 3;
   // The MMAs of one stage, with its metadata words in meta.
@@ -327,19 +357,79 @@ __device__ __forceinline__ void sparse_tile(
       }
     }
   };
-  for (int kt = 0; kt < KT; ++kt) {
-    const int slot = kt % kSpStages;
-    cp_wait<kSpStages - 2>();
-    __syncthreads();  // stage kt landed; every warp is done with kt - 1
-    build_meta(slot, kt, meta);
-    if (kt + kSpStages - 1 < KT)
-      load((kt + kSpStages - 1) % kSpStages, kt + kSpStages - 1);
-    cp_commit();
-    __syncthreads();  // metadata of stage kt written
-    mma_stage(slot, meta);
+  if constexpr (MODE == kMma) {
+    // Stage the first STAGES k-steps and build their metadata once, each
+    // into its stage's code bytes (read by then); the k-steps then run
+    // MMAs only, the two barriers of a k-step kept.
+    auto meta_of = [&](int slot) {
+      return reinterpret_cast<uint32_t*>(smem + slot * S::STAGE + S::A_BYTES);
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      if (s < KT) load(s, s);
+      cp_commit();
+    }
+    cp_wait<0>();
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      __syncthreads();  // stage s landed; meta is free again
+      if (s < KT) build_meta(s, s, meta);
+      __syncthreads();  // its words written, its code bytes read
+      for (int i = tid; i < S::META_WORDS; i += S::THREADS)
+        meta_of(s)[i] = meta[i];
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      const int slot = kt % STAGES;
+      __syncthreads();
+      __syncthreads();
+      mma_stage(slot, meta_of(slot));
+    }
+  } else if constexpr (STAGES == 1) {
+    // The serial ring: load, wait, MMA. One slot takes a third barrier:
+    // stage kt may overwrite it only once every warp is done with kt - 1.
+    for (int kt = 0; kt < KT; ++kt) {
+      __syncthreads();  // every warp is done with stage kt - 1
+      load(0, kt);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();  // stage kt landed
+      build_meta(0, kt, meta);
+      if constexpr (MODE == kFeed) feed_first_row(0);
+      __syncthreads();  // metadata of stage kt written
+      if constexpr (MODE == kFull) mma_stage(0, meta);
+    }
+  } else {
+    for (int kt = 0; kt < KT; ++kt) {
+      const int slot = kt % STAGES;
+      cp_wait<STAGES - 2>();
+      __syncthreads();  // stage kt landed; every warp is done with kt - 1
+      build_meta(slot, kt, meta);
+      if constexpr (MODE == kFeed) feed_first_row(slot);
+      if (kt + STAGES - 1 < KT)
+        load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+      cp_commit();
+      __syncthreads();  // metadata of stage kt written
+      if constexpr (MODE == kFull) mma_stage(slot, meta);
+    }
   }
   cp_wait<0>();
   __syncthreads();
+  if constexpr (MODE == kFeed) {
+    // the first row's sum to every lane (the same butterfly order in every
+    // warp), then to every element of the tile; the metadata to `side`
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      first_row += __shfl_xor_sync(0xffffffffu, first_row, o);
+      meta_xor ^= __shfl_xor_sync(0xffffffffu, meta_xor, o);
+    }
+    if (lane == 0) atomicXor(side, meta_xor);
+#pragma unroll
+    for (int i = 0; i < S::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = first_row;
+  }
   float* Cs = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int i = 0; i < S::TM; ++i)
@@ -373,17 +463,19 @@ cudaError_t with_tile(int tile, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// Launch kern (a __global__ wrapper of sparse_tile<BM_, BN_, ...>) on a grid
-// of BM_ x BN_ tiles, z = fold, after opting it into its shared memory on the
-// current device. `ready` is the caller's per-device flag array.
-template <int BM_, int BN_, typename Kernel, typename... Args>
+// Launch kern (a __global__ wrapper of sparse_tile<BM_, BN_, ..., STAGES>)
+// on a grid of BM_ x BN_ tiles, z = fold, after opting it into its shared
+// memory on the current device. `ready` is the caller's per-device flag
+// array, one for each kernel.
+template <int BM_, int BN_, int STAGES = kSpStages, typename Kernel,
+          typename... Args>
 cudaError_t launch_sparse(Kernel kern, bool* ready, int M, int N, int fold,
                           cudaStream_t stream, Args... args) {
-  constexpr int smem = SpShape<BM_, BN_>::SMEM;
-  const cudaError_t e = smt::allow_smem(kern, smem, ready);
+  using S = SpShape<BM_, BN_, STAGES>;
+  const cudaError_t e = smt::allow_smem(kern, S::SMEM, ready);
   if (e != cudaSuccess) return e;
   dim3 grid((M + BM_ - 1) / BM_, (N + BN_ - 1) / BN_, fold);
-  kern<<<grid, SpShape<BM_, BN_>::THREADS, smem, stream>>>(args...);
+  kern<<<grid, S::THREADS, S::SMEM, stream>>>(args...);
   return cudaGetLastError();
 }
 

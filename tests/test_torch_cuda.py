@@ -1459,3 +1459,144 @@ def test_bench_shape_on_a_one_entry_table_launches_the_tuned_routes(
     assert d[0] > 0 and d[1] == 0 and d[2] > 0 and d[4] > 0
     assert (d[3] > 0) == expand
     assert out["spmm24_ms"] > 0 and out["ell_ms"] > 0
+
+
+# --- the probes of K3's tile and K2's fused route ----------------------------
+
+UNITS_SHAPES = [(25088, 256, 1024),  # a probe shape of units_probe
+                (208, 72, 200)]      # ragged: M and n past a tile, k % 64
+
+
+def _units_operands(gen, m, n, k):
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    return up.operands(m, n, k, gen)
+
+
+@pytest.mark.parametrize("variant", [
+    ("full", 4), ("full", 2), ("full", 1), ("feed", 4), ("feed", 2),
+    ("mma", 4), ("mma", 2)])
+@pytest.mark.parametrize("m,n,k", UNITS_SHAPES)
+def test_units_variants_match_their_plain_versions(gen, variant, m, n, k):
+    """Every mode of the sparse tile at 4 and 2 stages (and the serial
+    ring) on the tile K3's rule picks: the output within 2e-2, kFeed's
+    side words (the XOR of the metadata) exactly."""
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    ops = _units_operands(gen, m, n, k)
+    assert up.check(*ops, variant)[1] < TOL[torch.bfloat16]
+    if variant[0] == "feed":
+        _, side = up.units_cuda(*ops, mode="feed", stages=variant[1])
+        assert side.any()
+
+
+def _units_shape_for_tile(tile, sms):
+    """A ragged ``(m, n, k)`` at which ``pick_tile`` gives ``tile`` on a card
+    of ``sms`` SMs: half the SMs' worth of row blocks over two column
+    blocks (the 256-row tile at 11 k-steps, which it needs; the others at
+    3, more than two stages and fewer than four), or a grid too small for
+    any larger tile."""
+    half = sms // 2
+    return [(256 * half - 8, 136, 704), (128 * half - 8, 136, 192),
+            (128 * half - 8, 72, 192), (264, 72, 192)][tile]
+
+
+@pytest.mark.parametrize("tile", range(len(spmm24_kernel.SP_TILES)))
+@pytest.mark.parametrize("variant", [("full", 1), ("feed", 2), ("mma", 2),
+                                     ("mma", 4)])
+def test_units_variants_at_every_tile(gen, tile, variant):
+    """The modes on every tile size, each reached through a shape at which
+    K3's rule picks it, with a ragged M and n."""
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    m, n, k = _units_shape_for_tile(tile, spmm24_kernel.sm_count(0))
+    ops = _units_operands(gen, m, n, k)
+    assert up.units_tile(ops[0], ops[3]) == spmm24_kernel.SP_TILES[tile]
+    up.check(*ops, variant)
+
+
+@pytest.mark.parametrize("m,n,k", [(25088, 256, 1024), (401408, 256, 64),
+                                   (6272, 512, 4608)])
+def test_units_full_is_k3(gen, m, n, k):
+    """The full mode at four stages is K3's tile: bitwise K3's output on
+    the same tile; at two stages and on the serial ring the same sums in
+    the same order, so bitwise too."""
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    ops = _units_operands(gen, m, n, k)
+    k3 = spmm24_kernel.spmm24_cuda(*ops, k_logical=k,
+                                   out_dtype=torch.bfloat16)
+    for st in (4, 2, 1):
+        out, _ = up.units_cuda(*ops, mode="full", stages=st)
+        assert torch.equal(out, k3), st
+
+
+@pytest.mark.parametrize("m,n,k", [(25088, 256, 1024), (264, 136, 64)])
+def test_fp1_matches_its_plain_version(gen, m, n, k):
+    """The expand-then-dense tile on the permuted b against the product in
+    the JAX probe's row order, and far from the unpermuted product."""
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    v0, v1, codes, b = _units_operands(gen, m, n, k)
+    up.check(v0, v1, codes, b, "fp1")
+    out = up.fp1_cuda(v0, v1, codes, up.fp1_operand(b))
+    plain = spmm24_kernel.spmm24_plain(v0, v1, codes, b, k_logical=k,
+                                       out_dtype=torch.bfloat16)
+    assert _rel(out, plain) > 0.5
+
+
+@pytest.mark.parametrize("mode", ["io", "rank", "dot1", "rm"])
+@pytest.mark.parametrize("rows,k", [(401408, 256), (1001, 147), (3000, 576),
+                                    (8, 1), (77, 64)])
+def test_fused_probe_modes_match_their_plain_versions(gen, mode, rows, k):
+    """K2's body in each probe mode on K2's tiles (whole rows at k <= 160,
+    64-column tiles above), ragged rows: io and rank within 2e-2 (codes
+    exactly), dot1 and rm exactly."""
+    from sparsifyme_tpu_torch.bench import fused_probe as fp
+
+    x = torch.randn((rows, k), generator=gen, device="cuda")
+    fp.check(x.to(torch.bfloat16), mode)
+
+
+def test_fused_rm_is_k2_transposed(gen):
+    """The row-major mode stores K2's planes, bit for bit."""
+    from sparsifyme_tpu_torch.bench import fused_probe as fp
+
+    x = torch.randn((4104, 576), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    want = prune_kernel.compress_24_cuda(x)
+    got = fp.fused_cuda(x, "rm")
+    assert all(torch.equal(g, w.T) for g, w in zip(got, want))
+
+
+def _sass_functions(lib):
+    """``{mangled name: SASS text}`` of a built library."""
+    from sparsifyme_tpu_torch import _build
+    from sparsifyme_tpu_torch.bench.check_parent import sass_functions
+
+    _build.build_all()
+    return sass_functions(_build.build_dir() / f"lib{lib}.so")
+
+
+def test_units_modes_keep_their_work_in_sass(gen):
+    """Each mode's kernel holds the work it names and no more: kFeed its
+    cp.async loads (LDGSTS) and no HMMA; kMma and kFull their sparse HMMAs
+    and ldmatrix (LDSM); kFull also LDGSTS."""
+    import re
+
+    funcs = _sass_functions("sp24_units")
+    seen = set()
+    for name, body in funcs.items():
+        hit = re.search(r"units_kernelILi(\d+)ELi(\d+)ELi(\d)ELi(\d)E", name)
+        if not hit:
+            continue
+        mode = int(hit.group(3))
+        seen.add((mode, int(hit.group(4))))
+        n_sp = body.count("HMMA.SP")
+        if mode == 1:
+            assert "HMMA" not in body and "LDGSTS" in body, name
+        else:
+            assert n_sp > 0 and "LDSM" in body, name
+        if mode == 0:
+            assert "LDGSTS" in body, name
+    assert len(seen) == 7, seen
