@@ -6,7 +6,7 @@ kernels from ``sparsifyme_tpu_torch/csrc`` with nvcc at first use)
 
 Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
-  2. build the nine Hopper kernel sources (one nvcc each, in parallel);
+  2. build the ten Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
      at full ResNet-50 width (b=32) at the six bench shapes: K1 prune (bit
      for bit, also in f32 and as a view at an odd storage offset at
@@ -136,18 +136,22 @@ Phases, each raising on failure:
      ``enqueue_ms``);
   8b. the probe path: ``units_probe.probe_shape`` at 25088x256x1024 (b=32
      folded) and ``fused_probe.probe_shape`` at 401408x256 (bf16), counters
-     set to 0 just before and read just after: every mode of K3's tile
-     (``feed`` and ``mma`` at 4 and 2 stages, ``full`` at 4, 2 and the
-     serial ring), the expand-then-dense tile (``fp1``) and K2's body in
-     each probe mode (``io``, ``rank``, ``dot1``, ``rm``) held to its plain
-     version (the tile's outputs within 2e-2 and its side words exactly;
-     io and rank within 2e-2, dot1 and rm exactly) and timed, with
-     ``overlap_frac`` printed; fails unless each of the nine probe kernels
-     launched. The kernels line (step 9) gets their nine entries
+     set to 0 just before and read just after: every mode of the 2:4 tile
+     in both designs (``mma_sp``, K3's tile; ``wgmma_sp``, the TMA-fed
+     wgmma.sp tile on A packed once) (``feed`` and ``mma`` at 4 and 2
+     stages, ``full`` at 4, 2 and the serial ring), the expand-then-dense
+     tile (``fp1``, TMA and wgmma) and K2's body in each probe mode
+     (``io``, ``rank``, ``dot1``, ``rm``) held to its plain version (the
+     tile's outputs within 2e-2 and its side words exactly; io and rank
+     within 2e-2, dot1 and rm exactly) and timed, with ``overlap_frac``
+     per design printed; fails unless each of the fourteen probe kernels
+     launched. The kernels line (step 9) gets their fourteen entries
      (``units_feed``, ``units_mma``, ``units_both_s2``, ``units_chain``,
-     ``units_fp1``, ``fused_io``, ``fused_rank``, ``fused_dot1``,
-     ``fused_rm``, the last with ``transposed_ms``: the planes transposed
-     after it), launches on path ``probes``;
+     ``units_wg_feed``, ``units_wg_mma``, ``units_wg_full``,
+     ``units_wg_full_s2``, ``units_wg_chain``, ``units_fp1``,
+     ``fused_io``, ``fused_rank``, ``fused_dot1``, ``fused_rm``, the last
+     with ``transposed_ms``: the planes transposed after it; the units
+     entries with ``graph_ms``), launches on path ``probes``;
   9b. the process path, after the kernels line's measurements (like
      ``profiling_cli`` in step 8, it runs other processes on the card):
      ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
@@ -274,17 +278,27 @@ PROFILE_SESSIONS = 3
 # the JAX fused probe's first
 PROBE_UNITS = (25088, 256, 1024)
 PROBE_FUSED = (401408, 256)
-# the probes' kernels-line entries: (mode, stages) of units_cuda, "fp1",
-# or a mode of fused_cuda; the TPU kernel each replaces
+# the probes' kernels-line entries: (design, mode, stages) of units_cuda,
+# "fp1", or a mode of fused_cuda; the TPU kernel each replaces
 PROBES = {
-    "units_feed": (("feed", 4), "experiments/units.py:158 run_probe "
-                   "(probe_kernel :25, mode expand)"),
-    "units_mma": (("mma", 4), "experiments/units.py:158 run_probe "
+    "units_feed": (("mma_sp", "feed", 4), "experiments/units.py:158 "
+                   "run_probe (probe_kernel :25, mode expand)"),
+    "units_mma": (("mma_sp", "mma", 4), "experiments/units.py:158 run_probe "
                   "(probe_kernel :25, mode dot)"),
-    "units_both_s2": (("full", 2), "experiments/units.py:158 run_probe "
-                      "(probe_kernel :25, modes both and parity)"),
-    "units_chain": (("full", 1), "experiments/units.py:158 run_probe "
-                    "(probe_kernel :25, mode chain)"),
+    "units_both_s2": (("mma_sp", "full", 2), "experiments/units.py:158 "
+                      "run_probe (probe_kernel :25, modes both and parity)"),
+    "units_chain": (("mma_sp", "full", 1), "experiments/units.py:158 "
+                    "run_probe (probe_kernel :25, mode chain)"),
+    "units_wg_feed": (("wgmma_sp", "feed", 4), "experiments/units.py:158 "
+                      "run_probe (probe_kernel :25, mode expand)"),
+    "units_wg_mma": (("wgmma_sp", "mma", 4), "experiments/units.py:158 "
+                     "run_probe (probe_kernel :25, mode dot)"),
+    "units_wg_full": (("wgmma_sp", "full", 4), "experiments/units.py:158 "
+                      "run_probe (probe_kernel :25, mode both)"),
+    "units_wg_full_s2": (("wgmma_sp", "full", 2), "experiments/units.py:158 "
+                         "run_probe (probe_kernel :25, mode parity)"),
+    "units_wg_chain": (("wgmma_sp", "full", 1), "experiments/units.py:158 "
+                       "run_probe (probe_kernel :25, mode chain)"),
     "units_fp1": ("fp1", "experiments/units.py:79 run_probe_fp1 "
                   "(kernel :93)"),
     "fused_io": ("io", "experiments/tpu_fused_probe.py:130 run_variant "
@@ -1945,19 +1959,22 @@ def phase_kernel_line(path_counts) -> dict:
 
 
 def probe_entries(path_counts, gen) -> list:
-    """The nine probe kernels' kernels-line entries, at the probe path's
-    shapes: each held to its plain version on the same card tensors by the
-    probe's own ``check``, then timed beside it."""
+    """The fourteen probe kernels' kernels-line entries, at the probe
+    path's shapes: each held to its plain version on the same card tensors
+    by the probe's own ``check``, then timed beside it; the units probes
+    also carry ``graph_ms``, their device time with the calls replayed in a
+    CUDA graph (``utils.timing.time_graph``: ``ms`` counts the host's time
+    to queue a call where that is longer)."""
     from sparsifyme_tpu_torch.bench import fused_probe as fp
     from sparsifyme_tpu_torch.bench import units_probe as up
     from sparsifyme_tpu_torch.bench.roofline import H100
     from sparsifyme_tpu_torch.ops.kernels.spmm24_kernel import expand_planes
-    from sparsifyme_tpu_torch.utils.timing import time_kernel
+    from sparsifyme_tpu_torch.utils.timing import time_graph, time_kernel
 
     m, n, k = PROBE_UNITS
     ops = up.operands(m, n, k, gen)
     v0, v1, codes, b = ops
-    bm, bn = up.units_tile(v0, b)
+    packed = up.pack_wgmma_sp(v0, v1, codes)
     bq = up.fp1_operand(b)
     dense_a = expand_planes(v0, v1, codes).T.contiguous()
     bounds = up.bounds_ms(m, n, k)
@@ -1968,8 +1985,10 @@ def probe_entries(path_counts, gen) -> list:
     for name, (what, replaces) in PROBES.items():
         extra = {}
         lib = None
+        source = "sp24_units.cu"
         if name.startswith("fused_"):
             shape = f"{rows}x{kp} bf16"
+            source = "compress_units.cu"
             kern = lambda y, md=what: fp.fused_cuda(y, md)  # noqa: E731
             plain = lambda y, md=what: fp.fused_plain(y, md)  # noqa: E731
             kops = pops = (x,)
@@ -1979,33 +1998,42 @@ def probe_entries(path_counts, gen) -> list:
                 extra["transposed_ms"] = time_kernel(
                     lambda y: [p.t().contiguous() for p in fp.fused_cuda(
                         y, "rm")], (x,), iters=10, reps=5).ms
-        else:
-            shape = f"{m}x{n}x{k} tile {bm}x{bn} bf16"
+        elif what == "fp1":
+            shape = f"{m}x{n}x{k} tile 128x{128 if n % 128 == 0 else 64} bf16"
             abs_err, rel_err = up.check(*ops, what)
-            if what == "fp1":
-                kern, plain = up.fp1_cuda, up.fp1_plain
-                kops, pops = (v0, v1, codes, bq), ops
-                lib = (torch.matmul, (dense_a, bq))
-                bound = bounds["full"]
+            kern, plain = up.fp1_cuda, up.fp1_plain
+            kops, pops = (v0, v1, codes, bq), ops
+            lib = (torch.matmul, (dense_a, bq))
+            bound = bounds["fp1"]
+        else:
+            design, mode, st = what
+            bm, bn = up.units_tile(v0, b, design)
+            shape = f"{m}x{n}x{k} tile {bm}x{bn} bf16"
+            abs_err, rel_err = up.check(*ops, (mode, st), design, packed)
+            kw = dict(mode=mode, stages=st, design=design)
+            if design == "wgmma_sp":
+                source = "sp24_wg_units.cu"
+                kern = lambda *y, kw=kw: up.units_cuda(  # noqa: E731
+                    *y[:4], packed=y[4], **kw)
+                kops = ops + (packed,)
             else:
-                mode, st = what
-                kern = lambda *y, md=mode, s=st: up.units_cuda(  # noqa: E731
-                    *y, mode=md, stages=s)
-                plain = lambda *y, md=mode, s=st: up.units_plain(  # noqa
-                    *y, mode=md, stages=s, bm=bm, bn=bn)
-                kops = pops = ops
-                bound = bounds[mode]
-                if mode == "full":
-                    lib = (torch.matmul, (dense_a, b))
+                kern = lambda *y, kw=kw: up.units_cuda(*y, **kw)  # noqa
+                kops = ops
+            def plain(*y, md=mode, s=st, bm=bm, bn=bn):
+                return up.units_plain(*y, mode=md, stages=s, bm=bm, bn=bn)
+            pops = ops
+            bound = bounds[mode]
+            if mode == "full":
+                lib = (torch.matmul, (dense_a, b))
+        if name.startswith("units_"):
+            extra["graph_ms"] = time_graph(kern, kops, iters=20, reps=5).ms
         print(f"  {name:17s} {shape + ' (kernels line)':44s} "
               f"rel_err={rel_err:.3e}", flush=True)
         by_path = {p: path_counts[p][name] for p in PATHS
                    if p in path_counts}
         out.append({
             "name": name, "route": "cuda",
-            "source": "sparsifyme_tpu_torch/csrc/"
-                      + ("compress_units.cu" if name.startswith("fused_")
-                         else "sp24_units.cu"),
+            "source": "sparsifyme_tpu_torch/csrc/" + source,
             "replaces": replaces, "shape": shape,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": abs_err, "max_err": rel_err,

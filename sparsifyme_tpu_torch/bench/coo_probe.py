@@ -381,13 +381,14 @@ def _device_ms(fn, ops, calls=10):
                if e.device_type == DeviceType.CUDA) / 1e3 / calls
 
 
-def _ablated(src, entry, spec, edits, out, nvcc):
-    """``src`` rebuilt with ``edits`` into ``out``: its C entry point. The
-    edited file goes into ``out``'s directory, beside a copy of the source
-    where the edits are in a header it includes (found there first)."""
+def _ablated(src, entry, spec, edits, out, nvcc, name=None):
+    """``src`` rebuilt with ``edits`` to file ``name`` (by default
+    :func:`ablated_file`'s) into ``out``: its C entry point. The edited file
+    goes into ``out``'s directory, beside a copy of the source where the
+    edits are in a header it includes (found there first)."""
     from sparsifyme_tpu_torch import _build
 
-    name = ablated_file(src)
+    name = name or ablated_file(src)
     text = (_build.CSRC / name).read_text()
     for old, new in edits:
         if old not in text:

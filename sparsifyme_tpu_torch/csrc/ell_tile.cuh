@@ -608,20 +608,23 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A 2-D bf16 tensor map: `inner` x `outer` elements, rows `inner` apart, boxes
-// of box_inner x box_outer, zero fill outside.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t inner,
-                            uint64_t outer, uint32_t box_inner,
-                            uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+// A 2-D tensor map of bf16 (or `type`, `bytes` bytes an element): `inner` x
+// `outer` elements, rows `inner` apart, boxes of box_inner x box_outer, zero
+// fill outside.
+inline cudaError_t make_map(
+    CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+    uint32_t box_inner, uint32_t box_outer, CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    int bytes = 2) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint64_t strides[1] = {inner * bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
 // Probes of K3's tile: the sparse tile of sp24_tile.cuh with its work taken
 // apart (MODE), at a chosen ring depth (STAGES), and the expand-then-dense
 // tile beside it. bench/units_probe.py times them; the port does not call
-// them.
+// them. The wgmma.sp design of the same probe is sp24_wg_units.cu.
 //
 // Replaces experiments/units.py: run_probe (body probe_kernel, modes dot,
 // expand, both, parity and chain), which asks whether a TPU overlaps the
@@ -19,16 +19,18 @@
 //     load). The modes keep the ring's two barriers a k-step, so they differ
 //     only in the work they name. What bounds each: kFeed the bytes it
 //     streams, kMma the 2:4 tensor-core rate, kFull the larger.
-//   * fp1_launch: simple_tile (A expanded into a dense A^T slab in shared
-//     memory, then the dense tensor-core product): run_probe_fp1's design on
-//     this card. The TPU kernel's slab is quarter-major (row q * k4 + g holds
-//     A[:, 4g + q]), so it multiplies B's rows in that order; the wrapper
-//     permutes B once (B'[4g + q] = B[q * k4 + g]) and this tile computes
-//     A @ B', what the TPU kernel computes. Bound by the 2:4 product's bytes,
-//     it does the dense work on the tensor cores.
-//
-// bf16 in and out, M and N multiples of 8, 16-byte aligned operands: the
-// shapes of K3's sparse tile.
+//     bf16 in and out, M and N multiples of 8, 16-byte aligned operands: the
+//     shapes of K3's sparse tile.
+//   * fp1_launch: the expand-then-dense tile of sp24_expand_tile.cuh (TMA
+//     loads of the planes and B, A expanded into a swizzled dense A^T slot
+//     in shared memory, wgmma on it): run_probe_fp1's design on this card.
+//     The TPU kernel's slab is quarter-major (row q * k4 + g holds A[:, 4g +
+//     q]), so it multiplies B's rows in that order; the wrapper permutes B
+//     once (B'[4g + q] = B[q * k4 + g]) and this tile computes A @ B', what
+//     the TPU kernel computes. Bound by the 2:4 product's bytes or the dense
+//     operations, whichever is larger. M a multiple of 128, N of 64,
+//     16-byte aligned operands.
+#include "sp24_expand_tile.cuh"
 #include "sp24_tile.cuh"
 
 namespace {
@@ -85,16 +87,6 @@ cudaError_t launch_variant(int mode, int stages, const void* v0,
   return cudaErrorInvalidValue;
 }
 
-__global__ void __launch_bounds__(smt::kThreads)
-fp1_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
-           const uint8_t* __restrict__ codes, const bf16* __restrict__ B,
-           bf16* __restrict__ out, int M, int N, int K, int K4) {
-  sp24::simple_tile<bf16, bf16, false>(v0, v1, codes, B, nullptr, out, M, N,
-                                       K, K4, M, 1.f, 0.f, false, N,
-                                       blockIdx.x * sp24::BM,
-                                       blockIdx.y * smt::kBN);
-}
-
 bool aligned(int M, int N, const void* v0, const void* v1, const void* codes,
              const void* b, const void* out) {
   return M % 8 == 0 && N % 8 == 0 && smt::aligned16(v0) &&
@@ -129,15 +121,8 @@ extern "C" int units24_launch(const void* v0, const void* v1,
 extern "C" int fp1_launch(const void* v0, const void* v1, const void* codes,
                           const void* b, void* out, int M, int N, int K,
                           int K4, int device, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || 4 * K4 < K ||
-      !aligned(M, N, v0, v1, codes, b, out))
-    return (int)cudaErrorInvalidValue;
   const smt::OnDevice on(device);
   if (on.error != cudaSuccess) return (int)on.error;
-  dim3 grid((M + sp24::BM - 1) / sp24::BM, (N + smt::kBN - 1) / smt::kBN);
-  fp1_kernel<<<grid, smt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(v0), static_cast<const bf16*>(v1),
-      static_cast<const uint8_t*>(codes), static_cast<const bf16*>(b),
-      static_cast<bf16*>(out), M, N, K, K4);
-  return (int)cudaGetLastError();
+  return (int)sp24x::run(v0, v1, codes, b, out, M, N, K, K4,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -151,3 +151,43 @@ def time_kernel_pair(
         ratio=ratio,
         ratio_spread=spread,
     )
+
+
+def time_graph(
+    fn: Callable[..., Any],
+    operands: tuple,
+    *,
+    iters: int = 16,
+    reps: int = 3,
+) -> Timing:
+    """Median per-call device time of ``fn(*operands)`` on the card: after
+    a warm-up, ``iters`` calls cycling the replicas are captured once in a
+    CUDA graph and the graph is replayed ``reps`` times between CUDA
+    events, so the host's time to queue a call (which ``time_kernel``
+    counts where it exceeds the kernel's) does not count. ``fn`` must be
+    capturable: kernel launches on the current stream, no synchronisation.
+    A wrapper's launch counter counts the captured calls once, not the
+    replays."""
+    sets = _replicate(operands)
+    if _device(sets).type != "cuda":
+        raise ValueError("time_graph needs CUDA operands")
+    _warm(fn, sets)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    samples = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        samples.append(start.elapsed_time(stop) / iters)
+    samples.sort()
+    del graph
+    return Timing(ms=samples[len(samples) // 2], ms_min=samples[0],
+                  iters=iters, reps=reps)

@@ -1531,10 +1531,11 @@ def test_units_full_is_k3(gen, m, n, k):
         assert torch.equal(out, k3), st
 
 
-@pytest.mark.parametrize("m,n,k", [(25088, 256, 1024), (264, 136, 64)])
+@pytest.mark.parametrize("m,n,k", [(25088, 256, 1024), (6272, 512, 4608)])
 def test_fp1_matches_its_plain_version(gen, m, n, k):
     """The expand-then-dense tile on the permuted b against the product in
-    the JAX probe's row order, and far from the unpermuted product."""
+    the JAX probe's row order, and far from the unpermuted product, at U
+    and D."""
     from sparsifyme_tpu_torch.bench import units_probe as up
 
     v0, v1, codes, b = _units_operands(gen, m, n, k)
@@ -1543,6 +1544,68 @@ def test_fp1_matches_its_plain_version(gen, m, n, k):
     plain = spmm24_kernel.spmm24_plain(v0, v1, codes, b, k_logical=k,
                                        out_dtype=torch.bfloat16)
     assert _rel(out, plain) > 0.5
+
+
+WG_SHAPES = [(25088, 256, 1024),  # U, one split
+             (1024, 128, 2048)]   # 8 tiles: split k 8 ways
+
+
+@pytest.mark.parametrize("variant", [
+    ("full", 4), ("full", 2), ("full", 1), ("feed", 4), ("feed", 2),
+    ("mma", 4), ("mma", 2)])
+@pytest.mark.parametrize("m,n,k", WG_SHAPES)
+def test_wgmma_sp_variants_match_their_plain_versions(gen, variant, m, n,
+                                                      k):
+    """Every mode and depth of the wgmma.sp tile on A packed once: the
+    output within 2e-2, kFeed's side words exactly (and not all zero);
+    the second shape runs split-k and its second pass."""
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    ops = _units_operands(gen, m, n, k)
+    packed = up.pack_wgmma_sp(*ops[:3])
+    assert (up.wg_plan(m, n, k, spmm24_kernel.sm_count(0)).splits > 1) == \
+        (m == 1024)
+    assert up.check(*ops, variant, "wgmma_sp", packed)[1] < \
+        TOL[torch.bfloat16]
+    if variant[0] == "feed":
+        _, side = up.units_cuda(*ops, mode="feed", stages=variant[1],
+                                design="wgmma_sp", packed=packed)
+        assert side.any()
+
+
+def test_wgmma_sp_full_at_d_is_the_product(gen):
+    """At D (72 k-steps a unit) the wgmma.sp tile and K3 compute the same
+    product within bf16 rounding."""
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    ops = _units_operands(gen, 6272, 512, 4608)
+    got, _ = up.units_cuda(*ops, mode="full", stages=4, design="wgmma_sp")
+    k3 = spmm24_kernel.spmm24_cuda(*ops, k_logical=4608,
+                                   out_dtype=torch.bfloat16)
+    assert _rel(got, k3) < TOL[torch.bfloat16]
+
+
+def test_hopper_probe_wrappers_raise_on_shapes_they_cannot_take(gen):
+    """fp1 and the wgmma.sp tile need M % 128 == 0 and n % 64 == 0, and
+    launch nothing else; CPU tensors are refused."""
+    from sparsifyme_tpu_torch.bench import units_probe as up
+
+    for m, n in ((264, 128), (256, 72)):
+        v0, v1, codes, b = _units_operands(gen, m, n, 128)
+        before = (up.fp1_cuda.launches, sum(up.units_cuda.launches.values()))
+        with pytest.raises(ValueError):
+            up.fp1_cuda(v0, v1, codes, up.fp1_operand(b))
+        with pytest.raises(ValueError):
+            up.units_cuda(v0, v1, codes, b, mode="full", stages=4,
+                          design="wgmma_sp")
+        assert before == (up.fp1_cuda.launches,
+                          sum(up.units_cuda.launches.values()))
+    v0, v1, codes, b = (t.cpu() for t in _units_operands(gen, 256, 128, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        up.units_cuda(v0, v1, codes, b, mode="full", stages=4,
+                      design="wgmma_sp")
+    with pytest.raises(ValueError, match="CUDA"):
+        up.fp1_cuda(v0, v1, codes, up.fp1_operand(b))
 
 
 @pytest.mark.parametrize("mode", ["io", "rank", "dot1", "rm"])
@@ -1600,3 +1663,32 @@ def test_units_modes_keep_their_work_in_sass(gen):
         if mode == 0:
             assert "LDGSTS" in body, name
     assert len(seen) == 7, seen
+
+
+def test_hopper_probes_keep_their_work_in_sass(gen):
+    """The wgmma.sp tile: kFeed its TMA loads (UTMALDG) and no HGMMA, kMma
+    and kFull their sparse HGMMAs, kFull also TMA loads; every (mode,
+    stages) pair built at both widths. The fp1 tile: TMA loads and dense
+    HGMMAs, no warp-level HMMA (simple_tile's wmma is off its path)."""
+    import re
+
+    seen = set()
+    for name, body in _sass_functions("sp24_wg_units").items():
+        hit = re.search(r"wgsp_kernelILi(\d)ELi(\d)ELi(\d+)E", name)
+        if not hit:
+            continue
+        mode = int(hit.group(1))
+        seen.add((mode, int(hit.group(2)), int(hit.group(3))))
+        if mode == 1:
+            assert "HGMMA" not in body and "UTMALDG" in body, name
+        else:
+            assert "HGMMA" in body and ".SP" in body, name
+        if mode == 0:
+            assert "UTMALDG" in body, name
+    assert len(seen) == 14, seen
+    fp1 = [body for name, body in _sass_functions("sp24_units").items()
+           if "expand_tma_kernel" in name]
+    assert len(fp1) == 2
+    for body in fp1:
+        assert "HGMMA" in body and "UTMALDG" in body
+        assert "HMMA" not in body.replace("HGMMA", "")
