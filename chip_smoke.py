@@ -23,7 +23,15 @@ Phases, each raising on failure:
      and exactly on duplicate entries, with the COO planes and K6's layout
      built on the card equal to those built on the CPU; plus
      the 2:4, ELL, plan and COO pipelines on the card against the same
-     pipelines on the CPU at a small size; K7 (the ring step) on windows
+     pipelines on the CPU at a small size; K3's wgmma_sp route at the six
+     bench shapes (bf16, so at k 64, 147, 576, 1024, 1152 and 4608): its
+     pack kernel bit for bit against the plain pack, the route within 2e-2
+     of its plain version (the packed words decoded) and of K3's plain
+     version on the planes, and every call it does not take (transpose_out,
+     alpha, beta/c, f32 out, packed codes, a tile, n % 64, no operand,
+     fold=2, a stale operand; f32, fold=2 and ragged planes for the pack)
+     raising when the route is forced, with no launch; K7 (the ring step)
+     on windows
      of the ResNet-scale shard's planes, bf16 and f32, every first/last
      flag, whole shards and m-tiles, and at a ragged row count, within
      2e-2 / 1e-4 of its plain version;
@@ -40,22 +48,29 @@ Phases, each raising on failure:
      each shape's winners; prints the sweep's JSON line and fails unless
      every route that the table's winners and the tuned path's
      alternatives name launched (K1, K2, the fused route, K3 and K4
-     always; K3's fold route where a 2:4 winner folds; K5 where an ELL
-     winner is the expand kernel, or a shape without an ELL entry has
-     k < 512), and the speedup geomeans and ``fused_frac_sol_geomean``
-     are finite and positive;
+     always; K3's wgmma_sp route and its pack wherever a shape can take
+     the route, which the default races; K3's fold route where a 2:4
+     winner folds; K5 where an ELL winner is the expand kernel, or a shape
+     without an ELL entry has k < 512), that the wgmma_sp route launched
+     within the run of every shape whose 2:4 winner it is, and that the
+     speedup geomeans and ``fused_frac_sol_geomean`` are finite and
+     positive; prints each shape's 2:4 winning design and ``pack_ms``;
   4b. the tune path: ``tune.tune_shape`` (gemm, spmm24, fused, ell) at
      full width, b=32, bf16, at 3136x128x1152, 12544x256x64 and
      196x512x4608, into a temporary table, counters set to 0 just before
      and read just after: every candidate's ms and each winner printed,
-     the count of readings discarded under their bound, every sweep route
-     and K3's fold route launched; then each family's winner held to its
-     plain version at that shape (the fused planes exactly, the SpMMs
-     within 2e-2);
+     the count of readings discarded under their bound, every sweep route,
+     K3's fold route and its wgmma_sp route (within each shape's run)
+     launched; then each family's winner held to its plain version at that
+     shape (the fused planes exactly, the SpMMs within 2e-2);
   5. the plan path: ``spmma(a, b, timed=True)`` on each of the 17 unique
      ResNet-50 shapes (b=32, bf16), counters set to 0 just before and read
      just after; every phase time > 0, ``plan(a, b)`` exactly equal to
-     ``plan.matmul(plan.compress(plan.prune(a)), b)``, and the fold=2 route
+     ``plan.matmul(plan.compress(plan.prune(a)), b)``, a bf16-out plan
+     (which packs K3's wgmma_sp operand in its compress step and takes
+     the route where its table entry lets it: the route must launch
+     there) within 2e-2 of ``spmm_24`` on the mma_sp tile, and the fold=2
+     route
      ``spmm_24(prune_compress_24(a, fold=2), b)`` within 2e-2 of the fold=1
      route where ``k4 <= 256``;
   6. the COO path: ``config2_coo_resnet101()`` (BASELINE config 2) over all
@@ -112,7 +127,13 @@ Phases, each raising on failure:
      same function (where one exists) and its bound, with its launches on
      the five paths and its error against the plain version there (K1,
      K2 and its fused route have a second entry at their worst main-path
-     shape, 12544x64x147; K6 has three, 3136x128x1152 at 0.9 and 0.995
+     shape, 12544x64x147; K3's wgmma_sp route, ``spmm_24_wg``, has
+     three, at U, E and D (784x256x1024, 12544x256x64, 196x512x4608), and
+     its pack, ``pack_wg``, one at U, each with ``graph_ms`` (device time,
+     the calls replayed in a CUDA graph) and ``enqueue_ms``, the route's
+     also with ``mma_sp_graph_ms`` and ``library_graph_ms`` (K3's mma_sp
+     tile and ``torch.matmul`` on the same operands, replayed alike); K6
+     has three, 3136x128x1152 at 0.9 and 0.995
      sparsity and 196x512x4608 at 0.5, each on a layout built outside the
      timed calls, whose build time is printed on a line of its own, and
      each with ``kernel_ms`` and ``enqueue_ms``; K4
@@ -211,6 +232,9 @@ NAMED_COMPRESS = (12544, 64, 147)  # K1 and K2: their worst main-path shape
 COO_POINTS = [((3136, 128, 1152), 0.9), ((196, 512, 4608), 0.5),
               ((3136, 128, 1152), 0.995)]
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# K3's wgmma_sp route in the kernels line: U, E and D (b = 32), where the
+# mma_sp tile loses most to the dense product
+WG_SHAPES = [(784, 256, 1024), (12544, 256, 64), (196, 512, 4608)]
 RING = (784, 256, 1024)  # m, n, k: ResNet-50 layer of the ring's shard
 RING_P = 4  # ranks: 25088 folded rows, 6272 x 1024 per rank, 7 m-tiles
 REPLACES = {
@@ -224,6 +248,11 @@ REPLACES = {
                "spmm24_pallas (+ :513 spmm24_pallas_fp)",
     "spmm_24_fold": "sparsifyme_tpu/ops/kernels/spmm24_kernel.py:925 "
                     "spmm24_fold_pallas",
+    "spmm_24_wg": "sparsifyme_tpu/ops/kernels/spmm24_kernel.py:703 "
+                  "spmm24_pallas (K3's wgmma_sp route)",
+    "pack_wg": "sparsifyme_tpu/ops/kernels/spmm24_kernel.py:703 "
+               "spmm24_pallas (the wgmma_sp route's operand, packed once "
+               "after compress)",
     "spmm_ell": "sparsifyme_tpu/ops/kernels/ell_kernel.py:206 "
                 "ell_spmm_pallas",
     "spmm_ell_expand": "sparsifyme_tpu/ops/kernels/ell_kernel.py:448 "
@@ -241,6 +270,8 @@ SOURCES = {
     "prune_compress_24": "sparsifyme_tpu_torch/csrc/compress24.cu",
     "spmm_24": "sparsifyme_tpu_torch/csrc/spmm24.cu",
     "spmm_24_fold": "sparsifyme_tpu_torch/csrc/spmm24.cu",
+    "spmm_24_wg": "sparsifyme_tpu_torch/csrc/spmm24.cu",
+    "pack_wg": "sparsifyme_tpu_torch/csrc/spmm24.cu",
     "spmm_ell": "sparsifyme_tpu_torch/csrc/ell_spmm.cu",
     "spmm_ell_expand": "sparsifyme_tpu_torch/csrc/ell_expand.cu",
     "spmm_coo": "sparsifyme_tpu_torch/csrc/coo_spmm.cu",
@@ -264,7 +295,8 @@ PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled")
 PROCESS_TIMEOUT_S = 420  # one launcher run, all ranks
 # N, E and D: the tune phase's shapes (b=32)
 TUNE_SHAPES = [(3136, 128, 1152), (12544, 256, 64), (196, 512, 4608)]
-TUNE_ROUTES = SWEEP_ROUTES + ("spmm_24_fold",)
+TUNE_ROUTES = SWEEP_ROUTES + ("spmm_24_fold", "spmm_24_wg", "pack_wg")
+WG_ROUTES = ("spmm_24_wg", "pack_wg")  # K3's wgmma_sp route and its pack
 TUNE_FAMILIES = ("gemm", "spmm24", "fused", "ell")
 COMPARE_SHAPES = [(12544, 64, 147), (3136, 128, 1152), (196, 512, 4608)]
 MODEL_STEPS = 10
@@ -416,6 +448,8 @@ def phase_kernels() -> None:
                     close("spmm_24", spmm24_kernel.spmm24_cuda(*args, **kw),
                           spmm24_kernel.spmm24_plain(*args, **kw), dtype,
                           f"{tag} {case_tag(case)}")
+                if dtype == torch.bfloat16:
+                    check_wg_route(v0, v1, codes, b, BATCH * m, k, tag)
                 del pw, pm, planes, fused, v0, v1, codes
             if (m, n, k) in EXPAND_SHAPES:
                 e, kp, bkb, ff = harness_ell(a, k)
@@ -466,6 +500,7 @@ def phase_kernels() -> None:
                 del s
             del a, b
             torch.cuda.empty_cache()
+    wg_refusals(gen)
     phase_kernels_prune(gen)
     phase_kernels_coo(gen)
     phase_kernels_ring(gen)
@@ -473,6 +508,70 @@ def phase_kernels() -> None:
     for name in REPLACES:
         if counts[name] <= counts0[name]:
             raise AssertionError(f"{name}: launch counter did not move")
+
+
+def check_wg_route(v0, v1, codes, b, rows, k, tag) -> None:
+    """K3's wgmma_sp route on K2's planes: the pack kernel bit for bit
+    against the plain pack, the route within 2e-2 of its plain version (the
+    packed words decoded) and of K3's (the planes)."""
+    from sparsifyme_tpu_torch.ops.kernels import spmm24_kernel as k3
+
+    packed = k3.pack_wgmma_sp_cuda(v0, v1, codes)
+    exact("pack_wg", (packed,), (k3.pack_wgmma_sp(v0, v1, codes),), tag)
+    kw = dict(m=rows, k_logical=k, out_dtype=torch.bfloat16)
+    got = k3.spmm24_wg_cuda(packed, b, **kw)
+    close("spmm_24_wg", got, k3.spmm24_wg_plain(packed, b, **kw),
+          torch.bfloat16, f"{tag} (packed words decoded)")
+    close("spmm_24_wg", got, k3.spmm24_plain(
+        v0, v1, codes, b, k_logical=k, out_dtype=torch.bfloat16),
+        torch.bfloat16, f"{tag} (planes)")
+
+
+def wg_refusals(gen) -> None:
+    """Every call K3's wgmma_sp route does not take raises on the card
+    when the route is forced, and launches nothing; a stale operand
+    raises."""
+    import dataclasses
+
+    from sparsifyme_tpu_torch import pack_wg, prune_compress_24, spmm_24
+    from sparsifyme_tpu_torch.ops.kernels import spmm24_kernel as k3
+
+    a = torch.randn((2, 128, 256), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b = torch.randn((256, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    s = prune_compress_24(a)
+    sw = pack_wg(s)
+    before = k3.spmm24_wg_cuda.launches
+    cases = {"transpose_out": dict(transpose_out=True),
+             "alpha": dict(alpha=2.0),
+             "c": dict(beta=1.0, c=torch.ones((2, 128, 64), device="cuda")),
+             "f32 out": dict(out_dtype=torch.float32),
+             "packed codes": dict(packed_codes=True), "tile": dict(tile=1),
+             "n % 64": dict(b=b[:, :48].contiguous())}
+    calls = {f"{name}": (sw, kw) for name, kw in cases.items()}
+    calls["no operand"] = (s, {})
+    calls["fold=2"] = (prune_compress_24(a, fold=2), {})
+    calls["stale (replaced plane)"] = (dataclasses.replace(
+        sw, values0=sw.values0.clone()), {})
+    for name, (ss, kw) in calls.items():
+        kw = dict(kw)
+        try:
+            spmm_24(ss, kw.pop("b", b), design="wgmma_sp", **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"spmm_24_wg: {name} did not raise")
+    for bad in (prune_compress_24(a, fold=2), prune_compress_24(a.float()),
+                prune_compress_24(a[:, :100])):
+        try:
+            pack_wg(bad)
+        except ValueError:
+            continue
+        raise AssertionError("pack_wg took planes it cannot pack")
+    if k3.spmm24_wg_cuda.launches != before:
+        raise AssertionError("spmm_24_wg launched on a refused call")
+    print(f"  {'spmm_24_wg':17s} {'refusals (card)':44s} "
+          f"{len(calls) + 3} raised", flush=True)
 
 
 def phase_kernels_prune(gen) -> None:
@@ -851,6 +950,8 @@ def _wrappers():
         "prune_compress_24": prune_kernel.prune_compress_24_cuda,
         "spmm_24": spmm24_kernel.spmm24_cuda,
         "spmm_24_fold": spmm24_kernel.spmm24_fold_cuda,
+        "spmm_24_wg": spmm24_kernel.spmm24_wg_cuda,
+        "pack_wg": spmm24_kernel.pack_wgmma_sp_cuda,
         "spmm_ell": ell_kernel.ell_spmm_cuda,
         "spmm_ell_expand": ell_kernel.ell_expand_spmm_cuda,
         "spmm_coo": coo_kernel.spmm_coo_cuda,
@@ -904,7 +1005,8 @@ def _winners(entry) -> str:
         return f"{family} " + " ".join(f"{k}={e.get(k)}" for k in keys)
     return " | ".join((
         knobs("gemm", ("fold",)), knobs("fused", ("fold",)),
-        knobs("spmm24", ("tile", "transpose_out", "packed", "fold")),
+        knobs("spmm24", ("design", "tile", "transpose_out", "packed",
+                         "fold")),
         knobs("ell", ("formulation", "transpose_out", "block_k",
                       "fold_first", "block_n", "splits"))))
 
@@ -912,17 +1014,26 @@ def _winners(entry) -> str:
 def bench_routes(shapes):
     """The routes the sweep must launch over ``shapes`` under the
     committed tuning table: K1, K2 and the fused route time every shape;
-    K3 runs every 2:4 race (the untuned layouts, or the tuned winner and
-    the default), K4 every ELL race (the untuned layouts, or the gather
-    alternative); K3's fold route where a 2:4 winner folds; K5 where an
-    ELL winner is the expand kernel, or an untuned ELL shape has k < 512."""
+    K4 every ELL race (the untuned layouts, or the gather alternative);
+    K3's wgmma_sp route and its pack where a shape can take the route
+    (the untuned race and the tuned path's default take it there); K3's
+    mma_sp tile where a race holds it (an untuned shape, a shape the
+    wgmma_sp route cannot take, or a 2:4 winner that is not wgmma_sp);
+    K3's fold route where a 2:4 winner folds; K5 where an ELL winner is
+    the expand kernel, or an untuned ELL shape has k < 512."""
     from sparsifyme_tpu_torch.bench import tuning
+    from sparsifyme_tpu_torch.ops.kernels.spmm24_kernel import wg_shape
 
-    routes = {"prune_nm", "compress_24", "prune_compress_24", "spmm_24",
-              "spmm_ell"}
+    routes = {"prune_nm", "compress_24", "prune_compress_24", "spmm_ell"}
     for m, n, k, b in shapes:
         entry = tuning.lookup(m, n, k, b) or {}
-        if int((entry.get("spmm24") or {}).get("fold", 1) or 1) > 1:
+        e24 = entry.get("spmm24") or {}
+        wg = wg_shape(b * m, n, torch.bfloat16)
+        if wg:
+            routes.update(WG_ROUTES)
+        if not (wg and e24.get("design") == "wgmma_sp"):
+            routes.add("spmm_24")
+        if int(e24.get("fold", 1) or 1) > 1:
             routes.add("spmm_24_fold")
         ell = entry.get("ell")
         if (ell and ell.get("formulation") == "expand") or \
@@ -949,10 +1060,16 @@ def phase_main_path():
         raise AssertionError(f"tuned {tuned}/{len(shapes)}: the committed "
                              "table must cover every family of every shape")
     routes = bench_routes(shapes)
+    wg_by_shape = {}  # shape: (winning design, wgmma_sp launches so far)
+
+    def on_shape(sh, res):
+        wg_by_shape[sh] = (res.get("spmm24_design"),
+                           launch_counts()["spmm_24_wg"])
     reset_counts()
     t0 = time.perf_counter()
     results, summary = harness.run_model_sweep("resnet50", iters=10, reps=3,
-                                               verbose=True)
+                                               verbose=True,
+                                               on_shape=on_shape)
     counts = launch_counts()
     print(f"bench path: {len(results)} layers in "
           f"{time.perf_counter() - t0:.1f} s; launches {counts}; required "
@@ -960,6 +1077,13 @@ def phase_main_path():
     if len(results) != 49:
         raise AssertionError(f"expected 49 layers, got {len(results)}")
     check_launched(counts, routes, "bench")
+    check_wg_winners(wg_by_shape, "bench")
+    print("bench path: 2:4 winner by shape: " + ", ".join(
+        f"{sh.m}x{sh.n}x{sh.k}x{sh.b} {d}"
+        for sh, (d, _) in wg_by_shape.items()) + "; pack_ms: " + ", ".join(
+        f"{r.pack_ms:.4f} (bound {r.pack_sol_ms:.4f})"
+        for r in {(r.m, r.n, r.k, r.b): r for r in results}.values()),
+        flush=True)
     print(json.dumps(harness.headline("resnet50", summary)), flush=True)
     for key in ("spmm24_speedup_geomean", "ell_speedup_geomean",
                 "best_sparse_speedup_geomean", "fused_frac_sol_geomean"):
@@ -967,6 +1091,19 @@ def phase_main_path():
         if not (math.isfinite(v) and v > 0):
             raise AssertionError(f"{key} = {v}")
     return counts
+
+
+def check_wg_winners(wg_by_shape, path) -> None:
+    """Each shape whose 2:4 winner is K3's wgmma_sp route launched it
+    within that shape's run: ``{shape: (design, launches so far)}`` in the
+    order the shapes ran."""
+    before = 0
+    for sh, (design, total) in wg_by_shape.items():
+        if design == "wgmma_sp" and total <= before:
+            raise AssertionError(f"{sh}: the 2:4 winner is wgmma_sp but "
+                                 f"spmm_24_wg did not launch on the {path} "
+                                 "path")
+        before = total
 
 
 def _hold_winners(m, n, k, entry, gen):
@@ -980,7 +1117,7 @@ def _hold_winners(m, n, k, entry, gen):
                                                   spmm24_kernel)
     from sparsifyme_tpu_torch.ops.prune import prune_nm
     from sparsifyme_tpu_torch.ops.sparse24 import (compress_24,
-                                                   pack_codes_fp,
+                                                   pack_codes_fp, pack_wg,
                                                    prune_compress_24)
 
     dt = torch.bfloat16
@@ -1000,7 +1137,8 @@ def _hold_winners(m, n, k, entry, gen):
     pruned = prune_nm(a, 2, 4)[0]
     s = compress_24(pruned)
     s_fold = prune_compress_24(pruned, fold=2) if e24["fold"] > 1 else None
-    fn, ops = harness.spmm24_call(e24, s, s_fold, b, dt)
+    s_wg = pack_wg(s) if spmm24_kernel.wg_shape(BATCH * m, n, dt) else None
+    fn, ops = harness.spmm24_call(e24, s, s_fold, b, dt, s_wg)
     got = fn(*ops)
     kw = dict(k_logical=k, out_dtype=dt)
     if e24["fold"] > 1:
@@ -1012,7 +1150,7 @@ def _hold_winners(m, n, k, entry, gen):
             s.values0, s.values1, codes, b, transpose_out=e24[
                 "transpose_out"], packed_codes=e24["packed"], **kw)
     close("spmm_24", got.reshape(want.shape), want, dt, f"{tag} {e24}")
-    del pruned, s, s_fold, got, want
+    del pruned, s, s_fold, s_wg, got, want
     ee = entry["ell"]
     e, kp = harness.build_ell_operand(a, block_size=ee["block_size"],
                                       block_k=ee["block_k"],
@@ -1048,8 +1186,12 @@ def phase_tune_path():
         t0 = time.perf_counter()
         for m, n, k in TUNE_SHAPES:
             print(f"  tune {m}x{n}x{k}x{BATCH}:", flush=True)
+            wg0 = launch_counts()["spmm_24_wg"]
             entries[(m, n, k)] = tune.tune_shape(m, n, k, BATCH,
                                                  TUNE_FAMILIES, log=log)
+            if launch_counts()["spmm_24_wg"] <= wg0:
+                raise AssertionError(f"tune {m}x{n}x{k}: its wgmma_sp "
+                                     "candidates launched no spmm_24_wg")
             tuning.save_table({tuning.shape_key(*sh, BATCH): e
                                for sh, e in entries.items()}, path)
         counts = launch_counts()
@@ -1085,7 +1227,7 @@ def phase_plan_path():
     gen = torch.Generator(device="cuda").manual_seed(5)
     reset_counts()
     t0 = time.perf_counter()
-    folds = 0
+    folds = wg_plans = 0
     for sh in shapes:
         a = torch.randn((sh.b, sh.m, sh.k), generator=gen,
                         device="cuda").to(torch.bfloat16)
@@ -1103,6 +1245,24 @@ def phase_plan_path():
         if not torch.equal(fused, phased):
             raise AssertionError(f"plan {sh}: fused != phased")
         line = " ".join(f"{k}={t.ms:.4f}" for k, t in times.items())
+        # a bf16-out plan takes K3's wgmma_sp route where its table entry
+        # lets it: packed in the compress step, launched by the matmul
+        plan16 = get_plan(SpmmaConfig(m=sh.m, n=sh.n, k=sh.k, batch=sh.b,
+                                      out_dtype="bfloat16"))
+        wg0 = launch_counts()["spmm_24_wg"]
+        out16 = plan16(a, b)
+        if plan16._wg:
+            wg_plans += 1
+            if launch_counts()["spmm_24_wg"] <= wg0:
+                raise AssertionError(f"plan {sh}: design {plan16.design} "
+                                     "launched no spmm_24_wg")
+        err = errors(out16, spmm_24(prune_compress_24(a), b,
+                                    out_dtype=torch.bfloat16,
+                                    design="mma_sp"))[1]
+        if not err <= 2e-2:
+            raise AssertionError(f"bf16 plan {sh}: rel err {err}")
+        line += (f" bf16 plan {'wgmma_sp' if plan16._wg else 'mma_sp'} "
+                 f"rel_err={err:.3e}")
         if -(-sh.k // 64) * 16 <= 256:
             ref = spmm_24(prune_compress_24(a), b)
             err = errors(spmm_24(prune_compress_24(a, fold=2), b), ref)[1]
@@ -1114,9 +1274,11 @@ def phase_plan_path():
               flush=True)
         del a, b, out, fused, phased
     counts = launch_counts()
-    print(f"plan path: {len(shapes)} shapes ({folds} with fold=2) in "
+    print(f"plan path: {len(shapes)} shapes ({folds} with fold=2, "
+          f"{wg_plans} bf16 plans on wgmma_sp) in "
           f"{time.perf_counter() - t0:.1f} s; launches {counts}", flush=True)
-    check_launched(counts, PLAN_ROUTES, "plan")
+    check_launched(counts, PLAN_ROUTES + (WG_ROUTES if wg_plans else ()),
+                   "plan")
     return counts
 
 
@@ -1714,7 +1876,7 @@ def phase_kernel_line(path_counts) -> dict:
                                                   prune_kernel, spmm24_kernel)
     from sparsifyme_tpu_torch.ops.sparse24 import (decompress_24,
                                                    prune_compress_24)
-    from sparsifyme_tpu_torch.utils.timing import time_kernel
+    from sparsifyme_tpu_torch.utils.timing import time_graph, time_kernel
 
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -1814,6 +1976,35 @@ def phase_kernel_line(path_counts) -> dict:
         _bound(2.0 * rows * n * k, rl.H100.sparse24_tflops,
                1.25 * rows * k + 2 * k * n + 2 * rows * n)))
 
+    # K3's wgmma_sp route at U, E and D against torch.matmul on the dense
+    # A, on the operand packed once from K2's planes (its bound counts the
+    # packed words, 1.125 B a logical element of the padded k); the pack at
+    # U. Their extras: device time (graph_ms), queue time (enqueue_ms), and
+    # K3's mma_sp tile and torch.matmul replayed in a graph on the same
+    # operands (mma_sp_graph_ms, library_graph_ms).
+    wg_ops = {}
+    for m, n, k in WG_SHAPES:
+        rows = m * BATCH
+        a, b = operands(m, n, k)
+        w2 = prune_kernel.prune_nm_cuda(a)[0].reshape(-1, k)
+        v0, v1, codes = prune_kernel.compress_24_cuda(w2)
+        packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
+        kww = dict(m=rows, k_logical=k, out_dtype=dt)
+        tag = f"{m}x{n}x{k}x{BATCH} bf16"
+        wg_ops[tag] = ((v0, v1, codes, b), k, (w2, b))
+        specs.append((
+            "spmm_24_wg", tag,
+            lambda pk, y, kw=kww: spmm24_kernel.spmm24_wg_cuda(pk, y, **kw),
+            lambda pk, y, kw=kww: spmm24_kernel.spmm24_wg_plain(pk, y, **kw),
+            (packed, b), (torch.matmul, (w2, b)),
+            _bound(2.0 * rows * n * k, rl.H100.sparse24_tflops,
+                   4.0 * packed.numel() + 2 * k * n + 2 * rows * n)))
+        if (m, n, k) == WG_SHAPES[0]:
+            specs.append((
+                "pack_wg", tag, spmm24_kernel.pack_wgmma_sp_cuda,
+                spmm24_kernel.pack_wgmma_sp, (v0, v1, codes), None,
+                (rl.pack_wg_sol_ms(m, k, BATCH), "bytes")))
+
     # K5 at its worst main-path shape against torch.matmul
     m, n, k = NAMED_EXPAND
     a, b = operands(m, n, k)
@@ -1903,7 +2094,10 @@ def phase_kernel_line(path_counts) -> dict:
             del fresh
         else:
             got = kern(*ops)
-            if name in ("prune_nm", "compress_24", "prune_compress_24"):
+            if name in ("prune_nm", "compress_24", "prune_compress_24",
+                        "pack_wg"):
+                if name == "pack_wg":  # one tensor, not a tuple of them
+                    got, want = (got,), (want,)
                 exact(name, got, want, f"{shape} (kernels line)",
                       prune_kernel.same_bits if name == "prune_nm"
                       else torch.equal)
@@ -1937,6 +2131,20 @@ def phase_kernel_line(path_counts) -> dict:
             extra["enqueue_ms"] = _enqueue_ms(kern, ops)
         if name.startswith("ring_step"):
             extra["design_bytes"] = design_bytes
+        if name in WG_ROUTES:
+            # device time with the calls replayed in a CUDA graph, and the
+            # host's time to queue one (the wrapper must queue a call in
+            # less than the kernel's time, or eager callers see the host)
+            extra["graph_ms"] = time_graph(kern, ops, iters=20, reps=5).ms
+            extra["enqueue_ms"] = _enqueue_ms(kern, ops)
+        if name == "spmm_24_wg":
+            planes, kk, dense_ops = wg_ops[shape]
+            extra["mma_sp_graph_ms"] = time_graph(
+                lambda *x, kk=kk: spmm24_kernel.spmm24_cuda(
+                    *x, k_logical=kk, out_dtype=dt), planes, iters=20,
+                reps=5).ms
+            extra["library_graph_ms"] = time_graph(
+                torch.matmul, dense_ops, iters=20, reps=5).ms
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": shape,

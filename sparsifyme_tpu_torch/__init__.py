@@ -9,7 +9,7 @@ a CUDA tensor whose kernel cannot be built or launched raises.
 This package imports torch, numpy and the standard library only.
 """
 
-from .containers import BlockedEll, Coo, Sparse24
+from .containers import BlockedEll, Coo, Sparse24, WgOperand
 from .ops.coo import (coo_from_dense, coo_layout, coo_to_dense, coo_to_ell,
                       pack_coo, spmm_coo, spmm_coo_segmented)
 from .ops.ell import (ell_from_dense, ell_pack, ell_to_dense,
@@ -29,6 +29,7 @@ from .ops.sparse24 import (
     decompress_24,
     pack_codes,
     pack_codes_fp,
+    pack_wg,
     prune_compress_24,
     spmm_24,
     spmm_24_reference,
@@ -73,6 +74,7 @@ __all__ = [
     "pack_codes",
     "pack_codes_fp",
     "pack_coo",
+    "pack_wg",
     "prune_24",
     "prune_block_magnitude",
     "prune_block_topk",
@@ -99,4 +101,5 @@ __all__ = [
     "spmma",
     "unpack_codes",
     "write_shapes",
+    "WgOperand",
 ]

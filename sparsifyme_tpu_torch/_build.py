@@ -172,6 +172,12 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def raw_stream(index: int) -> int:
+    """The current stream of card ``index`` as a pointer, without making a
+    ``torch.cuda.Stream`` (a lean wrapper's per-call host cost)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def device_index(t: torch.Tensor) -> int:
     """The index of the card that holds ``t``; the entry points that take it
     launch there whatever the current device is."""

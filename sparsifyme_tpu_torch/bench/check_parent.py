@@ -9,10 +9,13 @@ change to either header must leave those kernels as they were. This script
 builds their three libraries from another checkout (the parent commit,
 unpacked with ``git archive``) beside this tree's and checks:
 
-* SASS: the kernel bodies of ``libcompress24.so``, ``libspmm24.so`` and
-  ``libring24.so`` (``cuobjdump --dump-sass``, address comments removed)
-  are the same in both builds, compared as sorted lists of bodies (a
-  template parameter added with a default renames a kernel, not its code);
+* SASS: every kernel body of the other build of ``libcompress24.so``,
+  ``libspmm24.so``, ``libring24.so`` and of K1's, K4's, K5's and K6's
+  libraries (``cuobjdump --dump-sass``, address comments removed) is in
+  this build, compared as multisets of bodies (a template parameter added
+  with a default renames a kernel, not its code); a library may gain
+  kernels (K3's gained its ``wgmma_sp`` route and pack kernel), and each
+  line says whether the two are identical;
 * outputs, bit for bit on the same card tensors: K2 and its fused route;
   K3 at every tile in bf16 and f32 out, with the epilogue
   (``transpose_out``, alpha, beta, C) and on the fold route (k <= 1024), at
@@ -35,6 +38,7 @@ Prints one line per library and per shape; exits 1 on any difference.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import re
 import subprocess
@@ -48,7 +52,8 @@ import torch
 
 from .. import _build
 
-LIBS = ("compress24", "spmm24", "ring24")
+LIBS = ("compress24", "spmm24", "ring24", "prune_nm", "ell_spmm",
+        "ell_expand", "coo_spmm")
 # m x n x k (b = 32 folded into m in the operands): the bench shapes, the
 # JAX units probe's first (3136 = 100352 / 32) and a ragged one
 SHAPES = [(12544, 64, 147), (12544, 64, 576), (12544, 256, 64),
@@ -98,12 +103,15 @@ def build_other(root: Path, out: Path) -> None:
 def same_sass(other: Path) -> bool:
     ok = True
     for name in LIBS:
-        a = sass_functions(other / f"lib{name}.so")
-        b = sass_functions(_build.build_dir() / f"lib{name}.so")
-        same = sorted(a.values()) == sorted(b.values())
-        print(f"SASS {name}: {len(a)} kernels other, {len(b)} here, "
-              f"identical bodies: {same}", flush=True)
-        ok &= same
+        a = collections.Counter(
+            sass_functions(other / f"lib{name}.so").values())
+        b = collections.Counter(
+            sass_functions(_build.build_dir() / f"lib{name}.so").values())
+        kept = not a - b
+        print(f"SASS {name}: {sum(a.values())} kernels other, "
+              f"{sum(b.values())} here, every other body here: {kept}, "
+              f"identical: {a == b}", flush=True)
+        ok &= kept
     return ok
 
 
@@ -114,7 +122,10 @@ def bitwise(fn: Callable, other: Path) -> bool:
     new = fn()
     saved = {key: e for key, e in _build._entries.items() if key[0] in LIBS}
     for (name, entry), e in saved.items():
-        fo = getattr(ctypes.CDLL(str(other / f"lib{name}.so")), entry)
+        lib = ctypes.CDLL(str(other / f"lib{name}.so"))
+        if not hasattr(lib, entry):
+            continue  # an entry the other build does not have
+        fo = getattr(lib, entry)
         fo.argtypes, fo.restype = e.argtypes, e.restype
         _build._entries[(name, entry)] = fo
     try:

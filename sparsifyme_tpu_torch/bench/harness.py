@@ -9,17 +9,28 @@ and reports speedups as paired ratios against the dense baseline.
 A shape with an entry in the tuning table (:mod:`.tuning`, written on the
 card by :mod:`.tune`) takes the tuned path: the gemm's ``fold`` is pinned,
 the fused prune+compress runs the tuned fold, the 2:4 SpMM races its tuned
-winner against the default (``pick_tile``, ``transpose_out=True``) and
-Blocked-ELL its tuned winner against the gather kernel with ``ell_plan``'s
-pick in the other output layout: each winner plus one alternative, the
-best-of-2 guard of the JAX harness against a winner that was noise.
+winner against the default (:data:`DEFAULT_SPMM24`: K3's ``wgmma_sp``
+route where the shape qualifies, else ``pick_tile``'s ``mma_sp`` tile, row
+major C) unless the winner is that call, and Blocked-ELL its tuned winner
+against the gather kernel with ``ell_plan``'s pick in the other output
+layout: each winner plus one alternative, the best-of-2 guard of the JAX
+harness against a winner that was noise.
 
 A shape without an entry takes the untuned race: the dense baseline races
 ``fold`` True/False; the fused route (K2 on the dense operand) is timed as
-``fused_ms``; the 2:4 SpMM races ``transpose_out`` False/True; Blocked-ELL
+``fused_ms``; the 2:4 SpMM races K3's ``wgmma_sp`` route (where the shape
+qualifies: bf16, ``b * m`` a multiple of 128, n of 64) against its
+``mma_sp`` tile with ``transpose_out`` False/True; Blocked-ELL
 is built with ``block_size=128``, ``block_k`` 32/64/128 by k and the
 ``fold_first`` heuristic, and races the gather kernel (K4) in both output
 layouts plus, on layers with k < 512, the expand kernel (K5) in both.
+
+Where a 2:4 candidate takes the ``wgmma_sp`` route, its operand is packed
+once after compress (``ops.sparse24.pack_wg``, outside the SpMM's timed
+calls, as the reference's cusparseLt compresses apart from its matmul) and
+the pack is timed as its own phase, ``pack_ms``; each shape's winning
+design is ``spmm24_design``. Both go on the per-shape progress line and in
+the CSV, not in the JSON line (whose keys are the JAX harness's).
 
 Every time is held to its bound (:mod:`.roofline`): a reading under 0.85x
 the bound is re-measured once (:func:`_guarded`), and a paired reading with
@@ -32,7 +43,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,21 +56,25 @@ from ..ops.ell import ell_from_dense, ell_values_kmajor, spmm_ell
 from ..ops.gemm import batched_gemm
 from ..ops.kernels.ell_kernel import (ell_expand_spmm_cuda,
                                       ell_expand_spmm_plain)
-from ..ops.kernels.spmm24_kernel import spmm24_cuda, spmm24_plain
+from ..ops.kernels.spmm24_kernel import (spmm24_cuda, spmm24_plain,
+                                         spmm24_wg_cuda, spmm24_wg_plain,
+                                         wg_shape)
 from ..ops.prune import prune_nm
-from ..ops.sparse24 import (compress_24, pack_codes_fp, prune_compress_24,
-                            spmm_24)
+from ..ops.sparse24 import (compress_24, pack_codes_fp, pack_wg,
+                            prune_compress_24, spmm24_design, spmm_24)
 from ..utils.shapes import LayerShape
 from ..utils.timing import Timing, time_kernel, time_kernel_pair
 from . import tuning
 from .roofline import (compress_sol_ms, dense_sol_ms, ell_sol_ms,
-                       fused_sol_ms, prune_sol_ms, spmm24_sol_ms)
+                       fused_sol_ms, pack_wg_sol_ms, prune_sol_ms,
+                       spmm24_sol_ms)
 
 SUB_BOUND = 0.85  # a reading under this share of its bound is re-measured
 MAX_SPREAD = 1.5  # a pair whose per-pair ratios spread more is re-measured
-# the untuned 2:4 configuration that a tuned winner races
-DEFAULT_SPMM24 = {"tile": None, "transpose_out": True, "packed": False,
-                  "fold": 1}
+# the untuned 2:4 configuration that a tuned winner races: design None is
+# K3's wgmma_sp route wherever the call qualifies, else its mma_sp tile
+DEFAULT_SPMM24 = {"design": None, "tile": None, "transpose_out": False,
+                  "packed": False, "fold": 1}
 
 
 @dataclasses.dataclass
@@ -94,6 +109,9 @@ class ShapeResult:
     fused_frac_sol: float = math.nan
     prune_sol_ms: float = math.nan
     compress_sol_ms: float = math.nan
+    pack_ms: float = math.nan         # K3's wgmma_sp operand from the planes
+    pack_sol_ms: float = math.nan
+    spmm24_design: str = ""           # K3's tile in the 2:4 race's winner
 
     def row(self) -> List:
         return [getattr(self, f.name) for f in dataclasses.fields(self)]
@@ -141,17 +159,23 @@ def can_fold_first(m: int, b: int) -> bool:
 
 
 def spmm24_call(cand: Dict, s: Sparse24, s_fold: Optional[Sparse24],
-                b: torch.Tensor, dtype: torch.dtype):
+                b: torch.Tensor, dtype: torch.dtype,
+                s_wg: Optional[Sparse24] = None):
     """``(fn, operands)`` of a 2:4 candidate (a ``spmm24`` entry of the
     tuning table): fold=2 planes ``s_fold`` through the fold route, packed
     codes packed once here (outside the timed calls, as the JAX harness
-    packs them) and handed to K3, or ``spmm_24`` with the forced tile and
-    layout. The packed call returns K3's ``[M, n]`` (or C^T), the others
-    what ``spmm_24`` returns."""
+    packs them) and handed to K3, ``spmm_24`` with the forced tile, layout
+    and ``design`` (``s_wg``, the planes with their ``wgmma_sp`` operand,
+    where the design is not ``mma_sp`` and ``s_wg`` is given), or, for a
+    ``wgmma_sp`` candidate with a forced plan (``block_n``, ``splits``),
+    K3's ``wgmma_sp`` wrapper on ``s_wg``'s operand. The packed call
+    returns K3's ``[M, n]`` (or C^T), the others what ``spmm_24``
+    returns."""
     tile = cand.get("tile")
+    design = cand.get("design")
     if int(cand.get("fold", 1) or 1) > 1:
-        return (lambda ss, y: spmm_24(ss, y, out_dtype=dtype, tile=tile),
-                (s_fold, b))
+        return (lambda ss, y: spmm_24(ss, y, out_dtype=dtype, tile=tile,
+                                      design=design), (s_fold, b))
     tout = bool(cand.get("transpose_out", False))
     if cand.get("packed"):
         kern = spmm24_cuda if _build.use_kernel(s.values0) else spmm24_plain
@@ -160,8 +184,37 @@ def spmm24_call(cand: Dict, s: Sparse24, s_fold: Optional[Sparse24],
             v0, v1, cp, y, k_logical=k, out_dtype=dtype, transpose_out=tout,
             packed_codes=True, tile=tile),
             (s.values0, s.values1, pack_codes_fp(s.codes), b))
+    if design == "wgmma_sp" and (cand.get("block_n") or cand.get("splits")):
+        kern = (spmm24_wg_cuda if _build.use_kernel(s_wg.values0)
+                else spmm24_wg_plain)
+        kw = dict(m=s_wg.values0.shape[-1], k_logical=s_wg.shape[-1],
+                  out_dtype=dtype, block_n=cand.get("block_n"),
+                  splits=cand.get("splits"))
+        return (lambda pk, y: kern(pk, y, **kw), (s_wg.wg.packed, b))
+    src = s_wg if (design != "mma_sp" and s_wg is not None) else s
     return (lambda ss, y: spmm_24(ss, y, out_dtype=dtype, transpose_out=tout,
-                                  tile=tile), (s, b))
+                                  tile=tile, design=design), (src, b))
+
+
+def spmm24_key(cand: Dict, s_wg: Optional[Sparse24], b: torch.Tensor,
+               dtype: torch.dtype) -> tuple:
+    """What a 2:4 candidate runs: its K3 tile as ``spmm_24`` resolves it
+    (:func:`~..ops.sparse24.spmm24_design`, on ``s_wg`` where there is
+    one) and its knobs, so that the default and a tuned winner that make
+    the same call are raced once."""
+    fold = int(cand.get("fold", 1) or 1)
+    design = cand.get("design")
+    if fold > 1 or s_wg is None:
+        design = "mma_sp" if design is None else design
+    else:
+        design = spmm24_design(
+            s_wg, b, out_dtype=dtype,
+            transpose_out=bool(cand.get("transpose_out", False)),
+            packed_codes=bool(cand.get("packed")), tile=cand.get("tile"),
+            design=design)
+    return (design, cand.get("tile"), bool(cand.get("transpose_out")),
+            bool(cand.get("packed")), fold, cand.get("block_n"),
+            cand.get("splits"))
 
 
 def ell_call(cand: Dict, e: BlockedEll, bp: torch.Tensor,
@@ -274,6 +327,7 @@ def bench_shape(
     sol_fused = fused_sol_ms(m, k, b)
     sol_prune = prune_sol_ms(m, k, b)
     sol_compress = compress_sol_ms(m, k, b)
+    sol_pack = pack_wg_sol_ms(m, k, b)
     tag = f"{m}x{n}x{k}x{b}"
 
     def mark(what: str) -> None:
@@ -318,25 +372,41 @@ def bench_shape(
             lambda x: prune_compress_24(x, fold=fold), (a,), sol_fused,
             iters=max(4, iters // 2), reps=reps, what=f"{tag} fused").ms
         s = compress_24(pruned)
+        # the planes with K3's wgmma_sp operand, packed once where the shape
+        # can take that route: the candidates resolve their tile on it
+        s_wg = pack_wg(s) if wg_shape(b * m, n, dtype) else None
         if e24:
             # the tuned winner, and the default as its best-of-2 guard
+            # unless the two make the same call
             variants = [e24]
-            if any(e24.get(key) != v for key, v in DEFAULT_SPMM24.items()):
+            if spmm24_key(e24, s_wg, bm, dtype) != spmm24_key(
+                    DEFAULT_SPMM24, s_wg, bm, dtype):
                 variants.append(DEFAULT_SPMM24)
         else:
-            variants = [dict(DEFAULT_SPMM24, transpose_out=tr)
-                        for tr in (False, True)]
+            variants = ([dict(DEFAULT_SPMM24, design="wgmma_sp")]
+                        if s_wg is not None else [])
+            variants += [dict(DEFAULT_SPMM24, design="mma_sp",
+                              transpose_out=tr) for tr in (False, True)]
+        keys = [spmm24_key(v, s_wg, bm, dtype) for v in variants]
+        if any(key[0] == "wgmma_sp" for key in keys):
+            mark("pack_wg")
+            out["pack_ms"] = _guarded(
+                pack_wg, (s,), sol_pack, iters=max(4, iters // 2),
+                reps=reps, what=f"{tag} pack_wg").ms
         s_fold = (prune_compress_24(pruned, fold=2)
                   if any(int(v.get("fold", 1) or 1) > 1 for v in variants)
                   else None)
-        cands = [spmm24_call(v, s, s_fold, bm, dtype) for v in variants]
-        floors = [spmm24_sol_ms(m, n, k, b,
-                                packed_codes=bool(v.get("packed")))
-                  for v in variants]
+        cands = [spmm24_call(v, s, s_fold, bm, dtype, s_wg)
+                 for v in variants]
+        # the wgmma_sp operand is 1.125 B a logical element, as packed codes
+        floors = [spmm24_sol_ms(m, n, k, b, packed_codes=bool(
+            v.get("packed")) or key[0] == "wgmma_sp")
+            for v, key in zip(variants, keys)]
         win = _race(cands, floors, iters, reps, f"{tag} spmm24") \
             if len(cands) > 1 else 0
+        out["spmm24_design"] = keys[win][0]
         mark(f"spmm24 {'tuned ' if e24 else ''}candidate {win} of "
-             f"{len(cands)} won: {variants[win]}")
+             f"{len(cands)} won: {variants[win]} ({keys[win][0]})")
         ms24, gp24, sp24, spread24 = _paired(
             dense, *cands[win], floors[win], sol_dense, iters=iters,
             reps=reps, what=f"{tag} spmm24")
@@ -384,7 +454,8 @@ def bench_shape(
 
     out.update(sol24_ms=sol24, sol_speedup=sol_dense / sol24,
                ell_sol_ms=sol_ell, prune_sol_ms=sol_prune,
-               compress_sol_ms=sol_compress, fused_sol_ms=sol_fused)
+               compress_sol_ms=sol_compress, fused_sol_ms=sol_fused,
+               pack_sol_ms=sol_pack)
     if out.get("fused_ms", 0) > 0:
         out["fused_frac_sol"] = sol_fused / out["fused_ms"]
     if out.get("spmm24_ms", 0) > 0:
@@ -403,8 +474,10 @@ def sweep(
     reps: int = 3,
     device=None,
     verbose: bool = True,
+    on_shape: Optional[Callable[[LayerShape, Dict], None]] = None,
 ) -> List[ShapeResult]:
-    """Sweep shapes (deduplicated), returning one result per input layer."""
+    """Sweep shapes (deduplicated), returning one result per input layer;
+    ``on_shape(shape, result)`` is called after each unique shape."""
     cache: Dict[LayerShape, Dict[str, float]] = {}
     results = []
     for i, sh in enumerate(shapes):
@@ -412,11 +485,16 @@ def sweep(
             cache[sh] = bench_shape(sh, dtype=dtype, kernels=kernels,
                                     iters=iters, reps=reps, device=device,
                                     verbose=verbose)
+            if on_shape is not None:
+                on_shape(sh, cache[sh])
             if verbose:
+                design = cache[sh].get("spmm24_design")
                 print(f"[{len(cache):3d} uniq] m={sh.m:6d} n={sh.n:5d} "
                       f"k={sh.k:5d} b={sh.b}  " + " ".join(
                           f"{kk}={vv:.4f}" for kk, vv in cache[sh].items()
-                          if kk.endswith("_ms")), flush=True)
+                          if kk.endswith("_ms"))
+                      + (f" spmm24_design={design}" if design else ""),
+                      flush=True)
         results.append(ShapeResult(layer=i, m=sh.m, n=sh.n, k=sh.k, b=sh.b,
                                    **cache[sh]))
     return results
@@ -472,6 +550,7 @@ def summarize(results: Sequence[ShapeResult]) -> Dict[str, float]:
         "prune_ms_geomean": geomean([r.prune_ms for r in results]),
         "compress_ms_geomean": geomean([r.compress_ms for r in results]),
         "fused_ms_geomean": geomean([r.fused_ms for r in results]),
+        "pack_ms_geomean": geomean([r.pack_ms for r in results]),
         "sol_speedup_geomean": geomean([r.sol_speedup for r in results]),
         "spmm24_frac_sol_geomean": geomean(
             [r.spmm24_frac_sol for r in results]),
@@ -499,12 +578,14 @@ def run_model_sweep(
     max_layers: Optional[int] = None,
     device=None,
     verbose: bool = True,
+    on_shape: Optional[Callable[[LayerShape, Dict], None]] = None,
 ):
     shapes = resnet_conv_shapes(model)
     if max_layers:
         shapes = shapes[:max_layers]
     results = sweep(shapes, dtype=dtype, kernels=kernels, iters=iters,
-                    reps=reps, device=device, verbose=verbose)
+                    reps=reps, device=device, verbose=verbose,
+                    on_shape=on_shape)
     if csv_path:
         write_csv(csv_path, results)
     if compare_csv_path:

@@ -96,6 +96,14 @@ def fused_sol_ms(m: int, k: int, b: int, mc: Machine = H100) -> float:
     return compress_sol_ms(m, k, b, mc)
 
 
+def pack_wg_sol_ms(m: int, k: int, b: int, mc: Machine = H100) -> float:
+    """K3's wgmma_sp operand from the planes (``ops.sparse24.pack_wg``):
+    read the planes (1.25 B) and write the packed words (1.125 B) per
+    logical element of k padded to 64, the padding the planes carry."""
+    kp = -(-k // 64) * 64
+    return 2.375 * m * b * kp / (mc.hbm_gbps * 1e9) * 1e3
+
+
 def coo_spmm_work(nnz: int, slots: int, m: int, k: int, n: int, batch: int,
                   b_itemsize: int = 2):
     """``(operations, bytes)`` of segmented COO SpMM (K6) over ``batch`` B

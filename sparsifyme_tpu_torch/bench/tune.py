@@ -10,9 +10,12 @@ with the card that measured them.
 The candidates are the port's knobs, not the TPU's tiles:
 
 * ``gemm``: ``fold`` True / False (one tall product or the batched call);
-* ``spmm24``: every tile of ``spmm24_kernel.SP_TILES`` in both output
-  layouts; packed codes in both layouts where ``k <= 1024``; the fold=2
-  route where ``k4 <= 256`` and ``b * m`` is even;
+* ``spmm24``: every tile of K3's ``mma_sp`` design
+  (``spmm24_kernel.SP_TILES``) in both output layouts; packed codes in both
+  layouts where ``k <= 1024``; the fold=2 route where ``k4 <= 256`` and
+  ``b * m`` is even; K3's ``wgmma_sp`` route under ``wg_plan``'s plan where
+  the shape qualifies (``spmm24_kernel.wg_shape``), and (``--full``) under
+  every width (64, 128) and split count the tile takes;
 * ``fused``: fold 1, and fold 2 where ``k <= 160`` and ``b * m`` is even;
 * ``ell``: the JAX tuner's block edges (heuristic, alternative, no-pad)
   that K4/K5 take (:data:`~..ops.kernels.ell_kernel.BLOCK_KS`), the
@@ -54,10 +57,10 @@ import torch.nn.functional as F
 from .. import _build
 from ..models.resnet_shapes import resnet_conv_shapes
 from ..ops.kernels import ell_kernel
-from ..ops.kernels.spmm24_kernel import (H100_SMS, SP_TILES, pick_tile,
-                                         sm_count)
+from ..ops.kernels.spmm24_kernel import (H100_SMS, SP_TILES, WG_KS,
+                                         pick_tile, sm_count, wg_shape)
 from ..ops.prune import prune_nm
-from ..ops.sparse24 import compress_24, prune_compress_24
+from ..ops.sparse24 import compress_24, pack_wg, prune_compress_24
 from ..ops.gemm import batched_gemm
 from . import harness
 from .roofline import dense_sol_ms, ell_sol_ms, fused_sol_ms, spmm24_sol_ms
@@ -102,22 +105,35 @@ def gemm_candidates() -> List[Dict]:
     return [{"fold": True}, {"fold": False}]
 
 
-def spmm24_candidates(m: int, n: int, k: int, b: int,
-                      full: bool = False) -> List[Dict]:
-    """Every tile in both layouts; packed codes in both layouts where
-    ``k <= 1024`` (and the group count is even); the fold=2 route where
-    ``k4 <= 256`` and ``b * m`` is even. Packed and fold take
-    ``pick_tile``'s tile, or (``full``) every tile."""
+def spmm24_candidates(m: int, n: int, k: int, b: int, full: bool = False,
+                      dtype: torch.dtype = torch.bfloat16) -> List[Dict]:
+    """K3's ``mma_sp`` design: every tile in both layouts; packed codes in
+    both layouts where ``k <= 1024`` (and the group count is even); the
+    fold=2 route where ``k4 <= 256`` and ``b * m`` is even. Packed and fold
+    take ``pick_tile``'s tile, or (``full``) every tile. Its ``wgmma_sp``
+    route where the shape qualifies (``spmm24_kernel.wg_shape``):
+    ``wg_plan``'s plan and (``full``) every width and split count that
+    leaves no split empty (``block_n``, ``splits``)."""
     tiles = range(len(SP_TILES))
-    cands = [{"tile": t, "transpose_out": tr, "packed": False, "fold": 1}
+    base = {"design": "mma_sp", "transpose_out": False, "packed": False,
+            "fold": 1, "block_n": None, "splits": None}
+    cands = [dict(base, tile=t, transpose_out=tr)
              for t in tiles for tr in (False, True)]
     extra = tiles if full else (None,)
     if k <= 1024 and _k4(k) % 2 == 0:
-        cands += [{"tile": t, "transpose_out": tr, "packed": True, "fold": 1}
+        cands += [dict(base, tile=t, transpose_out=tr, packed=True)
                   for t in extra for tr in (False, True)]
     if _k4(k) <= 256 and (b * m) % 2 == 0:
-        cands += [{"tile": t, "transpose_out": False, "packed": False,
-                   "fold": 2} for t in extra]
+        cands += [dict(base, tile=t, fold=2) for t in extra]
+    if wg_shape(b * m, n, dtype):
+        wg = dict(base, design="wgmma_sp", tile=None)
+        cands.append(wg)
+        kt = -(-k // WG_KS)
+        if full:
+            cands += [dict(wg, block_n=bn, splits=sp)
+                      for bn in (64, 128) if n % bn == 0
+                      for sp in range(1, min(kt, ell_kernel.MAX_SPLITS) + 1)
+                      if (sp - 1) * -(-kt // sp) < kt]
     return cands
 
 
@@ -290,21 +306,28 @@ def tune_shape(m: int, n: int, k: int, b: int, ops: Sequence[str] = OPS, *,
         put("gemm", _winner("gemm", readings, gemm_candidates()))
 
     if "spmm24" in ops:
-        cands = spmm24_candidates(m, n, k, b, full)
+        cands = spmm24_candidates(m, n, k, b, full, dtype)
         pruned = prune_nm(a, 2, 4)[0]
         s = compress_24(pruned)
         s_fold = (prune_compress_24(pruned, fold=2)
                   if any(c["fold"] == 2 for c in cands) else None)
+        wg = [c for c in cands if c["design"] == "wgmma_sp"]
+        s_wg = pack_wg(s) if wg else None
         del pruned
         readings = []
+        # the wgmma_sp operand is 1.125 B a logical element, as packed codes
         _race("spmm24", cands,
-              lambda c: harness.spmm24_call(c, s, s_fold, bm, dtype),
-              lambda c: spmm24_sol_ms(m, n, k, b, packed_codes=c["packed"]),
+              lambda c: harness.spmm24_call(c, s, s_fold, bm, dtype, s_wg),
+              lambda c: spmm24_sol_ms(m, n, k, b, packed_codes=c["packed"]
+                                      or c["design"] == "wgmma_sp"),
               tag, iters, reps, log, readings)
-        del s, s_fold
+        del s, s_fold, s_wg
+        # what the untuned harness races: wgmma_sp where the shape takes
+        # it, the mma_sp tile (pick_tile's) in both layouts
         pick = pick_tile(b * m, n, k, 1, sms)
-        put("spmm24", _winner("spmm24", readings, [
-            {"tile": pick, "transpose_out": tr, "packed": False, "fold": 1}
+        put("spmm24", _winner("spmm24", readings, wg[:1] + [
+            {"design": "mma_sp", "tile": pick, "transpose_out": tr,
+             "packed": False, "fold": 1, "block_n": None, "splits": None}
             for tr in (False, True)]))
 
     if "fused" in ops:

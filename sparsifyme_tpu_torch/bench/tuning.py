@@ -10,19 +10,26 @@ writes it beside this module; the harness's tuned path and
     "3136x128x1152x32": {
       "gemm":   {"fold": true, "ms": 0.1},
       "fused":  {"fold": 1, "ms": 0.17},
-      "spmm24": {"tile": 1, "transpose_out": true, "packed": false,
-                 "fold": 1, "ms": 0.095},
+      "spmm24": {"design": "wgmma_sp", "tile": null,
+                 "transpose_out": false, "packed": false, "fold": 1,
+                 "block_n": null, "splits": null, "ms": 0.095},
       "ell":    {"formulation": "gather", "transpose_out": false,
                  "block_size": 128, "block_k": 64, "fold_first": false,
                  "block_n": 128, "splits": 1, "ms": 0.055},
       "card":   "NVIDIA H100 80GB HBM3, 700.00 W"
     }
 
-``tile`` is an index of ``spmm24_kernel.SP_TILES`` (``null``: the kernel's
-``pick_tile``); ``packed`` and ``fold`` name K3's packed-codes and fold=2
-routes. ``block_n`` and ``splits`` force K4's Hopper-tile plan (``null``:
-``ell_plan``'s pick, always so for K5, whose plans the tuner does not
-race); ``formulation`` is K4 (``gather``) or K5 (``expand``). ``ms`` is the tuner's reading, ``card`` the ``nvidia-smi
+``design`` is K3's tile: ``mma_sp`` (the sparse tile on the planes) or
+``wgmma_sp`` (the ``wgmma.sp`` route on the operand ``pack_wg`` derives;
+``block_n`` and ``splits`` force its plan, ``null``: ``wg_plan``'s pick); an
+entry without it (tables older than that route) leaves the choice to
+``spmm_24``'s rule. ``tile`` is an index of ``spmm24_kernel.SP_TILES``
+(``null``: the kernel's ``pick_tile``); ``packed`` and ``fold`` name K3's
+packed-codes and fold=2 routes. In the ``ell`` entry, ``block_n`` and
+``splits`` force K4's Hopper-tile plan (``null``: ``ell_plan``'s pick,
+always so for K5, whose plans the tuner does not race); ``formulation`` is
+K4 (``gather``) or K5 (``expand``). ``ms`` is the tuner's reading,
+``card`` the ``nvidia-smi
 --query-gpu=name,power.limit`` line of the card that took it (``cpu`` for
 a run on CPU tensors), since the winners depend on the card's SM count.
 A shape without an entry takes the harness's untuned race, so the table

@@ -9,9 +9,10 @@ that K3 could take:
   (``csrc/sp24_tile.cuh``) with a compile-time mode and ring depth
   (``csrc/sp24_units.cu``), so the times come from the code that K3 and K7
   run;
-* ``design="wgmma_sp"``: the same modes on a persistent TMA-fed
-  ``wgmma.sp`` tile with split-k (``csrc/sp24_wg_tile.cuh``), on A packed
-  once by :func:`pack_wgmma_sp` (the plan: :func:`wg_plan`);
+* ``design="wgmma_sp"``: the same modes on the persistent TMA-fed
+  ``wgmma.sp`` tile with split-k (``csrc/sp24_wg_tile.cuh``), K3's
+  ``wgmma_sp`` route, on A packed once by
+  ``spmm24_kernel.pack_wgmma_sp`` (the plan: ``spmm24_kernel.wg_plan``);
 * ``fp1``: expand-then-dense, the TPU's own choice, on TMA and ``wgmma``
   (``csrc/sp24_expand_tile.cuh``).
 
@@ -70,32 +71,36 @@ Usage (needs one GPU)::
         # parts of its work taken out (FP1_ABLATIONS) at U and D
     python -m sparsifyme_tpu_torch.bench.units_probe --depths  # wgmma_sp
         # rebuilt at ring depths 5 and 6 beside 4, at the five shapes
+    python -m sparsifyme_tpu_torch.bench.units_probe --host    # the host's
+        # time to queue K3's wgmma_sp route at U, and its parts
 """
 
 from __future__ import annotations
 
 import collections
-import functools
 import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from .. import _build
 from ..ops.kernels import ell_kernel as ellk
 from ..ops.kernels import spmm24_kernel as k3
+# the wgmma_sp tile's operand and plan are K3's (its wgmma_sp route)
+from ..ops.kernels.spmm24_kernel import (WG_BM, WG_STEP_US, WG_WORDS,  # noqa
+                                         WgPlan, pack_wgmma_sp, sw64_offset,
+                                         unpack_wgmma_sp, wg_plan, wg_walk)
 
 MODES = {"full": 0, "feed": 1, "mma": 2}
 # the (mode, stages) pairs csrc/sp24_units.cu builds
 VARIANTS = (("full", 4), ("full", 2), ("full", 1), ("feed", 4), ("feed", 2),
             ("mma", 4), ("mma", 2))
 DESIGNS = ("mma_sp", "wgmma_sp")
-KS = 64  # logical k of one stage of the tile
-WG_BM = 128  # rows of a wgmma_sp or fp1 tile: two warpgroups of 64
+KS = k3.WG_KS  # logical k of one stage of the tile
 # fp1_launch's ctypes spec: (v0, v1, codes, b, out, M, N, K, K4, device,
 # stream)
 FP1_SPEC = "ppppp" "iiii" "i" "p"
@@ -141,72 +146,6 @@ def _validate(v0, v1, codes, b, what):
     return k4, m, k, n
 
 
-class WgPlan(NamedTuple):
-    """A launch of the ``wgmma_sp`` tile: its width, split count, k-steps a
-    split, work units (m-tile, n-tile, split) and persistent blocks."""
-    bn: int
-    splits: int
-    kps: int
-    units: int
-    grid: int
-
-
-# A k-step of the wgmma_sp tile on one SM (microseconds, by tile width):
-# its time under the one-split plan at D (units_probe --plans, PERF.md)
-WG_STEP_US = {64: 0.36, 128: 0.43}
-
-
-def wg_plan(m: int, n: int, k: int, sms: int = k3.H100_SMS) -> WgPlan:
-    """The plan of the ``wgmma_sp`` tile at ``m x n x k`` on ``sms`` SMs:
-    128 columns where n allows, else 64; among split counts up to
-    ``ell_kernel.MAX_SPLITS`` that leave no split empty, the least
-    estimated time: waves of units on ``sms`` persistent blocks, each unit
-    its k-steps (:data:`WG_STEP_US`) and its epilogue, against the bytes,
-    plus split-k's second pass (``ell_kernel.ell_plan``'s constants); ties
-    go to fewer splits."""
-    if m % WG_BM or n % 64 or m <= 0 or n <= 0 or k <= 0:
-        raise ValueError(f"the wgmma_sp tile needs M % {WG_BM} == 0 and "
-                         f"n % 64 == 0, got {m} x {n} x {k}")
-    bn = 128 if n % 128 == 0 else 64
-    kt = -(-k // KS)
-    tiles = (m // WG_BM) * (n // bn)
-    floor_us = (1.25 * m * k + 2 * k * n + 2 * m * n) / ellk.BYTES_PER_US
-    best = None
-    for splits in range(1, min(kt, ellk.MAX_SPLITS) + 1):
-        kps = -(-kt // splits)
-        if (splits - 1) * kps >= kt:
-            continue  # the last split would be empty
-        units = tiles * splits
-        epi_us = WG_BM * bn * (4 if splits > 1 else 2) / ellk.EPI_BYTES_PER_US
-        est = max(-(-units // sms) * (kps * WG_STEP_US[bn] + epi_us),
-                  floor_us)
-        if splits > 1:  # f32 partials written, read by the second pass
-            est += ellk.REDUCE_US + (8 * splits + 2) * m * n \
-                / ellk.BYTES_PER_US
-        if best is None or est < best[0]:
-            best = (est, WgPlan(bn, splits, kps, units, min(units, sms)))
-    return best[1]
-
-
-def wg_walk(plan: WgPlan, m: int, n: int, k: int
-            ) -> List[List[Tuple[int, int, int, List[int]]]]:
-    """The units each persistent block of the ``wgmma_sp`` tile takes, in
-    its order: one list per block of ``(m_tile, n_tile, split, k-steps)``,
-    the kernel's own loops (``sp24w::Unit``) replayed."""
-    kt = -(-k // KS)
-    n_tiles = n // plan.bn
-    out = []
-    for blk in range(plan.grid):
-        walk = []
-        for u in range(blk, plan.units, plan.grid):
-            split, t = u % plan.splits, u // plan.splits
-            k0 = split * plan.kps
-            walk.append((t // n_tiles, t % n_tiles, split,
-                         list(range(k0, min(kt, k0 + plan.kps)))))
-        out.append(walk)
-    return out
-
-
 def units_tile(v0: torch.Tensor, b: torch.Tensor,
                design: str = "mma_sp") -> Tuple[int, int]:
     """``(bm, bn)``: the tile :func:`units_cuda` launches on these
@@ -216,95 +155,6 @@ def units_tile(v0: torch.Tensor, b: torch.Tensor,
     if design == "wgmma_sp":
         return WG_BM, wg_plan(m, n, k).bn
     return k3.SP_TILES[k3.card_tile(v0.device, m, n, k)]
-
-
-def _to_int32(words: torch.Tensor) -> torch.Tensor:
-    """uint32 values held in int64, as int32 bits."""
-    return ((words + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
-
-
-def sw64_offset(r: int, c: int) -> int:
-    """Byte offset of compressed column ``c`` of row ``r`` in a ``128 x
-    32`` bf16 tile of the ``wgmma_sp`` operand: 64-byte rows, 16-byte chunk
-    ``c // 8`` at ``c // 8 ^ ((r >> 1) & 3)``, the 64-byte swizzle that
-    ``wgmma`` reads K-major A in."""
-    return r * 64 + (((c // 8) ^ ((r >> 1) & 3)) << 4) + (c % 8) * 2
-
-
-WG_WORDS = 2304  # 32-bit words of a tile's k-step: 8 KB of A, 1 KB of meta
-
-
-def pack_wgmma_sp(v0, v1, codes) -> torch.Tensor:
-    """The ``wgmma_sp`` tile's operand, derived once from the planes ``v0,
-    v1, codes [k4, M]`` (M a multiple of 128), on their device: ``[ktp, M /
-    128, 2304]`` int32, ``ktp = ceil(k4 / 16)`` 64-deep k-steps, one
-    contiguous 9 KB block per k-step and 128-row tile that one bulk copy
-    moves into a stage (the tiles of one k-step side by side, as the
-    persistent blocks read them at once):
-
-    * words 0-2047: the compressed values, K-major, 128 rows of 32 bf16
-      (compressed column ``2g`` = ``v0[g]``, ``2g + 1`` = ``v1[g]``, zero
-      past k4), at :func:`sw64_offset`;
-    * words 2048-2303: the metadata words in the order the threads of a
-      warpgroup hand them to ``wgmma.sp``, ``[warpgroup, k32 half, warp,
-      gid, h]``: rows ``64 wg + 16 warp + gid`` (bits 0-15) and that row +
-      8 (bits 16-31), groups ``16 kt + 8 half + 4h + j`` at nibble ``j`` =
-      ``i0 | i1 << 2`` (a code with ``i1 == 0``, only the zero padding,
-      becomes (0, 1), as ``spmm24_kernel.nibbles16`` makes it).
-
-    Plain PyTorch; :func:`unpack_wgmma_sp` inverts it."""
-    k4, m = v0.shape
-    if m % WG_BM:
-        raise ValueError(f"pack_wgmma_sp needs M % {WG_BM} == 0, got {m}")
-    ktp = -(-k4 // 16)
-    g = 16 * ktp
-    mt = m // WG_BM
-    dev = v0.device
-    vals = torch.zeros((g, 2, m), dtype=v0.dtype, device=dev)
-    vals[:k4, 0] = v0
-    vals[:k4, 1] = v1
-    # [kt, tile, row, chunk, 8]: chunk c of a row lands at c ^ ((row >> 1) & 3)
-    vals = vals.reshape(ktp, 4, 8, mt, WG_BM).permute(0, 3, 4, 1, 2)
-    r = torch.arange(WG_BM, device=dev)
-    src = torch.arange(4, device=dev)[None, :] ^ ((r[:, None] >> 1) & 3)
-    vals = vals[:, :, r[:, None], src]  # the XOR is its own inverse
-    values = vals.contiguous().view(torch.int32).reshape(ktp, mt, 2048)
-    c = torch.zeros((g, m), dtype=torch.int64, device=dev)
-    c[:k4] = codes.to(torch.int64)
-    i1 = c & 3
-    nib = ((c >> 2) & 3) | (torch.where(i1 == 0, 1, i1) << 2)
-    # groups (kt, half, h, j) by rows (tile, warpgroup, warp, +8, gid)
-    nib = nib.reshape(ktp, 2, 2, 4, mt, 2, 4, 2, 8)
-    j = torch.arange(4, device=dev).view(1, 1, 1, 4, 1, 1, 1, 1, 1)
-    hi = torch.arange(2, device=dev).view(1, 1, 1, 1, 1, 1, 1, 2, 1)
-    words = (nib << (4 * j + 16 * hi)).sum(dim=(3, 7))
-    meta = _to_int32(words.permute(0, 3, 4, 1, 5, 6, 2).reshape(ktp, mt, 256))
-    return torch.cat([values, meta], dim=2).contiguous()
-
-
-def unpack_wgmma_sp(packed: torch.Tensor, k4: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The planes ``(v0, v1, codes) [k4, M]`` back from
-    :func:`pack_wgmma_sp`'s operand, bit for bit for codes with ``i0 <
-    i1`` (every code K2 writes)."""
-    ktp, mt = packed.shape[:2]
-    m, g = mt * WG_BM, 16 * ktp
-    dev = packed.device
-    vals = packed[:, :, :2048].contiguous().view(torch.bfloat16)
-    vals = vals.reshape(ktp, mt, WG_BM, 4, 8)
-    r = torch.arange(WG_BM, device=dev)
-    src = torch.arange(4, device=dev)[None, :] ^ ((r[:, None] >> 1) & 3)
-    vals = vals[:, :, r[:, None], src]  # [kt, tile, row, chunk, 8]
-    vals = vals.permute(0, 3, 4, 1, 2).reshape(g, 2, m)
-    w = (packed[:, :, 2048:].to(torch.int64) & 0xFFFFFFFF).reshape(
-        ktp, mt, 2, 2, 4, 8, 2)
-    sh = (16 * torch.arange(2, device=dev)[:, None]
-          + 4 * torch.arange(4, device=dev)[None, :])
-    nib = (w[..., None, None] >> sh) & 15  # [..., h, +8, j]
-    nib = nib.permute(0, 3, 6, 8, 1, 2, 4, 7, 5).reshape(g, m)
-    codes = ((nib & 3) * 4 + (nib >> 2))[:k4].to(torch.uint8)
-    return (vals[:k4, 0].contiguous(), vals[:k4, 1].contiguous(),
-            codes.contiguous())
 
 
 def expand_slot_offset(k: int, m: int, bk: int = KS) -> int:
@@ -362,11 +212,6 @@ def _units_wgmma_sp(packed, b, mode, stages, m, k, n, plan):
     return out, side
 
 
-@functools.lru_cache(maxsize=256)
-def _card_wg_plan(index: int, m: int, n: int, k: int) -> WgPlan:
-    return wg_plan(m, n, k, k3.sm_count(index))
-
-
 def units_cuda(v0, v1, codes, b, *, mode: str, stages: int,
                design: str = "mma_sp", packed: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -386,7 +231,7 @@ def units_cuda(v0, v1, codes, b, *, mode: str, stages: int,
         v0, v1, codes, b = (t.contiguous() for t in (v0, v1, codes, b))
         res = _units_mma_sp(v0, v1, codes, b, mode, stages, k4, m, k, n)
     else:
-        plan = _card_wg_plan(_build.device_index(b), m, n, k)
+        plan = k3.card_wg_plan(_build.device_index(b), m, n, k)
         if packed is None:
             packed = pack_wgmma_sp(v0, v1, codes)
         res = _units_wgmma_sp(packed, b.contiguous(), mode, stages, m, k, n,
@@ -749,6 +594,56 @@ def run_depths(card: str) -> int:
     return 0
 
 
+def run_host(card: str) -> int:
+    """The host's microseconds to queue one call of K3's ``wgmma_sp`` route
+    at U (784x256x1024, b = 32) and of its parts: ``spmm_24`` on a packed
+    container (the dispatch, its rule and the stale guard included), the
+    route's wrapper, its ctypes launch alone (B's tensor-map encode and
+    the kernel launch), ``torch.empty`` of C, the stream pointer;
+    ``pack_wg`` and the pack's wrapper; ``torch.matmul`` on the dense A.
+    Beside them the route's device time (``time_graph``)."""
+    from ..containers import Sparse24
+    from ..ops.sparse24 import pack_wg, spmm_24
+    from ..utils.timing import time_graph
+    from .ell_probe import _host_us
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m, n, k = SHAPES[1]
+    v0, v1, codes, b = operands(m, n, k, gen)
+    s = Sparse24(v0, v1, codes, shape=(m, k))
+    sw = pack_wg(s)
+    packed = sw.wg.packed
+    kw = dict(m=m, k_logical=k, out_dtype=torch.bfloat16)
+    k3.spmm24_wg_cuda(packed, b, **kw)  # builds, loads, plans
+    index = _build.device_index(b)
+    plan = k3.card_wg_plan(index, m, n, k)
+    launch = _build.load("spmm24", "spmm24_wg_launch", k3.WG_SPEC)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=b.device)
+    stream = _build.raw_stream(index)
+    dense_a = k3.expand_planes(v0, v1, codes).T.contiguous()
+    cases = [
+        ("spmm_24", lambda: spmm_24(sw, b)),
+        ("wrapper", lambda: k3.spmm24_wg_cuda(packed, b, **kw)),
+        ("ctypes launch", lambda: launch(
+            packed.data_ptr(), b.data_ptr(), out.data_ptr(), None, m, n, k,
+            packed.shape[0], plan.bn, plan.splits, plan.kps, plan.grid,
+            index, stream)),
+        ("empty", lambda: torch.empty((m, n), dtype=torch.bfloat16,
+                                      device=b.device)),
+        ("stream", lambda: _build.raw_stream(index)),
+        ("pack_wg", lambda: pack_wg(s)),
+        ("pack wrapper", lambda: k3.pack_wgmma_sp_cuda(v0, v1, codes)),
+        ("matmul", lambda: torch.matmul(dense_a, b)),
+    ]
+    device_ms = time_graph(lambda pk, y: k3.spmm24_wg_cuda(pk, y, **kw),
+                           (packed, b), iters=20, reps=5).ms
+    print(f"{m}x{n}x{k} wgmma_sp device ms {device_ms:.4f} | {card}",
+          flush=True)
+    for name, fn in cases:
+        print(f"host {name}: {_host_us(fn):.1f} us | {card}", flush=True)
+    return 0
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
@@ -766,6 +661,8 @@ def main(argv=None) -> int:
         return run_ablate(card)
     if "--depths" in argv:
         return run_depths(card)
+    if "--host" in argv:
+        return run_host(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--plans" in argv:
         for m, n, k in SHAPES:

@@ -8,7 +8,9 @@ packages (see :mod:`.convert`):
   stored as k-major, batch-folded planes ``values0``/``values1``/``codes``
   of shape ``[k4, M]`` (``M = prod(batch) * m``; k padded to a multiple of
   64, so ``k4`` is a multiple of 16; codes are uint8 ``i0 * 4 + i1``), or
-  row-folded ``[2*k4, M/2]`` with ``fold=2``.
+  row-folded ``[2*k4, M/2]`` with ``fold=2``; optionally the operand of
+  K3's ``wgmma_sp`` route derived once from the planes (:class:`WgOperand`,
+  port only: :mod:`.convert` drops it).
 * :class:`BlockedEll` — ``ell_blocks`` kept dense blocks per block-row:
   values ``[..., m, ell_blocks * block_k]`` and int32 ``col_indices``
   ``[..., m_blocks, ell_blocks]``, sorted ascending per block-row.
@@ -20,9 +22,26 @@ packages (see :mod:`.convert`):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+
+def plane_identity(*planes: torch.Tensor) -> Tuple[Tuple[int, int], ...]:
+    """``(data_ptr, _version)`` of each plane: another tensor, or an
+    in-place write to this one, changes it."""
+    return tuple((p.data_ptr(), p._version) for p in planes)
+
+
+@dataclasses.dataclass(frozen=True)
+class WgOperand:
+    """The operand of K3's ``wgmma_sp`` route (``ops.sparse24.pack_wg``):
+    ``packed`` ``[ktp, M/128, 2304]`` int32, and ``planes``, the
+    :func:`plane_identity` of ``values0``, ``values1`` and ``codes`` it was
+    packed from. ``spmm_24`` refuses it beside other planes."""
+
+    packed: torch.Tensor
+    planes: Tuple[Tuple[int, int], ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +58,8 @@ class Sparse24:
                plane rows ``[0, k4)`` and row ``2j+1`` in ``[k4, 2*k4)``
                (the compress of the free ``[M, kp] -> [M/2, 2*kp]``
                reshape).
+      wg:      ``None``, or the :class:`WgOperand` that
+               ``ops.sparse24.pack_wg`` derived from these planes.
     """
 
     values0: torch.Tensor
@@ -46,6 +67,17 @@ class Sparse24:
     codes: torch.Tensor
     shape: Tuple[int, ...] = ()
     fold: int = 1
+    wg: Optional[WgOperand] = dataclasses.field(default=None, repr=False)
+
+    def clone(self) -> "Sparse24":
+        """A copy with storage of its own; its packed operand, if any, is
+        copied too and bound to the copied planes."""
+        planes = [p.clone() for p in (self.values0, self.values1,
+                                      self.codes)]
+        wg = (None if self.wg is None
+              else WgOperand(self.wg.packed.clone(), plane_identity(*planes)))
+        return dataclasses.replace(self, values0=planes[0],
+                                   values1=planes[1], codes=planes[2], wg=wg)
 
     @property
     def dtype(self) -> torch.dtype:

@@ -1,10 +1,12 @@
-// The wgmma.sp tile of the units probe (sp24_wg_units.cu): run_probe's tile
-// rebuilt for Hopper, beside K3's own tile (sp24_tile.cuh, the "mma_sp"
-// design of bench/units_probe.py), which it leaves as it is.
+// The wgmma.sp tile: run_probe's tile rebuilt for Hopper. It is K3's
+// wgmma_sp route (spmm24.cu: spmm24_wg_launch, kFull at 4 stages) and the
+// units probe's "wgmma_sp" design (sp24_wg_units.cu, every mode), beside
+// K3's mma_sp tile (sp24_tile.cuh), which it leaves as it is.
 //
 // C [M, N] bf16 = A @ B with A in 2:4 form and B [K, N] row-major, f32
 // accumulation, rows of B past K read as zero. A comes in the layout that
-// units_probe.pack_wgmma_sp derives once from the planes v0, v1, codes: per
+// spmm24_kernel.pack_wgmma_sp (plain) and spmm24.cu's wg_pack_kernel derive
+// once from the planes v0, v1, codes: per
 // 64-deep k-step (KTP of them cover the planes) and 128-row tile one
 // contiguous block of 9 KB, [KTP, M / 128, 2304] words, which one bulk copy
 // moves into a stage as it is (the blocks the persistent blocks read at once
@@ -32,7 +34,7 @@
 // the ELL tile (ell_tile.cuh, whose helpers it uses):
 //   * persistent, with split-k: one block per SM walks the units (m-tile,
 //     n-tile, split), the splits and n-tiles of one m-tile adjacent. The plan
-//     (BN, splits, k-steps a split, grid) is units_probe.wg_plan's; with
+//     (BN, splits, k-steps a split, grid) is spmm24_kernel.wg_plan's; with
 //     splits, each split stores f32 partials and wg_reduce sums them in
 //     split order (no atomics);
 //   * one producer warp loads a ring of STAGES stages of 64 logical k: the
@@ -92,7 +94,8 @@ struct Params {
   CUtensorMap tb;     // B [K, N] bf16, box {64, 64}, 128-byte swizzle
   const uint32_t* a;  // A and metadata [KTP, M / 128, kBlock / 4]
   void* out;          // C [M, N] bf16, or the f32 partials [splits, M, N]
-  int* side;          // [splits, n_tiles * m_tiles], one word a unit
+  int* side;          // [splits, n_tiles * m_tiles], one word a unit, or
+                      // nullptr (kFull only: K3 has no side words)
   int M, N, KT, KTP, n_tiles, m_tiles, splits, kps, units;
 };
 
@@ -320,8 +323,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (held >= 0 && t == 0) ellt::bar_arrive(&empty[held]);
       }
     }
-    int* side = p.side + (size_t)w.split * p.n_tiles * p.m_tiles +
-                w.n_tile * p.m_tiles + w.m_tile;
+    const size_t unit_word =
+        (size_t)w.split * p.n_tiles * p.m_tiles + w.n_tile * p.m_tiles +
+        w.m_tile;
     if constexpr (MODE == kFeed) {
       // the row's sum to every lane (the same butterfly in every warp), then
       // to every accumulator; the words of the 8 warps to the unit's word
@@ -337,11 +341,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (threadIdx.x == 0) {
         uint32_t v = 0;
         for (int i = 0; i < 8; ++i) v ^= side_w[parity * 8 + i];
-        *side = (int)v;
+        p.side[unit_word] = (int)v;
       }
       parity ^= 1;  // the next unit writes the other set
-    } else if (threadIdx.x == 0) {
-      *side = 0;
+    } else if (threadIdx.x == 0 && p.side != nullptr) {
+      p.side[unit_word] = 0;
     }
     const int m0 = w.m_tile * kBM + 64 * wg, n0 = w.n_tile * BN;
     if (p.splits == 1)
@@ -355,7 +359,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The second pass of split-k: out = the sum of the f32 partials [splits,
 // mn] in split order, 4 elements a thread; block 0 also XORs the units'
-// side words [splits, tiles] into side [tiles].
+// side words [splits, tiles] into side [tiles], where there are side words.
 __global__ void __launch_bounds__(256)
     wg_reduce(const float* __restrict__ ws, int splits, long long mn,
               bf16* __restrict__ out, const int* __restrict__ parts,
@@ -378,7 +382,7 @@ __global__ void __launch_bounds__(256)
     packed.y = *reinterpret_cast<uint32_t*>(&hi);
     *reinterpret_cast<uint2*>(out + i) = packed;
   }
-  if (blockIdx.x == 0)
+  if (blockIdx.x == 0 && side != nullptr)
     for (int i = threadIdx.x; i < tiles; i += blockDim.x) {
       int v = 0;
       for (int s = 0; s < splits; ++s) v ^= parts[s * tiles + i];
@@ -417,22 +421,25 @@ cudaError_t launch_variant(int mode, int stages, const Params& p, int grid,
   return cudaErrorInvalidValue;
 }
 
-// Runs the plan (bn, splits, kps, grid) of units_probe.wg_plan. a: A and
-// its metadata words [KTP, M / 128, kBlock / 4]; out:
-// C [M, N] bf16; side: [N / bn, M / 128] int32; with splits > 1, ws: f32
-// [splits, M, N] and parts: int32 [splits, N / bn * M / 128].
-inline cudaError_t run(int mode, int stages, const void* a, const void* b,
-                       void* out, void* side, void* ws,
-                       void* parts, int M, int N, int K, int KTP, int bn,
-                       int splits, int kps, int grid, cudaStream_t stream) {
+// Runs the plan (bn, splits, kps, grid) of spmm24_kernel.wg_plan with the
+// kernel that launch(bn, params, grid, stream) starts, then split-k's
+// second pass. a: A and its metadata words [KTP, M / 128, kBlock / 4]; out:
+// C [M, N] bf16; side: [N / bn, M / 128] int32, or nullptr (no side words;
+// kFull only); with splits > 1, ws: f32 [splits, M, N] and, with side
+// words, parts: int32 [splits, N / bn * M / 128].
+template <class Launch>
+inline cudaError_t run_plan(Launch&& launch, const void* a, const void* b,
+                            void* out, void* side, void* ws, void* parts,
+                            int M, int N, int K, int KTP, int bn, int splits,
+                            int kps, int grid, cudaStream_t stream) {
   const int KT = (K + kKS - 1) / kKS;
   const bool ok =
       M > 0 && M % kBM == 0 && (bn == 64 || bn == 128) && N > 0 &&
       N % bn == 0 && K > 0 && KT <= KTP && splits >= 1 && kps >= 1 &&
       (splits - 1) * kps < KT && splits * kps >= KT && grid >= 1 &&
-      smt::aligned16(a) && smt::aligned16(b) &&
-      smt::aligned16(out) && side != nullptr &&
-      (splits == 1 || (smt::aligned16(ws) && parts != nullptr));
+      smt::aligned16(a) && smt::aligned16(b) && smt::aligned16(out) &&
+      (splits == 1 ||
+       (smt::aligned16(ws) && (side == nullptr || parts != nullptr)));
   if (!ok) return cudaErrorInvalidValue;
   Params p;
   cudaError_t e =
@@ -440,7 +447,7 @@ inline cudaError_t run(int mode, int stages, const void* a, const void* b,
   if (e != cudaSuccess) return e;
   p.a = static_cast<const uint32_t*>(a);
   p.out = splits == 1 ? out : ws;
-  p.side = static_cast<int*>(splits == 1 ? side : parts);
+  p.side = static_cast<int*>(splits == 1 ? side : (side ? parts : nullptr));
   p.M = M;
   p.N = N;
   p.KT = KT;
@@ -450,8 +457,7 @@ inline cudaError_t run(int mode, int stages, const void* a, const void* b,
   p.splits = splits;
   p.kps = kps;
   p.units = p.m_tiles * p.n_tiles * splits;
-  e = bn == 128 ? launch_variant<128>(mode, stages, p, grid, stream)
-                : launch_variant<64>(mode, stages, p, grid, stream);
+  e = launch(bn, p, grid, stream);
   if (e != cudaSuccess || splits == 1) return e;
   const long long mn = (long long)M * N;
   const long long blocks = (mn / 4 + 255) / 256;

@@ -31,9 +31,21 @@
 // larger tile re-reads B and A fewer times; small-M, deep-k layers such as
 // 196x512x4608 and K7's ring steps take smaller ones). Every other case (f32
 // operands: plain f32 FMAs on the CUDA cores, never TF32; ragged shapes)
-// takes the simple 128 x 64 tile kernel. wgmma.sp, TMA multicast and a
-// persistent scheduler are later work. The tile is shared with K7
+// takes the simple 128 x 64 tile kernel. The tile is shared with K7
 // (ring24.cu).
+//
+// The wgmma_sp route (spmm24_wg_launch, after the mma_sp entry below): the
+// persistent, TMA-fed wgmma.sp tile of sp24_wg_tile.cuh in its kFull mode
+// at 4 stages, on A packed once after compress (spmm24_pack_launch writes
+// the operand from the planes: 9 KB a 64-deep k-step and 128-row tile,
+// values pre-swizzled, then the metadata words in wgmma.sp's thread order;
+// spmm24_kernel.pack_wgmma_sp is its plain version). It takes bf16 A and
+// B, bf16 C, M % 128 == 0 and N % 64 == 0, and no epilogue; every other
+// call keeps the mma_sp tile. Split-k (spmm24_kernel.wg_plan) sums f32
+// partials in a second pass. Where it wins on the H100 (PERF.md): a
+// warpgroup issues 64 x BN x 32 sparse products from shared memory, where
+// mma.sp issues 16 x 8 x 32 from registers, and a stage's A and metadata
+// arrive in one bulk copy instead of being built by the block.
 #include "sp24_tile.cuh"
 
 namespace {
@@ -149,4 +161,126 @@ extern "C" int spmm24_launch(const void* v0, const void* v1, const void* codes,
     return launch<float, float>(SMT_SP24_ARGS);
 #undef SMT_SP24_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// --- the wgmma_sp route ----------------------------------------------------
+// Everything below this line is K3's wgmma_sp route; the mma_sp kernels
+// above do not depend on it (tests/test_torch_cuda.py builds the text above
+// alone and finds their SASS unchanged).
+#include "sp24_wg_tile.cuh"
+
+namespace {
+
+constexpr int kPackPitch = 136;  // bf16 a staged group row: 128 + 8 (pad)
+
+// nibble i0 | i1 << 2 of a code i0 * 4 + i1; i1 == 0 (only the zero code of
+// the padding) becomes (0, 1), as spmm24_kernel.nibbles16 makes it
+__device__ __forceinline__ uint32_t wg_nibble(uint32_t code) {
+  const uint32_t i1 = code & 3;
+  return ((code >> 2) & 3) | ((i1 ? i1 : 1u) << 2);
+}
+
+// One block a (k-step, 128-row tile) of the wgmma_sp operand: the planes'
+// 16 groups x 128 rows staged in shared memory (16-byte loads along M, zero
+// past K4), then the tile's 9 KB written in order with 16-byte stores: 512
+// chunks of compressed values, chunk q holding row q / 4's logical chunk
+// (q % 4) ^ ((row >> 1) & 3) (groups 4 lc..4 lc + 3, v0 in the low and v1 in
+// the high half of each word), then the 256 metadata words, one a thread
+// (word t = [warpgroup, k32 half, warp, gid, h]).
+__global__ void __launch_bounds__(256)
+    wg_pack_kernel(const bf16* __restrict__ v0, const bf16* __restrict__ v1,
+                   const uint8_t* __restrict__ codes,
+                   uint32_t* __restrict__ out, int M, int K4) {
+  __shared__ __align__(16) bf16 s0[16][kPackPitch];
+  __shared__ __align__(16) bf16 s1[16][kPackPitch];
+  __shared__ __align__(16) uint8_t sc[16][128];
+  const int tile = blockIdx.x, kt = blockIdx.y, t = threadIdx.x;
+  const size_t m0 = (size_t)tile * sp24w::kBM;
+  {
+    const int g = t / 16, c = t % 16;  // group row, 8 bf16 of it
+    const int gg = kt * 16 + g;
+    uint4 a = make_uint4(0, 0, 0, 0), b = a;
+    if (gg < K4) {
+      a = *reinterpret_cast<const uint4*>(v0 + (size_t)gg * M + m0 + 8 * c);
+      b = *reinterpret_cast<const uint4*>(v1 + (size_t)gg * M + m0 + 8 * c);
+    }
+    *reinterpret_cast<uint4*>(&s0[g][8 * c]) = a;
+    *reinterpret_cast<uint4*>(&s1[g][8 * c]) = b;
+    if (t < 128) {
+      const int gc = t / 8, cc = t % 8;  // group row, 16 codes of it
+      uint4 q = make_uint4(0, 0, 0, 0);
+      if (kt * 16 + gc < K4)
+        q = *reinterpret_cast<const uint4*>(
+            codes + (size_t)(kt * 16 + gc) * M + m0 + 16 * cc);
+      *reinterpret_cast<uint4*>(&sc[gc][16 * cc]) = q;
+    }
+  }
+  __syncthreads();
+  uint32_t* blk =
+      out + ((size_t)kt * gridDim.x + tile) * (sp24w::kBlock / 4);
+#pragma unroll
+  for (int q = t; q < 512; q += 256) {
+    const int r = q / 4, lc = (q % 4) ^ ((r >> 1) & 3);
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = (uint32_t)__bfloat16_as_ushort(s0[4 * lc + e][r]) |
+             ((uint32_t)__bfloat16_as_ushort(s1[4 * lc + e][r]) << 16);
+    reinterpret_cast<uint4*>(blk)[q] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  const int h = t & 1, gid = (t >> 1) & 7, warp = (t >> 4) & 3;
+  const int half = (t >> 6) & 1, wg = t >> 7;
+  const int r = 64 * wg + 16 * warp + gid;
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int g = 8 * half + 4 * h + j;
+    word |= wg_nibble(sc[g][r]) << (4 * j);
+    word |= wg_nibble(sc[g][r + 8]) << (16 + 4 * j);
+  }
+  blk[2048 + t] = word;
+}
+
+// The route's kernel: kFull at 4 stages, 64 or 128 columns.
+cudaError_t wg_full(int bn, const sp24w::Params& p, int grid,
+                    cudaStream_t stream) {
+  return bn == 128
+             ? sp24w::launch_kernel<sp24w::kFull, 4, 128>(p, grid, stream)
+             : sp24w::launch_kernel<sp24w::kFull, 4, 64>(p, grid, stream);
+}
+
+}  // namespace
+
+// The wgmma_sp operand [KTP, M / 128, 2304] int32 from planes v0, v1 (bf16)
+// and codes (uint8), each [K4, M] with M % 128 == 0, KTP >= ceil(K4 / 16)
+// (k-steps past the planes are zero values), 16-byte aligned. Reads the
+// planes once (1.25 B a logical element), writes 1.125 B a logical element.
+extern "C" int spmm24_pack_launch(const void* v0, const void* v1,
+                                  const void* codes, void* out, int M, int K4,
+                                  int KTP, int device, void* stream) {
+  if (M <= 0 || M % sp24w::kBM || K4 <= 0 || KTP < (K4 + 15) / 16 ||
+      !smt::aligned16(v0) || !smt::aligned16(v1) || !smt::aligned16(codes) ||
+      !smt::aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const smt::OnDevice on(device);
+  if (on.error != cudaSuccess) return (int)on.error;
+  wg_pack_kernel<<<dim3(M / sp24w::kBM, KTP), 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(v0), static_cast<const bf16*>(v1),
+      static_cast<const uint8_t*>(codes), static_cast<uint32_t*>(out), M, K4);
+  return (int)cudaGetLastError();
+}
+
+// C [M, N] bf16 = A @ B on the wgmma_sp tile: a the packed operand
+// [KTP, M / 128, 2304], b [K, N] bf16, the plan (bn, splits, kps, grid) of
+// spmm24_kernel.wg_plan; ws f32 [splits, M, N] where splits > 1.
+extern "C" int spmm24_wg_launch(const void* a, const void* b, void* out,
+                                void* ws, int M, int N, int K, int KTP,
+                                int bn, int splits, int kps, int grid,
+                                int device, void* stream) {
+  const smt::OnDevice on(device);
+  if (on.error != cudaSuccess) return (int)on.error;
+  return (int)sp24w::run_plan(wg_full, a, b, out, nullptr, ws, nullptr, M,
+                              N, K, KTP, bn, splits, kps, grid,
+                              static_cast<cudaStream_t>(stream));
 }

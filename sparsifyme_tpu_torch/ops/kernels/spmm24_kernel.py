@@ -20,16 +20,27 @@ Contract: ``C[M, n] = decompress24(v0, v1, codes)[:, :k_logical] @ b`` with
 planes ``[k4, M]`` (or split-half packed codes ``[k4/2, M]``), ``b
 [k_logical, n]``, f32 accumulation, ``alpha * C + beta * c`` and, with
 ``transpose_out``, C^T ``[n, M]``. The fold route takes planes ``[2*k4,
-M/2]`` and returns row-major C ``[M, n]``. The one scheduling knob is
-``tile``, an index of :data:`SP_TILES` (``None``: :func:`pick_tile`), which
-the tuner races; the TPU's (``block_m/block_n/block_k4``, ``pipeline``,
-chunking, VMEM budgets) have no counterpart.
+M/2]`` and returns row-major C ``[M, n]``. The one scheduling knob of the
+``mma_sp`` tile is ``tile``, an index of :data:`SP_TILES` (``None``:
+:func:`pick_tile`), which the tuner races; the TPU's
+(``block_m/block_n/block_k4``, ``pipeline``, chunking, VMEM budgets) have no
+counterpart.
+
+K3 has two designs (:data:`DESIGNS`). ``mma_sp`` is the tile above, on the
+planes. ``wgmma_sp`` (:func:`spmm24_wg_cuda`) is the persistent, TMA-fed
+``wgmma.sp`` tile of ``csrc/sp24_wg_tile.cuh`` on an operand derived once
+from the planes (:func:`pack_wgmma_sp_cuda`, plain version
+:func:`pack_wgmma_sp`), planned by :func:`wg_plan`. It takes what
+:func:`wg_refusal` lets through: bf16 in and out, no epilogue, C row-major,
+unpacked codes, fold 1, M % 128 == 0 and n % 64 == 0; ``spmm24_cuda``'s
+``design`` knob picks between the two and never falls back from one to the
+other.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -342,11 +353,30 @@ def spmm24_cuda(v0, v1, codes, b, *, k_logical: int,
                 out_dtype: torch.dtype, alpha: float = 1.0,
                 beta: float = 0.0, c: Optional[torch.Tensor] = None,
                 transpose_out: bool = False, packed_codes: bool = False,
-                tile: Optional[int] = None) -> torch.Tensor:
+                tile: Optional[int] = None, design: Optional[str] = None,
+                wg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K3. Planes and ``b`` are brought to their promoted type (the
     kernel multiplies like types); ``c`` goes to the kernel as f32.
     ``tile`` forces an index of :data:`SP_TILES` on the sparse tile's fast
-    path (``None``: :func:`pick_tile`); the simple kernels ignore it."""
+    path (``None``: :func:`pick_tile`); the simple kernels ignore it.
+
+    ``design`` picks K3's tile: ``"mma_sp"`` the sparse tile on the planes,
+    ``"wgmma_sp"`` :func:`spmm24_wg_cuda` on ``wg`` (the planes'
+    :func:`pack_wgmma_sp_cuda`), raising where :func:`wg_refusal` refuses
+    the call; ``None`` takes ``wgmma_sp`` where ``wg`` is given and the call
+    qualifies, else ``mma_sp``."""
+    if design not in (None,) + DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
+    if design == "wgmma_sp" or (design is None and wg is not None):
+        why = ("no packed operand (wg)" if wg is None else wg_refusal(
+            fold=1, planes_dtype=v0.dtype, b=b, out_dtype=out_dtype,
+            alpha=alpha, beta=beta, c=c, transpose_out=transpose_out,
+            packed_codes=packed_codes, tile=tile, m=v0.shape[-1]))
+        if why is None:
+            return spmm24_wg_cuda(wg, b, m=v0.shape[-1], k_logical=k_logical,
+                                  out_dtype=out_dtype)
+        if design == "wgmma_sp":
+            raise ValueError(f"design 'wgmma_sp' cannot take this call: {why}")
     out = _launch(v0, v1, codes, b, k_logical=k_logical, out_dtype=out_dtype,
                   alpha=alpha, beta=beta, c=c, transpose_out=transpose_out,
                   packed_codes=packed_codes, fold=1, tile=tile,
@@ -374,3 +404,370 @@ def spmm24_fold_cuda(v0, v1, codes, b, *, k_logical: int,
 
 
 spmm24_fold_cuda.launches = 0
+
+
+# --- K3's wgmma_sp route -----------------------------------------------------
+
+DESIGNS = ("wgmma_sp", "mma_sp")  # K3's tiles, as spmm_24's design names them
+WG_BM = 128  # rows of a wgmma_sp tile: two warpgroups of 64
+WG_KS = 64  # logical k of one of its k-steps
+WG_WORDS = 2304  # 32-bit words of a tile's k-step: 8 KB of A, 1 KB of meta
+# spmm24_wg_launch's ctypes spec: (a, b, out, ws, M, N, K, KTP, bn, splits,
+# kps, grid, device, stream)
+WG_SPEC = "pppp" "iiii" "iiii" "i" "p"
+# spmm24_pack_launch's: (v0, v1, codes, out, M, K4, KTP, device, stream)
+PACK_SPEC = "pppp" "iii" "i" "p"
+
+
+class WgPlan(NamedTuple):
+    """A launch of the ``wgmma_sp`` tile: its width, split count, k-steps a
+    split, work units (m-tile, n-tile, split) and persistent blocks."""
+    bn: int
+    splits: int
+    kps: int
+    units: int
+    grid: int
+
+
+# A k-step of the wgmma_sp tile on one SM (microseconds, by tile width):
+# its time under the one-split plan at D (units_probe --plans, PERF.md)
+WG_STEP_US = {64: 0.36, 128: 0.43}
+
+
+def _wg_shape(m: int, n: int, k: int) -> None:
+    if m % WG_BM or n % 64 or m <= 0 or n <= 0 or k <= 0:
+        raise ValueError(f"the wgmma_sp tile needs M % {WG_BM} == 0 and "
+                         f"n % 64 == 0, got {m} x {n} x {k}")
+
+
+def wg_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> WgPlan:
+    """The plan of the ``wgmma_sp`` tile at ``m x n x k`` on ``sms`` SMs:
+    128 columns where n allows, else 64; among split counts up to
+    ``ell_kernel.MAX_SPLITS`` that leave no split empty, the least
+    estimated time: waves of units on ``sms`` persistent blocks, each unit
+    its k-steps (:data:`WG_STEP_US`) and its epilogue, against the bytes,
+    plus split-k's second pass (``ell_kernel.ell_plan``'s constants); ties
+    go to fewer splits."""
+    from . import ell_kernel as ellk  # it imports this module
+
+    _wg_shape(m, n, k)
+    bn = 128 if n % 128 == 0 else 64
+    kt = -(-k // WG_KS)
+    tiles = (m // WG_BM) * (n // bn)
+    floor_us = (1.25 * m * k + 2 * k * n + 2 * m * n) / ellk.BYTES_PER_US
+    best = None
+    for splits in range(1, min(kt, ellk.MAX_SPLITS) + 1):
+        kps = -(-kt // splits)
+        if (splits - 1) * kps >= kt:
+            continue  # the last split would be empty
+        units = tiles * splits
+        epi_us = WG_BM * bn * (4 if splits > 1 else 2) / ellk.EPI_BYTES_PER_US
+        est = max(-(-units // sms) * (kps * WG_STEP_US[bn] + epi_us),
+                  floor_us)
+        if splits > 1:  # f32 partials written, read by the second pass
+            est += ellk.REDUCE_US + (8 * splits + 2) * m * n \
+                / ellk.BYTES_PER_US
+        if best is None or est < best[0]:
+            best = (est, WgPlan(bn, splits, kps, units, min(units, sms)))
+    return best[1]
+
+
+def wg_forced_plan(m: int, n: int, k: int, bn: int, splits: int,
+                   sms: int = H100_SMS) -> WgPlan:
+    """The plan of ``bn`` columns and ``splits`` splits (the tuner's
+    ``--full`` candidates); raises where the tile cannot take it."""
+    _wg_shape(m, n, k)
+    kt = -(-k // WG_KS)
+    kps = -(-kt // max(splits, 1))
+    if bn not in (64, 128) or n % bn or splits < 1 or \
+            (splits - 1) * kps >= kt:
+        raise ValueError(f"the wgmma_sp tile cannot take {bn} columns and "
+                         f"{splits} splits at {m} x {n} x {k}")
+    units = (m // WG_BM) * (n // bn) * splits
+    return WgPlan(bn, splits, kps, units, min(units, sms))
+
+
+def wg_walk(plan: WgPlan, m: int, n: int, k: int
+            ) -> List[List[Tuple[int, int, int, List[int]]]]:
+    """The units each persistent block of the ``wgmma_sp`` tile takes, in
+    its order: one list per block of ``(m_tile, n_tile, split, k-steps)``,
+    the kernel's own loops (``sp24w::Unit``) replayed."""
+    kt = -(-k // WG_KS)
+    n_tiles = n // plan.bn
+    out = []
+    for blk in range(plan.grid):
+        walk = []
+        for u in range(blk, plan.units, plan.grid):
+            split, t = u % plan.splits, u // plan.splits
+            k0 = split * plan.kps
+            walk.append((t // n_tiles, t % n_tiles, split,
+                         list(range(k0, min(kt, k0 + plan.kps)))))
+        out.append(walk)
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def card_wg_plan(index: int, m: int, n: int, k: int,
+                 bn: Optional[int] = None,
+                 splits: Optional[int] = None) -> WgPlan:
+    """:func:`wg_plan` on card ``index`` or, with ``bn`` or ``splits``
+    given, :func:`wg_forced_plan` (the other from :func:`wg_plan`), once per
+    shape and card."""
+    sms = sm_count(index)
+    if bn is None and splits is None:
+        return wg_plan(m, n, k, sms)
+    pick = wg_plan(m, n, k, sms)
+    return wg_forced_plan(m, n, k, bn or pick.bn, splits or pick.splits, sms)
+
+
+def sw64_offset(r: int, c: int) -> int:
+    """Byte offset of compressed column ``c`` of row ``r`` in a ``128 x
+    32`` bf16 tile of the ``wgmma_sp`` operand: 64-byte rows, 16-byte chunk
+    ``c // 8`` at ``c // 8 ^ ((r >> 1) & 3)``, the 64-byte swizzle that
+    ``wgmma`` reads K-major A in."""
+    return r * 64 + (((c // 8) ^ ((r >> 1) & 3)) << 4) + (c % 8) * 2
+
+
+def _to_int32(words: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64, as int32 bits."""
+    return ((words + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def _swizzle_index(dev) -> torch.Tensor:
+    """``[128, 4]``: chunk ``p ^ ((row >> 1) & 3)`` of each row and place
+    ``p`` (the 64-byte swizzle, its own inverse)."""
+    r = torch.arange(WG_BM, device=dev)
+    return torch.arange(4, device=dev)[None, :] ^ ((r[:, None] >> 1) & 3)
+
+
+def pack_wgmma_sp(v0, v1, codes) -> torch.Tensor:
+    """The ``wgmma_sp`` tile's operand, derived once from the planes ``v0,
+    v1, codes [k4, M]`` (M a multiple of 128), on their device: ``[ktp, M /
+    128, 2304]`` int32, ``ktp = ceil(k4 / 16)`` 64-deep k-steps, one
+    contiguous 9 KB block per k-step and 128-row tile that one bulk copy
+    moves into a stage (the tiles of one k-step side by side, as the
+    persistent blocks read them at once):
+
+    * words 0-2047: the compressed values, K-major, 128 rows of 32 bf16
+      (compressed column ``2g`` = ``v0[g]``, ``2g + 1`` = ``v1[g]``, zero
+      past k4), at :func:`sw64_offset`;
+    * words 2048-2303: the metadata words in the order the threads of a
+      warpgroup hand them to ``wgmma.sp``, ``[warpgroup, k32 half, warp,
+      gid, h]``: rows ``64 wg + 16 warp + gid`` (bits 0-15) and that row +
+      8 (bits 16-31), groups ``16 kt + 8 half + 4h + j`` at nibble ``j`` =
+      ``i0 | i1 << 2`` (a code with ``i1 == 0``, only the zero padding,
+      becomes (0, 1), as :func:`nibbles16` makes it).
+
+    The plain version of :func:`pack_wgmma_sp_cuda` (int64 intermediates:
+    CPU tensors and checks only); :func:`unpack_wgmma_sp` inverts it."""
+    k4, m = v0.shape
+    if m % WG_BM:
+        raise ValueError(f"pack_wgmma_sp needs M % {WG_BM} == 0, got {m}")
+    ktp = -(-k4 // 16)
+    g = 16 * ktp
+    mt = m // WG_BM
+    dev = v0.device
+    vals = torch.zeros((g, 2, m), dtype=v0.dtype, device=dev)
+    vals[:k4, 0] = v0
+    vals[:k4, 1] = v1
+    # [kt, tile, row, chunk, 8]: chunk c of a row lands at c ^ ((row >> 1) & 3)
+    vals = vals.reshape(ktp, 4, 8, mt, WG_BM).permute(0, 3, 4, 1, 2)
+    r = torch.arange(WG_BM, device=dev)
+    vals = vals[:, :, r[:, None], _swizzle_index(dev)]
+    values = vals.contiguous().view(torch.int32).reshape(ktp, mt, 2048)
+    c = torch.zeros((g, m), dtype=torch.int64, device=dev)
+    c[:k4] = codes.to(torch.int64)
+    i1 = c & 3
+    nib = ((c >> 2) & 3) | (torch.where(i1 == 0, 1, i1) << 2)
+    # groups (kt, half, h, j) by rows (tile, warpgroup, warp, +8, gid)
+    nib = nib.reshape(ktp, 2, 2, 4, mt, 2, 4, 2, 8)
+    j = torch.arange(4, device=dev).view(1, 1, 1, 4, 1, 1, 1, 1, 1)
+    hi = torch.arange(2, device=dev).view(1, 1, 1, 1, 1, 1, 1, 2, 1)
+    words = (nib << (4 * j + 16 * hi)).sum(dim=(3, 7))
+    meta = _to_int32(words.permute(0, 3, 4, 1, 5, 6, 2).reshape(ktp, mt, 256))
+    return torch.cat([values, meta], dim=2).contiguous()
+
+
+def unpack_wgmma_sp(packed: torch.Tensor, k4: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The planes ``(v0, v1, codes) [k4, M]`` back from
+    :func:`pack_wgmma_sp`'s operand, bit for bit for codes with ``i0 <
+    i1`` (every code K2 writes)."""
+    ktp, mt = packed.shape[:2]
+    m, g = mt * WG_BM, 16 * ktp
+    dev = packed.device
+    vals = packed[:, :, :2048].contiguous().view(torch.bfloat16)
+    vals = vals.reshape(ktp, mt, WG_BM, 4, 8)
+    r = torch.arange(WG_BM, device=dev)
+    vals = vals[:, :, r[:, None], _swizzle_index(dev)]  # [kt, tile, row, ..]
+    vals = vals.permute(0, 3, 4, 1, 2).reshape(g, 2, m)
+    w = (packed[:, :, 2048:].to(torch.int64) & 0xFFFFFFFF).reshape(
+        ktp, mt, 2, 2, 4, 8, 2)
+    sh = (16 * torch.arange(2, device=dev)[:, None]
+          + 4 * torch.arange(4, device=dev)[None, :])
+    nib = (w[..., None, None] >> sh) & 15  # [..., h, +8, j]
+    nib = nib.permute(0, 3, 6, 8, 1, 2, 4, 7, 5).reshape(g, m)
+    codes = ((nib & 3) * 4 + (nib >> 2))[:k4].to(torch.uint8)
+    return (vals[:k4, 0].contiguous(), vals[:k4, 1].contiguous(),
+            codes.contiguous())
+
+
+def pack_wgmma_sp_cuda(v0, v1, codes) -> torch.Tensor:
+    """Launch the pack kernel (``csrc/spmm24.cu``: ``wg_pack_kernel``): the
+    int32 words of :func:`pack_wgmma_sp`, bit for bit, in one pass over the
+    planes (bf16 ``v0``, ``v1``, uint8 ``codes``, ``[k4, M]`` on one card,
+    M a multiple of 128)."""
+    if not v0.is_cuda or any(t.device != v0.device for t in (v1, codes)):
+        raise ValueError("pack_wgmma_sp_cuda needs the planes on one card")
+    if v0.dtype != torch.bfloat16 or v1.dtype != torch.bfloat16 or \
+            codes.dtype != torch.uint8:
+        raise ValueError("pack_wgmma_sp_cuda takes bf16 planes and uint8 "
+                         f"codes, not {v0.dtype}, {v1.dtype}, {codes.dtype}")
+    k4, m = v0.shape
+    if v1.shape != v0.shape or codes.shape != v0.shape or m % WG_BM or \
+            k4 <= 0:
+        raise ValueError(f"pack_wgmma_sp_cuda needs planes [k4, M] with M % "
+                         f"{WG_BM} == 0, got {tuple(v0.shape)}, "
+                         f"{tuple(v1.shape)}, {tuple(codes.shape)}")
+    v0, v1, codes = (t.contiguous() for t in (v0, v1, codes))
+    ktp = -(-k4 // 16)
+    out = torch.empty((ktp, m // WG_BM, WG_WORDS), dtype=torch.int32,
+                      device=v0.device)
+    launch = _build.load("spmm24", "spmm24_pack_launch", PACK_SPEC)
+    _build.check(launch(v0.data_ptr(), v1.data_ptr(), codes.data_ptr(),
+                        out.data_ptr(), m, k4, ktp, _build.device_index(v0),
+                        _build.stream_ptr(v0)), "pack_wgmma_sp_cuda")
+    pack_wgmma_sp_cuda.launches += 1
+    return out
+
+
+pack_wgmma_sp_cuda.launches = 0
+
+
+def wg_dense(packed: torch.Tensor) -> torch.Tensor:
+    """Dense ``A^T [64 ktp, M]`` f32 as the ``wgmma_sp`` tile reads its
+    operand, decoded from the packed words alone: each compressed value
+    from its swizzled place, put at the k that its metadata nibble names
+    (``i0`` for compressed column ``2g``, ``i1`` for ``2g + 1``)."""
+    ktp, mt = packed.shape[:2]
+    dev = packed.device
+    vals = packed[:, :, :2048].contiguous().view(torch.bfloat16).reshape(
+        ktp, mt, WG_BM, 4, 8)
+    r = torch.arange(WG_BM, device=dev)
+    vals = vals[:, :, r[:, None], _swizzle_index(dev)]  # logical chunks
+    vals = vals.reshape(ktp, mt, WG_BM, 16, 2).to(torch.float32)
+    w = (packed[:, :, 2048:].to(torch.int64) & 0xFFFFFFFF).reshape(
+        ktp, mt, 2, 2, 4, 8, 2)  # [kt, tile, wg, half, warp, gid, h]
+    sh = (16 * torch.arange(2, device=dev)[:, None]
+          + 4 * torch.arange(4, device=dev)[None, :])
+    nib = (w[..., None, None] >> sh) & 15  # [..., h, +8, j]
+    # rows (wg, warp, +8, gid), groups (half, h, j)
+    nib = nib.permute(0, 1, 2, 4, 7, 5, 3, 6, 8).reshape(ktp, mt, WG_BM, 16)
+    q = torch.arange(4, device=dev)
+    dense = (vals[..., 0, None] * ((nib & 3)[..., None] == q)
+             + vals[..., 1, None] * ((nib >> 2)[..., None] == q))
+    # [kt, tile, row, group, 4] -> [kt, group, 4, tile, row]
+    return dense.permute(0, 3, 4, 1, 2).reshape(64 * ktp, mt * WG_BM)
+
+
+def wg_shape(rows: int, n: int, dtype: torch.dtype) -> bool:
+    """A shape the ``wgmma_sp`` route takes: bf16, ``rows`` (M, the batch
+    folded in) a multiple of 128 and n of 64."""
+    return dtype == torch.bfloat16 and rows % WG_BM == 0 and n % 64 == 0
+
+
+def wg_refusal(*, fold: int, planes_dtype: torch.dtype, b: torch.Tensor,
+               out_dtype: torch.dtype, alpha: float, beta: float,
+               c: Optional[torch.Tensor], transpose_out: bool,
+               packed_codes: bool, tile: Optional[int], m: int
+               ) -> Optional[str]:
+    """Why the ``wgmma_sp`` route cannot take a call (``None``: it can):
+    the rule by which ``spmm_24`` and :func:`spmm24_cuda` pick K3's tile.
+    The route's epilogue writes bf16 C row-major, nothing else."""
+    if fold != 1:
+        return "fold=2 planes"
+    if tile is not None:
+        return "tile indexes the mma_sp tile"
+    if transpose_out:
+        return "transpose_out"
+    if packed_codes:
+        return "packed codes"
+    if alpha != 1.0 or (c is not None and beta != 0.0):
+        return "an alpha/beta/c epilogue"
+    if planes_dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or \
+            out_dtype != torch.bfloat16:
+        return (f"{planes_dtype} planes, {b.dtype} b, {out_dtype} out "
+                "(bf16 only)")
+    if m % WG_BM or b.shape[-1] % 64:
+        return f"M {m} % {WG_BM} or n {b.shape[-1]} % 64"
+    if b.is_contiguous() and b.data_ptr() % 16:
+        return "b is not 16-byte aligned"
+    return None
+
+
+def _check_wg(wg, b, m: int, k_logical: int, what: str
+              ) -> Tuple[int, int]:
+    """``(k-steps, n)`` of a call of either wg route, after the shape
+    checks both make: ``wg`` is the packed operand of ``m`` rows, ``b``
+    ``[k_logical, n]`` within its k-steps."""
+    if wg.dim() != 3 or b.dim() != 2:
+        raise ValueError(f"{what}: wg {tuple(wg.shape)}, b {tuple(b.shape)}")
+    ktp, mt, words = wg.shape
+    kb, n = b.shape
+    if words != WG_WORDS or mt * WG_BM != m or kb != k_logical or \
+            not 0 < k_logical <= WG_KS * ktp:
+        raise ValueError(f"{what}: wg {tuple(wg.shape)} is not "
+                         f"pack_wgmma_sp's operand of {m} rows for b "
+                         f"{tuple(b.shape)} and k_logical {k_logical}")
+    return ktp, n
+
+
+def spmm24_wg_plain(wg, b, *, m: int, k_logical: int,
+                    out_dtype: torch.dtype, block_n: Optional[int] = None,
+                    splits: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`spmm24_wg_cuda`: the packed operand decoded
+    (:func:`wg_dense`, never the planes), then an f32 product (the plan
+    knobs are ignored)."""
+    _check_wg(wg, b, m, k_logical, "spmm24_wg_plain")
+    a_t = wg_dense(wg)[:k_logical]
+    return (a_t.T @ b.to(torch.float32)).to(out_dtype)
+
+
+def spmm24_wg_cuda(wg, b, *, m: int, k_logical: int,
+                   out_dtype: torch.dtype, block_n: Optional[int] = None,
+                   splits: Optional[int] = None) -> torch.Tensor:
+    """Launch K3's ``wgmma_sp`` route: ``C [m, n] bf16 = A @ b`` with A the
+    packed operand ``wg`` (:func:`pack_wgmma_sp_cuda`) and ``b [k_logical,
+    n]`` bf16 on its card, on the current stream, under :func:`wg_plan`'s
+    plan (once per shape and card), or the one of ``block_n`` columns and
+    ``splits`` splits. Raises on anything the tile does not take. Its
+    checks are kept cheap: the host's time to queue a call
+    (``enqueue_ms``) must stay under the kernel's."""
+    ktp, n = _check_wg(wg, b, m, k_logical, "spmm24_wg_cuda")
+    index = b.get_device()
+    if index < 0 or wg.get_device() != index:
+        raise ValueError("spmm24_wg_cuda needs wg and b on one card")
+    if wg.dtype != torch.int32 or b.dtype != torch.bfloat16 or \
+            out_dtype != torch.bfloat16:
+        raise ValueError(f"spmm24_wg_cuda takes int32 wg, bf16 b and out, "
+                         f"not {wg.dtype}, {b.dtype} -> {out_dtype}")
+    if not b.is_contiguous():
+        b = b.contiguous()
+    if n % 64 or (b.data_ptr() | wg.data_ptr()) % 16 or \
+            not wg.is_contiguous():
+        raise ValueError(f"spmm24_wg_cuda needs n % 64 == 0 and contiguous, "
+                         f"16-byte aligned operands (n {n})")
+    plan = card_wg_plan(index, m, n, k_logical, block_n, splits)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=b.device)
+    ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,
+                      device=b.device) if plan.splits > 1 else None)
+    launch = _build.load("spmm24", "spmm24_wg_launch", WG_SPEC)
+    _build.check(launch(
+        wg.data_ptr(), b.data_ptr(), out.data_ptr(), _build.ptr(ws), m, n,
+        k_logical, ktp, plan.bn, plan.splits, plan.kps, plan.grid, index,
+        _build.raw_stream(index)), "spmm24_wg_cuda")
+    spmm24_wg_cuda.launches += 1
+    return out
+
+
+spmm24_wg_cuda.launches = 0

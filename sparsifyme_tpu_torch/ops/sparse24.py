@@ -3,7 +3,10 @@
 Counterpart of ``sparsifyme_tpu.ops.sparse24`` (the prune -> compress ->
 matmul pipeline of the reference's cusparseLt spmma). :func:`compress_24`
 and :func:`prune_compress_24` run kernel K2 and :func:`spmm_24` kernel K3
-on CUDA tensors, and their plain versions on CPU tensors. :func:`spmm_24` on
+on CUDA tensors, and their plain versions on CPU tensors. :func:`pack_wg`
+derives, once after compress, the operand of K3's ``wgmma_sp`` route and
+carries it in the container; :func:`spmm_24` takes that route wherever the
+call qualifies (its ``design`` knob). :func:`spmm_24` on
 fold=1 operands is differentiable in the planes, ``b`` and ``c`` through the
 JAX package's VJP, on either device; the fold=2 route has no VJP there and
 raises on the card under grad.
@@ -15,19 +18,23 @@ row-folded ``[2*k4, M/2]`` (``fold=2``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..containers import Sparse24
+from ..containers import Sparse24, WgOperand, plane_identity
 from .kernels.prune_kernel import (compress_24_cuda, compress_24_plain,
                                    prune_compress_24_cuda,
                                    prune_compress_24_plain)
-from .kernels.spmm24_kernel import (expand_planes, spmm24_cuda,
-                                    spmm24_fold_cuda, spmm24_fold_plain,
-                                    spmm24_plain, unfold_planes)
+from .kernels.spmm24_kernel import (DESIGNS, WG_BM, expand_planes,
+                                    pack_wgmma_sp, pack_wgmma_sp_cuda,
+                                    spmm24_cuda, spmm24_fold_cuda,
+                                    spmm24_fold_plain, spmm24_plain,
+                                    spmm24_wg_cuda, spmm24_wg_plain,
+                                    unfold_planes, wg_refusal)
 
 
 def compress_24(w: torch.Tensor) -> Sparse24:
@@ -82,6 +89,70 @@ def prune_compress_24(w: torch.Tensor, rank_mxu: bool = False,
                     shape=tuple(w.shape), fold=fold)
 
 
+def pack_wg(s: Sparse24) -> Sparse24:
+    """``s`` with its ``wg`` set: the operand of K3's ``wgmma_sp`` route,
+    derived once from the planes (the pack kernel on CUDA planes, its plain
+    version on CPU ones) and bound to them, so that :func:`spmm_24` refuses
+    it once a plane is replaced or written in place. Takes fold=1 bf16
+    planes whose width M is a multiple of 128; raises otherwise."""
+    if s.fold != 1:
+        raise ValueError("pack_wg takes fold=1 planes (the wgmma_sp route "
+                         "has no fold mode)")
+    v0, v1, codes = s.values0, s.values1, s.codes
+    if v0.dtype != torch.bfloat16 or v1.dtype != torch.bfloat16:
+        raise ValueError(f"pack_wg takes bf16 planes, not {v0.dtype}")
+    if v0.shape[-1] % WG_BM:
+        raise ValueError(f"pack_wg needs M % {WG_BM} == 0, got "
+                         f"{v0.shape[-1]}")
+    if _build.use_kernel(v0):
+        packed = pack_wgmma_sp_cuda(v0, v1, codes)
+    elif any(t.device.type != "cpu" for t in (v1, codes)):
+        raise ValueError("pack_wg needs the planes on one device")
+    else:
+        packed = pack_wgmma_sp(v0, v1, codes)
+    return dataclasses.replace(
+        s, wg=WgOperand(packed, plane_identity(v0, v1, codes)))
+
+
+def check_wg(s: Sparse24) -> None:
+    """Raise unless ``s.wg`` was packed from ``s``'s planes as they are
+    now: a plane replaced (``dataclasses.replace`` copies ``wg``) or
+    written in place (an SGD step) leaves it stale."""
+    if s.wg is not None and s.wg.planes != plane_identity(
+            s.values0, s.values1, s.codes):
+        raise ValueError(
+            "the container's wgmma_sp operand is stale: its planes were "
+            "replaced or written in place after pack_wg; pack them again")
+
+
+def spmm24_design(s: Sparse24, b: torch.Tensor, *, out_dtype=None,
+                  alpha: float = 1.0, beta: float = 0.0,
+                  c: Optional[torch.Tensor] = None,
+                  transpose_out: bool = False, packed_codes: bool = False,
+                  tile: Optional[int] = None,
+                  design: Optional[str] = None) -> str:
+    """The tile :func:`spmm_24` takes for this call: ``design`` where it is
+    given (``"wgmma_sp"`` raising where the route refuses the call), else
+    ``"wgmma_sp"`` when ``s`` carries ``wg`` and the call qualifies
+    (``spmm24_kernel.wg_refusal``), else ``"mma_sp"``."""
+    if design not in (None,) + DESIGNS:
+        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
+    if design == "mma_sp":
+        return design
+    out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
+    why = ("the container carries no wg (ops.sparse24.pack_wg)"
+           if s.wg is None else wg_refusal(
+               fold=s.fold, planes_dtype=s.dtype, b=b, out_dtype=out_dtype,
+               alpha=alpha, beta=beta, c=c, transpose_out=transpose_out,
+               packed_codes=packed_codes, tile=tile,
+               m=s.values0.shape[-1]))
+    if why is None:
+        return "wgmma_sp"
+    if design == "wgmma_sp":
+        raise ValueError(f"design 'wgmma_sp' cannot take this call: {why}")
+    return "mma_sp"
+
+
 def decompress_24(s: Sparse24) -> torch.Tensor:
     """Expand a :class:`Sparse24` back to its dense logical shape; fold=2
     planes are un-folded first (a compact-size copy)."""
@@ -117,6 +188,7 @@ def spmm_24(
     transpose_out: bool = False,
     packed_codes: bool = False,
     tile: Optional[int] = None,
+    design: Optional[str] = None,
 ) -> torch.Tensor:
     """Structured-sparse matmul ``alpha * decompress(s) @ b + beta * c``.
 
@@ -130,7 +202,17 @@ def spmm_24(
     (``None``: ``pick_tile``'s); the plain version ignores it. It is the
     counterpart of the TPU tiling (``block_m``, ``block_n``, ``block_k4``)
     that the JAX ``spmm_24`` takes, and what the tuner races.
+
+    ``design`` picks K3's tile (:func:`spmm24_design`): ``None`` takes the
+    ``wgmma_sp`` route where ``s`` carries ``wg`` (:func:`pack_wg`) and the
+    call qualifies (bf16 in and out, no alpha/beta/c, row-major C, unpacked
+    codes, fold 1, no ``tile``, n % 64 == 0), else the ``mma_sp`` tile;
+    ``"wgmma_sp"`` raises on a call it cannot take, ``"mma_sp"`` keeps the
+    planes' tile. A stale ``wg`` raises (:func:`check_wg`). Nothing falls
+    back from one tile to the other. The backward, where there is one, is
+    the planes' (``wg`` is forward only).
     """
+    check_wg(s)
     if transpose_a:
         raise NotImplementedError(
             "transpose_a is unsupported for 2:4 SpMM: the compression axis "
@@ -142,6 +224,9 @@ def spmm_24(
     n = b.shape[-1]
     out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
     if s.fold > 1:
+        if design == "wgmma_sp":
+            raise ValueError("design 'wgmma_sp' cannot take this call: "
+                             "fold=2 planes")
         if transpose_out:
             raise NotImplementedError(
                 "transpose_out is unsupported for folded operands (the "
@@ -162,7 +247,12 @@ def spmm_24(
         c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
     if c is None or beta == 0.0:
         c = None
-    cfg = (k, out_dtype, alpha, beta, transpose_out, packed_codes, tile)
+    wg = None
+    if spmm24_design(s, b, out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
+                     transpose_out=transpose_out, packed_codes=packed_codes,
+                     tile=tile, design=design) == "wgmma_sp":
+        wg = s.wg.packed
+    cfg = (k, out_dtype, alpha, beta, transpose_out, packed_codes, tile, wg)
     args = (s.values0, s.values1, s.codes, b, c)
     out = (_Spmm24.apply(*args, cfg) if _build.needs_grad(*args)
            else _spmm24_forward(*args, cfg))
@@ -172,8 +262,13 @@ def spmm_24(
 
 
 def _spmm24_forward(v0, v1, codes, b, c, cfg) -> torch.Tensor:
-    """K3 on CUDA planes, its plain version on CPU ones."""
-    k_logical, out_dtype, alpha, beta, transpose_out, packed, tile = cfg
+    """K3 on CUDA planes, its plain version on CPU ones: the ``wgmma_sp``
+    route on the packed operand ``wg`` where ``cfg`` carries one."""
+    k_logical, out_dtype, alpha, beta, transpose_out, packed, tile, wg = cfg
+    if wg is not None:
+        fn = spmm24_wg_cuda if _build.use_kernel(v0) else spmm24_wg_plain
+        return fn(wg, b, m=v0.shape[-1], k_logical=k_logical,
+                  out_dtype=out_dtype)
     fn = spmm24_cuda if _build.use_kernel(v0) else spmm24_plain
     return fn(v0, v1, pack_codes_fp(codes) if packed else codes, b,
               k_logical=k_logical, out_dtype=out_dtype, alpha=alpha,
@@ -202,7 +297,7 @@ class _Spmm24(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         v0, v1, codes, b = ctx.saved_tensors
-        k_logical, _, alpha, beta, transpose_out, _, _ = ctx.cfg
+        k_logical, _, alpha, beta, transpose_out, _, _, _ = ctx.cfg
         need_v0, need_v1, _, need_b, need_c, _ = ctx.needs_input_grad
         g32 = g.to(torch.float32)
         gc = (g32.T if transpose_out else g32) * alpha  # [M, n]

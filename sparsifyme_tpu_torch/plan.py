@@ -11,8 +11,13 @@ operand, and searches the formulations (``matmul_search``, the
 keyed on the full config.
 
 Without an explicit tiling the plan reads the shape's ``spmm24`` entry of
-the port's tuning table (:mod:`.bench.tuning`): K3's ``tile``, ``packed``
-codes and the ``fold``. The TPU tiling fields (``block_m``, ``block_n``,
+the port's tuning table (:mod:`.bench.tuning`): K3's ``design``, ``tile``,
+``packed`` codes and the ``fold``. Where its matmul can take K3's
+``wgmma_sp`` route (bf16 in and out, ``batch * m`` a multiple of 128, n of
+64, no tile, packed codes or fold in the entry, and an entry that does not
+name ``mma_sp``), the compress step packs the route's operand once
+(``ops.sparse24.pack_wg``) and the matmul takes the route; elsewhere it
+takes the ``mma_sp`` tile. The TPU tiling fields (``block_m``, ``block_n``,
 ``block_k4``) and the candidate slots ``pipeline``, ``row_chunks`` and
 ``budget_mb`` keep the JAX shapes of :class:`SpmmaConfig` and
 ``plan.algorithm``; K3 has no such knobs, so an explicit tiling only keeps
@@ -33,10 +38,10 @@ import torch
 from . import _build
 from .bench import tuning
 from .containers import Sparse24
-from .ops.kernels.spmm24_kernel import spmm24_cuda, spmm24_plain
+from .ops.kernels.spmm24_kernel import spmm24_cuda, spmm24_plain, wg_shape
 from .ops.prune import prune_check_nm, prune_nm
-from .ops.sparse24 import (compress_24, pack_codes_fp, prune_compress_24,
-                           spmm_24)
+from .ops.sparse24 import (compress_24, pack_codes_fp, pack_wg,
+                           prune_compress_24, spmm_24)
 from .utils.timing import Timing, time_kernel
 
 
@@ -114,14 +119,24 @@ class SpmmaPlan:
         self._packed = packed
         self._operand: Optional[Sparse24] = None
         self._operand_packed: Optional[torch.Tensor] = None
-        self._matmul = functools.partial(spmm_24, out_dtype=self.out_dtype,
-                                         packed_codes=packed, tile=self.tile)
         # A fold entry routes the whole fused pipeline through the fold=2
         # layout: prune_compress_24 emits folded planes and spmm_24
         # dispatches on the operand's fold.
         fold = int(entry.get("fold", 1) or 1)
         self._fold = fold if (fold > 1
                               and (cfg.batch * cfg.m) % fold == 0) else 1
+        # K3's wgmma_sp route: its operand is packed in the compress step
+        # where the matmul can take it and the entry does not name mma_sp
+        design = entry.get("design")
+        self._wg = (design != "mma_sp" and self.tile is None and not packed
+                    and self._fold == 1
+                    and self.out_dtype == torch.bfloat16
+                    and wg_shape(cfg.batch * cfg.m, cfg.n, _dtype(cfg.dtype)))
+        self.design: Optional[str] = (design if design != "wgmma_sp"
+                                      or self._wg else None)
+        self._matmul = functools.partial(spmm_24, out_dtype=self.out_dtype,
+                                         packed_codes=packed, tile=self.tile,
+                                         design=self.design)
 
     # -- phases --------------------------------------------------------
     def prune(self, a: torch.Tensor) -> torch.Tensor:
@@ -131,19 +146,25 @@ class SpmmaPlan:
         return prune_check_nm(a, 2, 4)
 
     def compress(self, a: torch.Tensor) -> Sparse24:
-        return compress_24(a)
+        """K2's planes, with K3's wgmma_sp operand where the plan takes
+        that route."""
+        return self._with_wg(compress_24(a))
 
     def matmul(self, s: Sparse24, b: torch.Tensor) -> torch.Tensor:
         return self._matmul(s, b)
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self._matmul(prune_compress_24(a, fold=self._fold), b)
+        return self._matmul(
+            self._with_wg(prune_compress_24(a, fold=self._fold)), b)
+
+    def _with_wg(self, s: Sparse24) -> Sparse24:
+        return pack_wg(s) if self._wg and s.wg is None else s
 
     # -- operand caching (metadata reuse across batches) ----------------
     def set_operand(self, s: Sparse24) -> None:
         """Cache ``s``; with a packed-codes algorithm, pack its codes once
         here instead of on every call."""
-        self._operand = s
+        self._operand = self._with_wg(s)
         self._operand_packed = pack_codes_fp(s.codes) if self._packed \
             else None
 
@@ -178,7 +199,8 @@ class SpmmaPlan:
         ``(block_m, block_n, block_k4, transpose_out[, pipeline[, packed[,
         row_chunks[, budget_mb]]]])`` as in the JAX package; the tiling,
         ``pipeline``, ``row_chunks`` and ``budget_mb`` slots are ignored,
-        and every candidate runs on the plan's :attr:`tile`.
+        and every candidate runs on the plan's :attr:`tile` (and, where it
+        qualifies, its ``wgmma_sp`` route).
         The default races ``transpose_out`` and, where ``k <= 1024``,
         packed codes. A C^T winner makes ``matmul`` return C^T ``[n, M]``,
         as it does in the JAX package."""
@@ -205,9 +227,11 @@ class SpmmaPlan:
         return best
 
     def _formulation(self, cand: Tuple):
+        # a candidate the wgmma_sp route cannot take keeps the mma_sp tile
         return functools.partial(
             spmm_24, out_dtype=self.out_dtype, transpose_out=bool(cand[3]),
-            packed_codes=len(cand) > 5 and bool(cand[5]), tile=self.tile)
+            packed_codes=len(cand) > 5 and bool(cand[5]), tile=self.tile,
+            design=None if self.design == "wgmma_sp" else self.design)
 
     # -- timed pipeline (the reference's return contract) ---------------
     def timed(self, a: torch.Tensor, b: torch.Tensor, *, iters: int = 8,

@@ -21,6 +21,8 @@ from typing import Any, Callable, List, NamedTuple, Sequence
 
 import torch
 
+from ..containers import Sparse24
+
 L2_BYTES = 50 * 1024 * 1024  # H100 SXM L2 cache (NVIDIA data sheet)
 WARMUP = 2  # calls per replica before timing
 
@@ -40,13 +42,14 @@ class PairTiming(NamedTuple):
 
 
 def _tensors(operands: Sequence[Any]) -> List[torch.Tensor]:
+    """The tensors of ``operands``, those of dataclasses among them (and of
+    dataclasses in their fields) included."""
     out = []
     for op in operands:
         if isinstance(op, torch.Tensor):
             out.append(op)
         elif hasattr(op, "__dataclass_fields__"):
-            out.extend(v for v in vars(op).values()
-                       if isinstance(v, torch.Tensor))
+            out.extend(_tensors(list(vars(op).values())))
     return out
 
 
@@ -55,8 +58,8 @@ def _replicate(operands: tuple) -> List[tuple]:
     replicas = max(1, min(6, -(-4 * L2_BYTES // max(nbytes, 1))))
 
     def clone(op):
-        if isinstance(op, torch.Tensor):
-            return op.clone()
+        if isinstance(op, (torch.Tensor, Sparse24)):
+            return op.clone()  # a Sparse24 rebinds its packed operand
         if hasattr(op, "__dataclass_fields__"):
             return dataclasses.replace(op, **{
                 k: v.clone() for k, v in vars(op).items()

@@ -1692,3 +1692,178 @@ def test_hopper_probes_keep_their_work_in_sass(gen):
     for body in fp1:
         assert "HGMMA" in body and "UTMALDG" in body
         assert "HMMA" not in body.replace("HGMMA", "")
+
+
+# --- K3's wgmma_sp route ------------------------------------------------------
+
+def _resnet50_shapes():
+    from sparsifyme_tpu_torch.models.resnet_shapes import resnet_conv_shapes
+
+    return sorted(set(resnet_conv_shapes("resnet50")))
+
+
+def _wg_operands(gen, rows, n, k):
+    """K2's planes of a pruned random bf16 A ``[rows, k]`` and a random
+    bf16 b, on the card."""
+    a = torch.randn((rows, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    return (*prune_kernel.prune_compress_24_cuda(a), b)
+
+
+@pytest.mark.parametrize("shape", _resnet50_shapes(),
+                         ids=lambda s: f"{s.m}x{s.n}x{s.k}x{s.b}")
+def test_wgmma_sp_route_at_the_resnet50_shapes(gen, shape):
+    """At each of the 17 unique ResNet-50 shapes (b = 32 folded into M):
+    the pack kernel writes the plain pack's words bit for bit, and the
+    route's product is its plain version's (the packed words decoded) and
+    K3's plain version's (the planes) within 2e-2."""
+    rows, k = shape.m * shape.b, shape.k
+    v0, v1, codes, b = _wg_operands(gen, rows, shape.n, k)
+    packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
+    assert torch.equal(packed, spmm24_kernel.pack_wgmma_sp(v0, v1, codes))
+    kw = dict(m=rows, k_logical=k, out_dtype=torch.bfloat16)
+    got = spmm24_kernel.spmm24_wg_cuda(packed, b, **kw)
+    assert _rel(got, spmm24_kernel.spmm24_wg_plain(packed, b, **kw)) < \
+        TOL[torch.bfloat16]
+    assert _rel(got, spmm24_kernel.spmm24_plain(
+        v0, v1, codes, b, k_logical=k, out_dtype=torch.bfloat16)) < \
+        TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("k4,m", [(1, 128), (7, 256), (20, 384),
+                                  (16, 128), (1152, 128)])
+def test_pack_kernel_bit_for_bit(gen, k4, m):
+    """The pack kernel at group counts that are not a multiple of a k-step's
+    16 (zero past the planes), on codes of every kind K2 writes and on
+    sliced (non-contiguous) planes."""
+    v0, v1, codes, _ = _wg_operands(gen, m, 64, 4 * k4)
+    want = spmm24_kernel.pack_wgmma_sp(v0, v1, codes)
+    assert torch.equal(spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes), want)
+    wide = [torch.cat([p, p], dim=1) for p in (v0, v1, codes)]
+    got = spmm24_kernel.pack_wgmma_sp_cuda(*(p[:, :m] for p in wide))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,n,k", [(1024, 128, 2048), (6272, 512, 4608),
+                                      (25088, 64, 147)])
+def test_wgmma_sp_route_under_every_plan(gen, rows, n, k):
+    """Every width and split count the tile takes (split-k's f32 partials
+    and second pass included) against the plain version."""
+    v0, v1, codes, b = _wg_operands(gen, rows, n, k)
+    packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
+    kw = dict(m=rows, k_logical=k, out_dtype=torch.bfloat16)
+    want = spmm24_kernel.spmm24_wg_plain(packed, b, **kw)
+    kt = -(-k // 64)
+    for bn in (64, 128):
+        for splits in range(1, min(kt, 8) + 1):
+            if n % bn or (splits - 1) * -(-kt // splits) >= kt:
+                continue
+            got = spmm24_kernel.spmm24_wg_cuda(packed, b, block_n=bn,
+                                               splits=splits, **kw)
+            assert _rel(got, want) < TOL[torch.bfloat16], (bn, splits)
+
+
+def test_wgmma_sp_route_refuses_on_the_card(gen):
+    """Every call the route does not take raises when it is forced, and
+    launches nothing; a stale operand raises whatever the design; design
+    None keeps the mma_sp tile on such calls."""
+    import dataclasses
+
+    from sparsifyme_tpu_torch import pack_wg, prune_compress_24, spmm_24
+
+    a = torch.randn((2, 128, 256), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b = torch.randn((256, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    s = prune_compress_24(a)
+    sw = pack_wg(s)
+    before = spmm24_kernel.spmm24_wg_cuda.launches
+    for kw in (dict(transpose_out=True), dict(alpha=2.0),
+               dict(beta=1.0, c=torch.ones((2, 128, 64), device="cuda")),
+               dict(out_dtype=torch.float32), dict(packed_codes=True),
+               dict(tile=1)):
+        with pytest.raises(ValueError, match="wgmma_sp"):
+            spmm_24(sw, b, design="wgmma_sp", **kw)
+        spmm_24(sw, b, **kw)  # design None: the mma_sp tile
+    with pytest.raises(ValueError, match="wgmma_sp"):
+        spmm_24(s, b, design="wgmma_sp")  # no operand
+    with pytest.raises(ValueError, match="wgmma_sp"):
+        spmm_24(prune_compress_24(a, fold=2), b, design="wgmma_sp")
+    b72 = torch.randn((256, 72), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    with pytest.raises(ValueError, match="wgmma_sp"):
+        spmm_24(sw, b72, design="wgmma_sp")  # n % 64
+    with pytest.raises(ValueError, match="wgmma_sp"):
+        spmm24_kernel.spmm24_cuda(s.values0, s.values1, s.codes, b,
+                                  k_logical=256, out_dtype=torch.bfloat16,
+                                  design="wgmma_sp")
+    for bad in (prune_compress_24(a, fold=2), prune_compress_24(a.float()),
+                prune_compress_24(a[:, :100])):
+        with pytest.raises(ValueError):
+            pack_wg(bad)
+    assert spmm24_kernel.spmm24_wg_cuda.launches == before
+    stale = dataclasses.replace(sw, values0=sw.values0.clone())
+    with pytest.raises(ValueError, match="stale"):
+        spmm_24(stale, b)
+    sw.values1.mul_(2)
+    with pytest.raises(ValueError, match="stale"):
+        spmm_24(sw, b, design="mma_sp")
+    assert spmm24_kernel.spmm24_wg_cuda.launches == before
+    got = spmm_24(pack_wg(s), b)
+    assert spmm24_kernel.spmm24_wg_cuda.launches == before + 1
+    assert _rel(got, spmm_24(s, b)) < TOL[torch.bfloat16]
+
+
+def test_k3_library_holds_the_wgmma_sp_route(gen, tmp_path):
+    """libspmm24.so holds the route's sparse warpgroup MMAs (HGMMA ... SP)
+    fed by TMA (UTMALDG) and the pack kernel, and the mma_sp kernels are
+    those of spmm24.cu built without the route (its text above the route's
+    marker line), instruction for instruction."""
+    import collections
+    import subprocess
+
+    from sparsifyme_tpu_torch import _build
+    from sparsifyme_tpu_torch.bench.check_parent import sass_functions
+
+    funcs = _sass_functions("spmm24")
+    wg = [body for name, body in funcs.items() if "wgsp_kernel" in name]
+    assert len(wg) == 2  # kFull at 4 stages, 64 and 128 columns
+    for body in wg:
+        assert "HGMMA" in body and ".SP" in body and "UTMALDG" in body
+    assert any("wg_pack_kernel" in name for name in funcs)
+    text = (_build.CSRC / "spmm24.cu").read_text()
+    src = tmp_path / "spmm24.cu"  # the same name: kernels named alike
+    src.write_text(text[:text.index("// --- the wgmma_sp route")])
+    lib = tmp_path / "libspmm24.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib), str(src)], check=True,
+                   capture_output=True)
+    alone = collections.Counter(sass_functions(lib).values())
+    assert alone and not alone - collections.Counter(funcs.values())
+
+
+def test_wgmma_sp_enqueue_is_under_its_device_time(gen):
+    """At U (784x256x1024, b = 32) the host queues a call of the route's
+    wrapper in less time than the card runs it."""
+    import time
+
+    from sparsifyme_tpu_torch.utils.timing import time_graph
+
+    rows, n, k = 25088, 256, 1024
+    v0, v1, codes, b = _wg_operands(gen, rows, n, k)
+    packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
+
+    def call(pk, y):
+        return spmm24_kernel.spmm24_wg_cuda(pk, y, m=rows, k_logical=k,
+                                            out_dtype=torch.bfloat16)
+    device_ms = time_graph(call, (packed, b), iters=20, reps=5).ms
+    for _ in range(5):
+        call(packed, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        call(packed, b)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 50
+    torch.cuda.synchronize()
+    assert enqueue_ms < device_ms, (enqueue_ms, device_ms)

@@ -203,7 +203,8 @@ def test_no_tuning_table_is_shipped():
     shapes = set(resnet_conv_shapes("resnet50"))
     assert set(table) == {tuning.shape_key(*s) for s in shapes}
     schema = {"gemm": {"fold", "ms"}, "fused": {"fold", "ms"},
-              "spmm24": {"tile", "transpose_out", "packed", "fold", "ms"},
+              "spmm24": {"design", "tile", "transpose_out", "packed",
+                         "fold", "block_n", "splits", "ms"},
               "ell": {"formulation", "transpose_out", "block_size",
                       "block_k", "fold_first", "block_n", "splits", "ms"}}
     for entry in table.values():

@@ -136,14 +136,18 @@ def test_every_ell_candidate_matches_the_oracle_and_jax(rng, jdt, tdt,
                                    (12544, 64, 147, 32)])
 def test_candidates_are_filtered_before_launch(shape):
     """Only what the card can run is raced: packed where k <= 1024, fold=2
-    where k4 <= 256 and b*m is even, the fused fold where k <= 160, ELL
-    edges K4/K5 take, and every forced plan one that ell_plan admits."""
+    where k4 <= 256 and b*m is even, K3's wgmma_sp route where b*m % 128
+    and n % 64 are 0, the fused fold where k <= 160, ELL edges K4/K5 take,
+    and every forced plan one that ell_plan admits."""
     m, n, k, b = shape
     s24 = tune.spmm24_candidates(m, n, k, b)
     assert any(c["packed"] for c in s24) == (k <= 1024)
     assert any(c["fold"] == 2 for c in s24) == (k <= 1024)
-    assert {c["tile"] for c in s24 if not c["packed"] and c["fold"] == 1} \
+    assert {c["tile"] for c in s24 if not c["packed"] and c["fold"] == 1
+            and c["design"] == "mma_sp"} \
         == set(range(len(spmm24_kernel.SP_TILES)))
+    assert [c["tile"] for c in s24 if c["design"] == "wgmma_sp"] == (
+        [None] if (b * m) % 128 == 0 and n % 64 == 0 else [])
     assert any(c["fold"] == 2 for c in tune.fused_candidates(m, k, b)) == \
         (k <= 160)
     ell = tune.ell_candidates(m, n, k, b)
@@ -270,20 +274,22 @@ S24 = {"tile": 2, "transpose_out": False, "packed": False, "fold": 1}
 ELL = {"formulation": "gather", "transpose_out": True, "block_size": 128,
        "block_k": 32, "fold_first": True, "block_n": 64, "splits": 1}
 ENTRIES = [
-    # (spmm24 winner, ell winner, the spmm24 / ell calls expected)
+    # (spmm24 winner, ell winner, the spmm24 / ell calls expected); the
+    # default is K3's wgmma_sp route where the shape takes it (TINY's n does
+    # not: the mma_sp tile, row-major C)
     (S24, ELL,
-     {(2, False, False, 1), (None, True, False, 1)},
+     {(2, False, False, 1), (None, False, False, 1)},
      {("gather", True, 64, 1), ("gather", False, None, None)}),
     (dict(S24, tile=None, packed=True), dict(ELL, formulation="expand",
                                              block_n=None, splits=None),
-     {(None, False, True, 1), (None, True, False, 1)},
+     {(None, False, True, 1), (None, False, False, 1)},
      {("expand", True, None, None), ("gather", False, None, None)}),
     (dict(S24, tile=None, fold=2), dict(ELL, transpose_out=False, splits=2),
-     {(None, False, False, 2), (None, True, False, 1)},
+     {(None, False, False, 2), (None, False, False, 1)},
      {("gather", False, 64, 2), ("gather", True, None, None)}),
     # the winner is the default: raced alone
-    (dict(S24, tile=None, transpose_out=True), ELL,
-     {(None, True, False, 1)},
+    (dict(S24, tile=None), ELL,
+     {(None, False, False, 1)},
      {("gather", True, 64, 1), ("gather", False, None, None)}),
 ]
 
