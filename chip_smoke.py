@@ -6,7 +6,7 @@ kernels from ``sparsifyme_tpu_torch/csrc`` with nvcc at first use)
 
 Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
-  2. build the ten Hopper kernel sources (one nvcc each, in parallel);
+  2. build the eleven Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
      at full ResNet-50 width (b=32) at the six bench shapes: K1 prune (bit
      for bit, also in f32 and as a view at an odd storage offset at
@@ -30,11 +30,16 @@ Phases, each raising on failure:
      version on the planes, and every call it does not take (transpose_out,
      alpha, beta/c, f32 out, packed codes, a tile, n % 64, no operand,
      fold=2, a stale operand; f32, fold=2 and ragged planes for the pack)
-     raising when the route is forced, with no launch; K7 (the ring step)
+     raising when the route is forced, with no launch; K7's mma_sp step
      on windows
      of the ResNet-scale shard's planes, bf16 and f32, every first/last
      flag, whole shards and m-tiles, and at a ragged row count, within
-     2e-2 / 1e-4 of its plain version;
+     2e-2 / 1e-4 of its plain version; K7's wgmma_sp step on rank 1 of
+     4's windows of the shard's packed operand (the whole shard, the
+     tiled windows at columns 3 * 896 and 6 * 896), every flag, bf16 and
+     f32 C, within 2e-2 (bf16 C) / 1e-4 (f32) of its plain version; at
+     the ragged count a ring takes the mma_sp step and a forced wgmma_sp
+     raises;
   3b. the gradients: ``spmm_24``, ``spmm_ell`` and ``spmm_ell_expand`` at
      3136x128x1152 (b=32, bf16) under autograd, the forward through the
      kernel and the backward of the op's ``autograd.Function``, against
@@ -81,14 +86,17 @@ Phases, each raising on failure:
   7. the ring path: ``config4_row_partitioned_scaling()`` (BASELINE config
      4) at full size, 1, 2, 4 and 8 ranks round-robin over the cards,
      counters set to 0 just before and read just after; prints its JSON
-     line and fails unless K7 launched on both routes and every
-     ``ring_ms`` and ``ideal_ms`` is finite and positive; then both K7
-     rings at the ResNet-scale shard (784x256x1024 at b=32: 25088 folded
-     rows, P = 4, 6272 x 1024 per rank, 7 m-tiles of 896) against
-     single-card ``spmm_24`` in bf16 (2e-2) and f32 (1e-4), each ring
-     called three times from an empty graph cache (eager, capture and
-     replay, replay), every result held to ``spmm_24`` and the replays
-     bitwise equal to the eager ring;
+     line and fails unless K7's mma_sp step launched on both routes (f32)
+     and every ``ring_ms`` and ``ideal_ms`` is finite and positive; then
+     both K7 rings at the ResNet-scale shard (784x256x1024 at b=32: 25088
+     folded rows, P = 4, 6272 x 1024 per rank, 7 m-tiles of 896) against
+     single-card ``spmm_24`` in bf16 (2e-2; the container packed once with
+     ``pack_wg``, so both rings take K7's wgmma_sp step) and f32 (1e-4),
+     each ring called three times from an empty graph cache (eager,
+     capture and replay, replay), every result held to ``spmm_24`` and the
+     replays bitwise equal to the eager ring; the counters are read after
+     the rings, and the phase fails unless ``pack_wg`` and the wgmma_sp
+     step of both routes launched;
   7b. the model path, counters set to 0 once before it and checked after
      each part: (1) ``SparseConv2d`` on ResNet-50's conv1 (7x7/2, 3->64,
      32x224x224x3 NHWC), ``SparseConv2d`` and ``EllConv2d`` on
@@ -140,8 +148,14 @@ Phases, each raising on failure:
      has a second entry at its worst main-path shape, 196x512x4608; K5's
      entry, at its worst, 12544x256x64, also times K4 on the same operand,
      ``gather_ms``; the ring
-     entries time a whole ring call, with the plain step in K7's place
-     for ``plain_ms``, and add K7's own device time in that call,
+     entries (at R on a container packed once: ``ring_step_wg`` and
+     ``ring_step_wg_tiled`` on K7's wgmma_sp step, ``ring_step`` and
+     ``ring_step_tiled`` on the same calls with ``design="mma_sp"``; each
+     with its ``design``, the wgmma_sp ones with ``mma_sp_ms``,
+     ``mma_sp_kernel_ms`` and ``mma_sp_enqueue_ms`` beside their own; the
+     bound counts A as the step reads it, packed or as planes) time a
+     whole ring call, with the plain step in K7's
+     place for ``plain_ms``, and add K7's own device time in that call,
      ``kernel_ms``, the host's time to queue one, ``enqueue_ms``, the
      time of one call with B at a new address, which misses the graph
      cache and runs the ring eagerly, ``fresh_ms``, of the next call,
@@ -184,11 +198,14 @@ Phases, each raising on failure:
      steps of the flagship MLP's dp x tp step (``step_ms``, the losses,
      which must fall) and both K7 rings at 784x256x1024 (b=32) against
      single-card ``spmm_24`` (2e-2), each held to the one-process port on
-     the same seeds (2e-2; codes exactly), and both K7 rings and config
+     the same seeds (2e-2; codes exactly; each process's shard packed
+     once with ``pack_wg``, so the bf16 rings take K7's wgmma_sp step),
+     and both K7 rings and config
      4's ppermute ring to their plain version on CPU copies of each
      rank's blocks (bf16 2e-2, f32 1e-4); rank 0's ``{"processes":
      ...}`` line is printed, with every rank's launch counts, and the
-     phase fails unless K3 and both K7 routes launched on every rank or
+     phase fails unless K3 and both K7 routes on both steps (mma_sp in
+     the f32 rings, wgmma_sp in the bf16 ones) launched on every rank or
      the launcher exits non-zero; its launches join the kernels line's
      per-path counts (path ``procs``); then ``measure_machine()``'s rates
      (dense bf16, memory, f32) beside the data sheet's, with the card
@@ -263,6 +280,10 @@ REPLACES = {
                  "spmm_24_ring_pallas",
     "ring_step_tiled": "sparsifyme_tpu/parallel/ring_kernel.py:377 "
                        "spmm_24_ring_tiled_pallas",
+    "ring_step_wg": "sparsifyme_tpu/parallel/ring_kernel.py:146 "
+                    "spmm_24_ring_pallas (K7's wgmma_sp step)",
+    "ring_step_wg_tiled": "sparsifyme_tpu/parallel/ring_kernel.py:377 "
+                          "spmm_24_ring_tiled_pallas (K7's wgmma_sp step)",
 }
 SOURCES = {
     "prune_nm": "sparsifyme_tpu_torch/csrc/prune_nm.cu",
@@ -277,21 +298,27 @@ SOURCES = {
     "spmm_coo": "sparsifyme_tpu_torch/csrc/coo_spmm.cu",
     "ring_step": "sparsifyme_tpu_torch/csrc/ring24.cu",
     "ring_step_tiled": "sparsifyme_tpu_torch/csrc/ring24.cu",
+    "ring_step_wg": "sparsifyme_tpu_torch/csrc/ring24_wg.cu",
+    "ring_step_wg_tiled": "sparsifyme_tpu_torch/csrc/ring24_wg.cu",
 }
 SWEEP_ROUTES = ("prune_nm", "compress_24", "prune_compress_24", "spmm_24",
                 "spmm_ell", "spmm_ell_expand")
 PLAN_ROUTES = ("prune_nm", "compress_24", "prune_compress_24", "spmm_24",
                "spmm_24_fold")
 COO_ROUTES = ("spmm_coo",)
-RING_ROUTES = ("prune_nm", "compress_24", "spmm_24", "ring_step",
-               "ring_step_tiled")
+# config 4 (f32: K7's mma_sp step, the simple tile) and dryrun_multichip
+RING_MMA_ROUTES = ("prune_nm", "compress_24", "spmm_24", "ring_step",
+                   "ring_step_tiled")
+# the bf16 rings at R on a packed container: K7's wgmma_sp step
+RING_WG_ROUTES = ("pack_wg", "ring_step_wg", "ring_step_wg_tiled")
 MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
 MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
 PATHS = ("bench", "plan", "coo", "ring", "model", "tune", "probes",
          "procs")
 # the process path's kernels that must launch on every rank (K1 and K2
 # build its operands where a card prunes and compresses)
-PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled")
+PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled", "ring_step_wg",
+                "ring_step_wg_tiled")
 PROCESS_TIMEOUT_S = 420  # one launcher run, all ranks
 # N, E and D: the tune phase's shapes (b=32)
 TUNE_SHAPES = [(3136, 128, 1152), (12544, 256, 64), (196, 512, 4608)]
@@ -787,9 +814,11 @@ def ring_calls(name, fn, want, dtype, what, captured):
 
 
 def phase_kernels_ring(gen) -> None:
-    """K7 against its plain version on windows of the ResNet-scale shard's
-    planes (rank 1 of 4: row stride 25088, 6272 columns, m-tiles of 896),
-    every first/last flag, and at a ragged row count (1001 per rank)."""
+    """K7's mma_sp step against its plain version on windows of the
+    ResNet-scale shard's planes (rank 1 of 4: row stride 25088, 6272
+    columns, m-tiles of 896), every first/last flag, and at a ragged row
+    count (1001 per rank); then its wgmma_sp step
+    (``phase_kernels_ring_wg``)."""
     from sparsifyme_tpu_torch.parallel import ring_kernel as rk
 
     p = RING_P
@@ -828,6 +857,70 @@ def phase_kernels_ring(gen) -> None:
                       f"{str(dtype)[6:]}")
             del s, planes, slot, acc0
             torch.cuda.empty_cache()
+    phase_kernels_ring_wg(gen)
+
+
+def phase_kernels_ring_wg(gen) -> None:
+    """K7's wgmma_sp step against its plain version (the packed words
+    decoded) on rank 1 of 4's windows of the container's packed operand
+    at the ResNet-scale shard (the one-card mesh's addressing: the rank's
+    window starts at m-tile 49 of the 196): the whole shard and the tiled
+    route's windows at columns 3 * 896 and 6 * 896, every first/last flag,
+    bf16 and f32 C; the accumulator within 1e-4, C within 2e-2 (bf16) or
+    1e-4 (f32). At the ragged row count (1001 a rank, which pack_wg
+    cannot take) a ring takes the mma_sp step, and a forced wgmma_sp
+    raises with no launch."""
+    from sparsifyme_tpu_torch import make_mesh, spmm_24, spmm_24_ring_explicit
+    from sparsifyme_tpu_torch.ops.sparse24 import pack_wg
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    p, r = RING_P, 1
+    f32 = torch.float32
+    s, _ = ring_operands(torch.bfloat16, gen)
+    s = pack_wg(s)
+    rows, k4 = s.values0.shape[1], s.values0.shape[0]
+    mloc, k4s, n = rows // p, k4 // p, RING[1]
+    mt = rk._pick_mt(mloc)
+    a_wg = (s.wg.packed, r * mloc // 128)
+    slot = torch.randn((4 * k4s, n), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    acc0 = torch.randn((mloc, n), generator=gen, device="cuda")
+    flags = [(True, False), (False, False), (False, True), (True, True)]
+    cases = ([(f, l, 0, mloc) for f, l in flags]
+             + [(f, l, c0, mt) for f, l in flags for c0 in (3 * mt, 6 * mt)])
+    for odt in (torch.bfloat16, f32):
+        for i, (first, last, c0, width) in enumerate(cases):
+            kern = (rk.ring_step_wg_tiled_cuda if width < mloc
+                    else rk.ring_step_wg_cuda)
+
+            def run(fn):
+                acc = acc0.clone()
+                out = torch.zeros((mloc, n), dtype=odt, device="cuda")
+                fn(*a_wg, slot, acc, out, src=(r - i) % p, c0=c0, mt=width,
+                   first=first, last=last)
+                return out if last else acc
+
+            close("ring_step_wg" if width == mloc else "ring_step_wg_tiled",
+                  run(kern), run(rk.ring_step_wg_plain), odt if last else f32,
+                  f"{rows}x{n}x{4 * k4} rank {r}/{p} cols {c0}+{width} "
+                  f"first={int(first)} last={int(last)} {str(odt)[6:]}")
+    del s, slot, acc0
+    s, b = ring_operands(torch.bfloat16, gen, 1, 1001 * p)
+    mesh = make_mesh((p,), ("model",), devices=ring_devices(p))
+    wg0, mma0 = rk.ring_step_wg_cuda.launches, rk.ring_step_cuda.launches
+    try:
+        spmm_24_ring_explicit(s, b, mesh, "model", design="wgmma_sp")
+    except ValueError as e:
+        print(f"  ring_step_wg      1001 rows a rank, forced: raises ({e})",
+              flush=True)
+    else:
+        raise AssertionError("a forced wgmma_sp ring took 1001 rows a rank")
+    close("ring_step", spmm_24_ring_explicit(s, b, mesh, "model"),
+          spmm_24(s, b), torch.bfloat16, f"{1001 * p}x{n}x1024 P={p} ring")
+    if rk.ring_step_wg_cuda.launches != wg0 or \
+            rk.ring_step_cuda.launches == mma0:
+        raise AssertionError("the ragged ring did not take the mma_sp step")
+    torch.cuda.empty_cache()
 
 
 def phase_pipeline() -> None:
@@ -957,6 +1050,8 @@ def _wrappers():
         "spmm_coo": coo_kernel.spmm_coo_cuda,
         "ring_step": ring_kernel.ring_step_cuda,
         "ring_step_tiled": ring_kernel.ring_step_tiled_cuda,
+        "ring_step_wg": ring_kernel.ring_step_wg_cuda,
+        "ring_step_wg_tiled": ring_kernel.ring_step_wg_tiled_cuda,
     }
 
 
@@ -1310,13 +1405,18 @@ def phase_coo_path():
 
 
 def phase_ring_path():
-    """BASELINE config 4 at full size through its entry point, then both K7
-    rings at the ResNet-scale shard against single-card ``spmm_24``."""
+    """BASELINE config 4 at full size through its entry point (f32: K7's
+    mma_sp step), then both K7 rings at the ResNet-scale shard against
+    single-card ``spmm_24``: in bf16 on a container packed once
+    (``pack_wg``: K7's wgmma_sp step) and in f32. Counters are set to 0
+    before config 4 and read after the rings; config 4's routes are
+    checked after it, the wgmma_sp step's after the rings."""
     from sparsifyme_tpu_torch import (make_mesh, spmm_24,
                                       spmm_24_ring_explicit,
                                       spmm_24_ring_tiled)
     from sparsifyme_tpu_torch.bench.configs import (
         RANKS, config4_row_partitioned_scaling)
+    from sparsifyme_tpu_torch.ops.sparse24 import pack_wg
     from sparsifyme_tpu_torch.parallel import ring_graph
     from sparsifyme_tpu_torch.parallel.ring_kernel import _pick_mt
 
@@ -1339,7 +1439,7 @@ def phase_ring_path():
     for ring in ("explicit_overlap_ring", "tiled_ring"):
         if not result[ring]["max_rel_err_vs_ppermute"] <= 1e-4:
             raise AssertionError(f"config 4 {ring}: {result[ring]}")
-    check_launched(counts, RING_ROUTES, "ring")
+    check_launched(counts, RING_MMA_ROUTES, "ring (config 4)")
 
     m, n, k = RING
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1350,6 +1450,8 @@ def phase_ring_path():
         if (mloc, _pick_mt(mloc)) != (6272, 896):
             raise AssertionError(f"shard {mloc} rows, m-tile {_pick_mt(mloc)}")
         want = spmm_24(s, b, out_dtype=dtype)
+        if dtype == torch.bfloat16:
+            s = pack_wg(s)  # once, as a caller packs after compress
         captured = ring_graph.captures(mesh.axis_devices("model"),
                                        s.values0, b)
         for name, fn in (("ring_step", spmm_24_ring_explicit),
@@ -1360,6 +1462,9 @@ def phase_ring_path():
                        "spmm_24", captured)
         del s, b, want
     ring_graph.clear()
+    counts = launch_counts()
+    print(f"ring path: launches {counts}", flush=True)
+    check_launched(counts, RING_WG_ROUTES, "ring")
     return counts
 
 
@@ -1480,7 +1585,7 @@ def phase_model_path(trace_dir="traces/model_path"):
 
     # part 4, and what parts 1-3 are held to
     tentry.dryrun_multichip(4)
-    check_part("4 dryrun_multichip(4)", RING_ROUTES, seen)
+    check_part("4 dryrun_multichip(4)", RING_MMA_ROUTES, seen)
     counts = launch_counts()
     print(f"  model path launches {counts}", flush=True)
     result = {"busy_share": share, "traced_s": traced_s, "convs": []}
@@ -1787,11 +1892,13 @@ def _coo_bound(nnz, slots, m, k, n):
     return _bound(flops, rl.H100.f32_tflops, byts)
 
 
-def _ring_bytes(rows, n, k, p, tiles):
-    """What a whole ring must move in bf16: A's planes (1.25 B per logical
-    element), B and C once each, and the halo: each rank forwards its
-    [k/P, n] shard P-1 times, once per m-tile."""
-    return (1.25 * rows * k + 2.0 * k * n + 2.0 * rows * n
+def _ring_bytes(rows, n, k, p, tiles, design="mma_sp"):
+    """What a whole ring must move in bf16: A as the ``design`` step reads
+    it (``mma_sp``: the planes, 1.25 B a logical element; ``wgmma_sp``:
+    the packed operand, 1.125), B and C once each, and the halo: each rank
+    forwards its [k/P, n] shard P-1 times, once per m-tile."""
+    a_bytes = 1.125 if design == "wgmma_sp" else 1.25
+    return (a_bytes * rows * k + 2.0 * k * n + 2.0 * rows * n
             + 2.0 * p * (p - 1) * (k // p) * n * tiles)
 
 
@@ -1853,18 +1960,24 @@ def _enqueue_ms(fn, ops, calls=10):
     return ms
 
 
-def _plain_ring(fn, mesh):
-    """``fn`` on ``mesh`` with K7's plain version in its place: the same
-    ring, exchange and all, on the card."""
+def _plain_ring(fn, mesh, design):
+    """``fn`` on ``mesh`` with the plain version of K7's ``design`` step in
+    its place: the same ring, exchange and all, on the card."""
     from sparsifyme_tpu_torch.parallel import ring_kernel as rk
 
+    names = ("ring_step_cuda", "ring_step_tiled_cuda", "ring_step_wg_cuda",
+             "ring_step_wg_tiled_cuda")
+
     def run(s, b):
-        saved = rk.ring_step_cuda, rk.ring_step_tiled_cuda
+        saved = [getattr(rk, name) for name in names]
         rk.ring_step_cuda = rk.ring_step_tiled_cuda = rk.ring_step_plain
+        rk.ring_step_wg_cuda = rk.ring_step_wg_tiled_cuda = \
+            rk.ring_step_wg_plain
         try:
-            return fn(s, b, mesh, "model")
+            return fn(s, b, mesh, "model", design=design)
         finally:
-            rk.ring_step_cuda, rk.ring_step_tiled_cuda = saved
+            for name, f in zip(names, saved):
+                setattr(rk, name, f)
     return run
 
 
@@ -2053,29 +2166,42 @@ def phase_kernel_line(path_counts) -> dict:
             (bb,), (torch.sparse.mm, (a_sp, b_fold.contiguous())),
             _coo_bound(coo.nnz, packed[0].numel(), m, k, n)))
 
-    # K7: a whole ring at the ResNet-scale shard, P = 4 ranks
+    # K7: a whole ring at the ResNet-scale shard, P = 4 ranks, on a
+    # container packed once: each route on its wgmma_sp step, then on its
+    # mma_sp step (the same call, the design forced)
     from sparsifyme_tpu_torch import (make_mesh, spmm_24_ring_explicit,
                                       spmm_24_ring_tiled)
+    from sparsifyme_tpu_torch.ops.sparse24 import pack_wg
     from sparsifyme_tpu_torch.parallel import ring_graph
     from sparsifyme_tpu_torch.parallel.ring_kernel import _pick_mt
 
     m, n, k = RING
     rows = m * BATCH
     s, b = ring_operands(dt, gen)
+    s = pack_wg(s)
     mesh = make_mesh((RING_P,), ("model",), devices=ring_devices(RING_P))
     mt = _pick_mt(rows // RING_P)
     dense_a = decompress_24(s).reshape(-1, k)
     design_bytes = _ring_design_bytes(rows, n, RING_P)
-    for name, fn, tiles in (
-            ("ring_step", spmm_24_ring_explicit, 1),
-            ("ring_step_tiled", spmm_24_ring_tiled, rows // RING_P // mt)):
+    ring_design = {}
+    for name, fn, tiles, design in (
+            ("ring_step_wg", spmm_24_ring_explicit, 1, "wgmma_sp"),
+            ("ring_step_wg_tiled", spmm_24_ring_tiled, rows // RING_P // mt,
+             "wgmma_sp"),
+            ("ring_step", spmm_24_ring_explicit, 1, "mma_sp"),
+            ("ring_step_tiled", spmm_24_ring_tiled, rows // RING_P // mt,
+             "mma_sp")):
+        ring_design[name] = design
         specs.append((
             name, f"{m}x{n}x{k}x{BATCH} P={RING_P}"
             + (f" m_tile={mt}" if tiles > 1 else "") + " bf16",
-            lambda ss, y, fn=fn: fn(ss, y, mesh, "model"),
-            _plain_ring(fn, mesh), (s, b), (torch.matmul, (dense_a, b)),
+            lambda ss, y, fn=fn, design=design: fn(ss, y, mesh, "model",
+                                                   design=design),
+            _plain_ring(fn, mesh, design), (s, b),
+            (torch.matmul, (dense_a, b)),
             _bound(2.0 * rows * n * k, rl.H100.sparse24_tflops,
-                   _ring_bytes(rows, n, k, RING_P, tiles))))
+                   _ring_bytes(rows, n, k, RING_P, tiles,
+                               design=design))))
 
     captured = ring_graph.captures(mesh.axis_devices("model"), s.values0, b)
     out = []
@@ -2130,6 +2256,7 @@ def phase_kernel_line(path_counts) -> dict:
                 extra["kernel_ms"] = _device_ms(kern, ops)
             extra["enqueue_ms"] = _enqueue_ms(kern, ops)
         if name.startswith("ring_step"):
+            extra["design"] = ring_design[name]
             extra["design_bytes"] = design_bytes
         if name in WG_ROUTES:
             # device time with the calls replayed in a CUDA graph, and the
@@ -2162,6 +2289,13 @@ def phase_kernel_line(path_counts) -> dict:
         reps=5).ms
     next(o for o in out if o["name"] == "spmm_ell_expand")["gather_ms"] = \
         gather_ms
+    # each wgmma_sp ring beside the same call on the mma_sp step
+    for wg_name, mma_name in (("ring_step_wg", "ring_step"),
+                              ("ring_step_wg_tiled", "ring_step_tiled")):
+        mma = next(o for o in out if o["name"] == mma_name)
+        next(o for o in out if o["name"] == wg_name).update(
+            mma_sp_ms=mma["ms"], mma_sp_kernel_ms=mma["kernel_ms"],
+            mma_sp_enqueue_ms=mma["enqueue_ms"])
     out += probe_entries(path_counts, gen)
     return {"kernels": out}
 

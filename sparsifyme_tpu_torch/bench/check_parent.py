@@ -10,15 +10,18 @@ builds their three libraries from another checkout (the parent commit,
 unpacked with ``git archive``) beside this tree's and checks:
 
 * SASS: every kernel body of the other build of ``libcompress24.so``,
-  ``libspmm24.so``, ``libring24.so`` and of K1's, K4's, K5's and K6's
-  libraries (``cuobjdump --dump-sass``, address comments removed) is in
+  ``libspmm24.so``, ``libring24.so``, of K1's, K4's, K5's and K6's
+  libraries and of the ``wgmma_sp`` probe's (``libsp24_wg_units.so``,
+  whose tile K3's route and K7's ``wgmma_sp`` step share)
+  (``cuobjdump --dump-sass``, address comments removed) is in
   this build, compared as multisets of bodies (a template parameter added
   with a default renames a kernel, not its code); a library may gain
   kernels (K3's gained its ``wgmma_sp`` route and pack kernel), and each
   line says whether the two are identical;
 * outputs, bit for bit on the same card tensors: K2 and its fused route;
   K3 at every tile in bf16 and f32 out, with the epilogue
-  (``transpose_out``, alpha, beta, C) and on the fold route (k <= 1024), at
+  (``transpose_out``, alpha, beta, C), on the fold route (k <= 1024) and
+  on its ``wgmma_sp`` route with its pack (M % 128, n % 64), at
   the six bench shapes, a shape of the JAX units probe and a ragged one
   (b = 32); both K7 rings at 784x256x1024 (b = 32) on four ranks of one
   card.
@@ -51,9 +54,10 @@ from typing import Callable, Dict
 import torch
 
 from .. import _build
+from ..utils import sass
 
 LIBS = ("compress24", "spmm24", "ring24", "prune_nm", "ell_spmm",
-        "ell_expand", "coo_spmm")
+        "ell_expand", "coo_spmm", "sp24_wg_units")
 # m x n x k (b = 32 folded into m in the operands): the bench shapes, the
 # JAX units probe's first (3136 = 100352 / 32) and a ragged one
 SHAPES = [(12544, 64, 147), (12544, 64, 576), (12544, 256, 64),
@@ -65,11 +69,8 @@ BATCH = 32
 def sass_functions(lib: Path) -> Dict[str, str]:
     """``{mangled name: SASS}`` of a built library, each instruction line
     without its address and encoding comments."""
-    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "--dump-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
     funcs = {}
-    for part in sass.split("Function : ")[1:]:
+    for part in sass.dump(lib).split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         lines = []
         for ln in body.splitlines():
@@ -172,6 +173,13 @@ def same_outputs(other: Path) -> bool:
         r.append(bitwise(lambda: k3.spmm24_cuda(
             v0, v1, codes, b, k_logical=k, out_dtype=torch.bfloat16,
             transpose_out=True, alpha=0.5, beta=2.0, c=c), other))
+        if (BATCH * m) % k3.WG_BM == 0 and n % 64 == 0:
+            r.append(bitwise(lambda: k3.pack_wgmma_sp_cuda(v0, v1, codes),
+                             other))
+            wg = k3.pack_wgmma_sp_cuda(v0, v1, codes)
+            r.append(bitwise(lambda: k3.spmm24_wg_cuda(
+                wg, b, m=BATCH * m, k_logical=k,
+                out_dtype=torch.bfloat16), other))
         if k <= 1024:
             s2 = prune_compress_24(a, fold=2)
             r.append(bitwise(lambda: k3.spmm24_fold_cuda(

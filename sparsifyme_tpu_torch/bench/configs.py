@@ -412,7 +412,8 @@ def plain_block(s, b: torch.Tensor, out_dtype) -> torch.Tensor:
     from ..ops.sparse24 import spmm_24
 
     cpu = dataclasses.replace(s, values0=s.values0.cpu(),
-                              values1=s.values1.cpu(), codes=s.codes.cpu())
+                              values1=s.values1.cpu(), codes=s.codes.cpu(),
+                              wg=None)  # a packed operand is the card's
     return spmm_24(cpu, b.cpu(), out_dtype=out_dtype).to(s.values0.device)
 
 

@@ -1,7 +1,8 @@
 // The wgmma.sp tile: run_probe's tile rebuilt for Hopper. It is K3's
-// wgmma_sp route (spmm24.cu: spmm24_wg_launch, kFull at 4 stages) and the
-// units probe's "wgmma_sp" design (sp24_wg_units.cu, every mode), beside
-// K3's mma_sp tile (sp24_tile.cuh), which it leaves as it is.
+// wgmma_sp route (spmm24.cu: spmm24_wg_launch, kFull at 4 stages), the
+// units probe's "wgmma_sp" design (sp24_wg_units.cu, every mode) and K7's
+// wgmma_sp ring step (ring24_wg.cu: kRing at 4 stages), beside K3's mma_sp
+// tile (sp24_tile.cuh), which it leaves as it is.
 //
 // C [M, N] bf16 = A @ B with A in 2:4 form and B [K, N] row-major, f32
 // accumulation, rows of B past K read as zero. A comes in the layout that
@@ -43,8 +44,11 @@
 //     swizzle), completed on mbarriers;
 //   * two consumer warpgroups of 64 rows each issue two wgmma.sp m64nBNk32 a
 //     stage (A K-major, B N-major, each thread's metadata word from the
-//     stage), one group in flight, each stage handed back once its products
-//     are done;
+//     stage) and retire them before the next stage's wait, then hand the
+//     stage back (wgmma.sp may read its metadata register while it runs,
+//     and the compiler, which does not know that, reused the register of a
+//     group left in flight: kRing for the next wait's clock read, kFull for
+//     the next stage's words; utils/sass.py reads the SASS for that);
 //   * the epilogue: bf16 from registers through a staging tile per warpgroup
 //     to 16-byte stores (ellt::store_tile), f32 partials from registers.
 // MODE and STAGES take the probe's work apart, as sp24_tile.cuh's knobs do
@@ -57,6 +61,8 @@
 //     (every element of the tile gets the sum), and issue no wgmma;
 //   * kMma: a unit's first STAGES k-steps loaded once, then its k-steps of
 //     wgmma.sp on slot kt % STAGES with no loads.
+// kRing is kFull on a window of a larger operand with an accumulator
+// epilogue: K7's step (ring24_wg.cu says what it adds).
 #pragma once
 
 #include "ell_tile.cuh"
@@ -71,8 +77,8 @@ constexpr int kKC = kKS / 2;   // compressed columns of a stage
 constexpr int kWords = 256;    // metadata words of a stage (1 KB)
 constexpr int kBlock = kBM * kKC * 2 + kWords * 4;  // A and metadata bytes
 constexpr int kThreads = 288;  // two consumer warpgroups, a producer warp
-// The modes (bench/units_probe.py: MODES), as sp24_tile.cuh's.
-constexpr int kFull = 0, kFeed = 1, kMma = 2;
+// The modes (bench/units_probe.py: MODES), as sp24_tile.cuh's, and K7's.
+constexpr int kFull = 0, kFeed = 1, kMma = 2, kRing = 3;
 
 template <int BN, int STAGES>
 struct Layout {
@@ -97,6 +103,13 @@ struct Params {
   int* side;          // [splits, n_tiles * m_tiles], one word a unit, or
                       // nullptr (kFull only: K3 has no side words)
   int M, N, KT, KTP, n_tiles, m_tiles, splits, kps, units;
+  // kRing only. A is a window of an operand of a_tiles m-tiles: block (kt,
+  // m_tile) lies at a + ((kt0 + kt) * a_tiles + mt0 + m_tile) * kBlock / 4.
+  // With one split the unit adds c (f32 [M, N], nullptr: nothing; its
+  // fragment read before the unit's k-steps) and writes C in f32 where
+  // out_f32, else in bf16; with more, f32 partials.
+  const float* c;
+  int a_tiles, mt0, kt0, out_f32;
 };
 
 // D[64 x BN] += A[64 x 32, 2:4, compressed to 64 x 16] B[32 x BN]: bf16 in,
@@ -158,6 +171,26 @@ struct WgmmaSp<128> {
   }
 };
 
+// This thread's fragment of rows m0 .. m0 + 63 and columns n0 .. n0 + BN -
+// 1 of the f32 matrix c (row stride N), in the order of its wgmma
+// accumulators (ellt::store_tile's): rows r0 and r0 + 8, columns 8 j + cq
+// and the next.
+template <int BN>
+__device__ __forceinline__ void load_fragment(const float* c, int N, int m0,
+                                              int n0, float (&f)[BN / 2]) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = (t / 32) * 16 + lane / 4, cq = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          c + (size_t)(m0 + r0 + 8 * h) * N + n0 + 8 * j + cq);
+      f[4 * j + 2 * h] = v.x;
+      f[4 * j + 2 * h + 1] = v.y;
+    }
+}
+
 // The unit u's tile and split.
 struct Unit {
   int m_tile, n_tile, split;
@@ -169,9 +202,11 @@ struct Unit {
   }
 };
 
+// The tile's body: a block of kThreads threads with Layout<BN, STAGES>::BYTES
+// of dynamic shared memory walks its units. p is the kernel's
+// __grid_constant__ parameter (its tensor map is read in place).
 template <int MODE, int STAGES, int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-    wgsp_kernel(__grid_constant__ const Params p) {
+__device__ __forceinline__ void wgsp_tile(const Params& p) {
   using L = Layout<BN, STAGES>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -200,7 +235,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto load = [&](int slot, int kt, int m_tile, int n0) {
       ellt::bar_arrive_tx(&full[slot], L::A_STAGE + L::B_STAGE);
       const uint32_t* src =
-          p.a + ((size_t)kt * p.m_tiles + m_tile) * (kBlock / 4);
+          p.a + (MODE == kRing ? (size_t)(p.kt0 + kt) * p.a_tiles + p.mt0 +
+                                     m_tile
+                               : (size_t)kt * p.m_tiles + m_tile) *
+                    (kBlock / 4);
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
           "[%0], [%1], %2, [%3];" ::"r"(ellt::smem_addr(a_st +
@@ -251,6 +289,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   ep.tout = 0;
   ep.out = p.out;
   float acc[BN / 2];
+  // kRing with one split: C = the product + c, c's fragment loaded before
+  // the unit's k-steps, so that its latency hides behind them
+  const float* cin_src = MODE == kRing && p.splits == 1 ? p.c : nullptr;
+  float cin[MODE == kRing ? BN / 2 : 1];
   int stage = 0;
   uint32_t phase = 0;
   int parity = 0;  // kFeed: which of the two sets of side words
@@ -277,6 +319,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int kt1 = min(p.KT, kt0 + p.kps);
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    if constexpr (MODE == kRing) {
+      if (cin_src != nullptr)
+        load_fragment<BN>(cin_src, p.N, w.m_tile * kBM + 64 * wg,
+                          w.n_tile * BN, cin);
+    }
     float first = 0.f;  // kFeed: this lane's part of the first row's sum
     uint32_t x = 0;     // kFeed: the XOR of this thread's words
     if constexpr (MODE == kMma) {
@@ -291,7 +338,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int s = 0; s < nload; ++s) ellt::bar_arrive(&empty[s]);
       phase ^= 1;
     } else {
-      int held = -1;  // the stage whose products may still be in flight
       for (int kt = kt0; kt < kt1; ++kt) {
         ellt::bar_wait(&full[stage], phase);
         if constexpr (MODE == kFeed) {
@@ -303,24 +349,15 @@ __global__ void __launch_bounds__(kThreads, 1)
           first += __bfloat162float(
               reinterpret_cast<const bf16*>(a_st + stage * L::A_STAGE)[lane]);
           ellt::bar_arrive(&empty[stage]);
-        } else if constexpr (STAGES == 1) {
+        } else {
+          // the stage's products retired before anything else runs, so no
+          // register of theirs is in flight when the compiler reuses it
           mma_stage(stage);
           ellt::wg_wait<0>();
           ellt::fence_acc(acc);
           if (t == 0) ellt::bar_arrive(&empty[stage]);
-        } else {
-          mma_stage(stage);
-          ellt::wg_wait<1>();  // the products of the held stage are done
-          ellt::fence_acc(acc);
-          if (held >= 0 && t == 0) ellt::bar_arrive(&empty[held]);
-          held = stage;
         }
         ellt::advance(stage, phase, STAGES);
-      }
-      if constexpr (MODE == kFull && STAGES > 1) {
-        ellt::wg_wait<0>();
-        ellt::fence_acc(acc);
-        if (held >= 0 && t == 0) ellt::bar_arrive(&empty[held]);
       }
     }
     const size_t unit_word =
@@ -348,13 +385,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       p.side[unit_word] = 0;
     }
     const int m0 = w.m_tile * kBM + 64 * wg, n0 = w.n_tile * BN;
-    if (p.splits == 1)
+    if constexpr (MODE == kRing) {
+      if (cin_src != nullptr) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += cin[i];
+      }
+      if (p.splits == 1 && !p.out_f32)
+        ellt::store_tile<BN, bf16>(ep, acc, staging + wg * L::STAGING, wg,
+                                   m0, n0, 0);
+      else
+        ellt::store_tile<BN, float>(ep, acc, staging + wg * L::STAGING, wg,
+                                    m0, n0, p.splits == 1 ? 0 : w.split);
+    } else if (p.splits == 1) {
       ellt::store_tile<BN, bf16>(ep, acc, staging + wg * L::STAGING, wg, m0,
                                  n0, 0);
-    else
+    } else {
       ellt::store_tile<BN, float>(ep, acc, staging + wg * L::STAGING, wg,
                                   m0, n0, w.split);
+    }
   }
+}
+
+template <int MODE, int STAGES, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    wgsp_kernel(__grid_constant__ const Params p) {
+  wgsp_tile<MODE, STAGES, BN>(p);
 }
 
 // The second pass of split-k: out = the sum of the f32 partials [splits,
@@ -457,6 +512,9 @@ inline cudaError_t run_plan(Launch&& launch, const void* a, const void* b,
   p.splits = splits;
   p.kps = kps;
   p.units = p.m_tiles * p.n_tiles * splits;
+  p.c = nullptr;  // kRing's fields: the whole operand, no accumulator
+  p.a_tiles = p.m_tiles;
+  p.mt0 = p.kt0 = p.out_f32 = 0;
   e = launch(bn, p, grid, stream);
   if (e != cudaSuccess || splits == 1) return e;
   const long long mn = (long long)M * N;

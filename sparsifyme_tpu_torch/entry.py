@@ -11,8 +11,10 @@ repository's root, on the port's mesh of ranks::
 ``--processes`` (:func:`run_processes`) runs one rank per process over
 NCCL, one card per rank (with ``--cpu``, gloo ranks on the CPU): the dry
 run's checks on the process mesh, config 4 at full size, ten steps of the
-flagship MLP's dp x tp step and both K7 rings at the ResNet-scale shard,
-each held to the one-process port on the same seeds. Rank 0 prints one
+flagship MLP's dp x tp step and both K7 rings at the ResNet-scale shard
+(bf16, each process's shard packed once with ``pack_wg``, so the rings
+take K7's wgmma_sp step), each held to the one-process port on the same
+seeds. Rank 0 prints one
 ``{"processes": ...}`` line; a failure on any rank exits 1, and the
 launcher then stops the others and exits non-zero.
 """
@@ -37,7 +39,8 @@ from .models.sparse_mlp import (MlpConfig, forward, init_params,
                                 make_train_step, shard_params,
                                 unshard_params)
 from .ops.prune import prune_24, prune_nm
-from .ops.sparse24 import compress_24, spmm_24
+from .ops.kernels.spmm24_kernel import WG_BM
+from .ops.sparse24 import compress_24, pack_wg, spmm_24
 from .parallel.mesh import make_mesh, shard, shard_batch, start_processes
 from .parallel.ring_kernel import spmm_24_ring_explicit, spmm_24_ring_tiled
 from .parallel.spmm_sharded import pad_rows, shard_planes, spmm_24_ring
@@ -153,7 +156,7 @@ RING = (784, 256, 1024, 32)
 RING_QUICK = (196, 256, 1024, 8)
 # the counters of the kernels on this path, by the names chip_smoke uses
 ROUTES = ("prune_nm", "compress_24", "spmm_24", "ring_step",
-          "ring_step_tiled")
+          "ring_step_tiled", "ring_step_wg", "ring_step_wg_tiled")
 
 
 def _wrappers():
@@ -162,7 +165,14 @@ def _wrappers():
     return dict(zip(ROUTES, (
         prune_kernel.prune_nm_cuda, prune_kernel.compress_24_cuda,
         spmm24_kernel.spmm24_cuda, ring_kernel.ring_step_cuda,
-        ring_kernel.ring_step_tiled_cuda)))
+        ring_kernel.ring_step_tiled_cuda, ring_kernel.ring_step_wg_cuda,
+        ring_kernel.ring_step_wg_tiled_cuda)))
+
+
+def _packed(s):
+    """``s`` with K7's wgmma_sp operand packed once where its planes' width
+    is whole 128-row tiles (the rings then take that step), else ``s``."""
+    return pack_wg(s) if s.values0.shape[-1] % WG_BM == 0 else s
 
 
 def train_mesh_shape(world: int):
@@ -316,8 +326,8 @@ def _rings(world: int, dev: torch.device, quick: bool):
         torch.bfloat16)
     b = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
     # this rank's batch elements: compressed, they are its block of planes
-    s = compress_24(prune_nm(shard(a, ("model", None, None), mesh)[0],
-                             2, 4)[0])
+    s = _packed(compress_24(prune_nm(shard(a, ("model", None, None),
+                                           mesh)[0], 2, 4)[0]))
     b_blk = shard(pad_rows(b, 4 * s.values0.shape[0]), ("model", None),
                   mesh)[0]
     out, split = {}, {}
@@ -424,7 +434,7 @@ def run_processes(quick: bool = False, cpu: bool = False) -> dict:
         vs_plain[name] = _rel_err(got, plain)
     # the one-process ring at P ranks on this card, on the whole operand
     n = b.shape[-1]
-    s_all = compress_24(prune_nm(a, 2, 4)[0])
+    s_all = _packed(compress_24(prune_nm(a, 2, 4)[0]))
     for name, fn in (("explicit", spmm_24_ring_explicit),
                      ("tiled", spmm_24_ring_tiled)):
         want = shard(fn(s_all, b, s_whole_mesh, "model",

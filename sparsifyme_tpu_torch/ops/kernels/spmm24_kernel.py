@@ -440,23 +440,29 @@ def _wg_shape(m: int, n: int, k: int) -> None:
                          f"n % 64 == 0, got {m} x {n} x {k}")
 
 
-def wg_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> WgPlan:
+def wg_plan(m: int, n: int, k: int, sms: int = H100_SMS,
+            extra_bytes: float = 0.0, widths: tuple = ()) -> WgPlan:
     """The plan of the ``wgmma_sp`` tile at ``m x n x k`` on ``sms`` SMs:
-    128 columns where n allows, else 64; among split counts up to
+    128 columns where n allows, else 64 (``widths``: the column counts to
+    choose among instead, where n allows them); among split counts up to
     ``ell_kernel.MAX_SPLITS`` that leave no split empty, the least
     estimated time: waves of units on ``sms`` persistent blocks, each unit
-    its k-steps (:data:`WG_STEP_US`) and its epilogue, against the bytes,
-    plus split-k's second pass (``ell_kernel.ell_plan``'s constants); ties
-    go to fewer splits."""
+    its k-steps (:data:`WG_STEP_US`) and its epilogue, against the bytes
+    (A, B and C, plus ``extra_bytes``: K7's step adds its f32
+    accumulator's), plus split-k's second pass (``ell_kernel.ell_plan``'s
+    constants); ties go to fewer splits, then to the earlier width."""
     from . import ell_kernel as ellk  # it imports this module
 
     _wg_shape(m, n, k)
-    bn = 128 if n % 128 == 0 else 64
     kt = -(-k // WG_KS)
-    tiles = (m // WG_BM) * (n // bn)
-    floor_us = (1.25 * m * k + 2 * k * n + 2 * m * n) / ellk.BYTES_PER_US
+    floor_us = (1.25 * m * k + 2 * k * n + 2 * m * n + extra_bytes) \
+        / ellk.BYTES_PER_US
     best = None
-    for splits in range(1, min(kt, ellk.MAX_SPLITS) + 1):
+    bns = [w for w in widths if n % w == 0] or [128 if n % 128 == 0 else 64]
+    for splits, bn in [(splits, bn)
+                       for splits in range(1, min(kt, ellk.MAX_SPLITS) + 1)
+                       for bn in bns]:
+        tiles = (m // WG_BM) * (n // bn)
         kps = -(-kt // splits)
         if (splits - 1) * kps >= kt:
             continue  # the last split would be empty

@@ -27,10 +27,12 @@ catching a failed capture.
 
 The key (:func:`graph_key`) holds the address, shape, stride, dtype and
 device of ``v0``, ``v1``, ``codes`` and B, the logical shape, the output
-type, the route and its m-tile, the mesh's devices and the step function
-in use (a ring run with another step, such as the plain one, captures its
-own graph). A replay reads whatever the operands' memory holds at that
-time, so a tensor updated in place gives the new product.
+type, the route and its m-tile, the mesh's devices, the step function in
+use (a ring run with another step, such as the plain one, captures its
+own graph), K7's step design and, on the ``wgmma_sp`` design, the packed
+operand the steps read (a graph captured on one design or operand never
+replays for another). A replay reads whatever the operands' memory holds
+at that time, so a tensor updated in place gives the new product.
 
 Each entry holds its graph's private memory pool: the ranks' comm slots,
 f32 accumulators and C, about 45 MB at 25088 x 256 x 1024 on four ranks.
@@ -41,13 +43,14 @@ caller's stream after each replay, so a result survives the next call.
 
 Launch counters: a step wrapper counts when it runs, which for a graph is
 at capture only. The capture takes back what it added, and every replay
-adds the graph's launch count to the counters.
+adds the graph's launch count to the counters, one per wrapper (so per
+design: each design's steps have wrappers of their own).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -96,10 +99,12 @@ def _tensor_key(t: torch.Tensor) -> tuple:
 def graph_key(v0: torch.Tensor, v1: torch.Tensor, codes: torch.Tensor,
               b: torch.Tensor, *, shape: tuple, out_dtype, route: str,
               m_tile: int, devices: Sequence[torch.device],
-              step: Callable) -> tuple:
+              step: Callable, design: str = "mma_sp",
+              wg: Optional[torch.Tensor] = None) -> tuple:
     """The cache key of one ring call (see the module docstring)."""
     return (tuple(_tensor_key(t) for t in (v0, v1, codes, b)), tuple(shape),
-            out_dtype, route, m_tile, tuple(devices), step)
+            out_dtype, route, m_tile, tuple(devices), step, design,
+            None if wg is None else _tensor_key(wg))
 
 
 def clear() -> None:

@@ -250,6 +250,22 @@ def test_sparse_kernels_run_on_the_sparse_tensor_cores(gen):
         assert any(op.startswith("HMMA.SP") for op in ops), (name, ops[:5])
 
 
+@pytest.mark.parametrize("name", ["spmm24", "ring24_wg", "sp24_wg_units"])
+def test_wgmma_sp_metadata_registers_outlive_their_groups(gen, name):
+    """No kernel of K3's wgmma_sp route (kFull), K7's wgmma_sp step (kRing)
+    or the units probe writes an HGMMA.SP's metadata register on any path
+    before a WARPGROUP.DEPBAR has retired its group (``utils.sass``)."""
+    from sparsifyme_tpu_torch import _build
+    from sparsifyme_tpu_torch.utils import sass
+
+    _build.build_all()
+    found = sass.library_hazards(_build.build_dir() / f"lib{name}.so")
+    assert found, f"lib{name}.so issues no HGMMA.SP"
+    bad = {fn: [(hex(w), f"R{r}", hex(h)) for w, r, h in hz][:4]
+           for fn, hz in found.items() if hz}
+    assert not bad, bad
+
+
 @pytest.mark.parametrize("bs,bk", [(16, 16), (48, 32), (64, 64),
                                    (128, 128), (256, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -903,6 +919,49 @@ def test_rings_across_cards(gen):
     assert not ring_graph._cache
 
 
+@pytest.mark.parametrize("tiled", [False, True])
+def test_rings_across_cards_on_wgmma_sp(gen, tiled):
+    """Both K7 routes on the wgmma_sp step with ranks round-robin over the
+    cards: a rank on the packed operand's card reads its window in place
+    (first m-tile r * mloc / 128), the others a copy of their slab on their
+    own card (first m-tile 0); within 2e-2 of spmm_24, every launch
+    counted."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_graph
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards")
+    p, rows, k, n = 4, 1024, 512, 64
+    s, b = _packed_ring_operand(gen, rows, k, n)
+    devices = [torch.device("cuda", r % cards) for r in range(p)]
+    tiles = s.wg.packed.shape[1] // p
+    slabs = rk._wg_slabs(s, p, devices)
+    for r, (d, (a, t0)) in enumerate(zip(devices, slabs)):
+        if d == s.wg.packed.device:
+            assert a is s.wg.packed and t0 == r * tiles
+        else:
+            assert a.device == d and t0 == 0
+            assert torch.equal(a.cpu(), s.wg.packed[:, r * tiles:
+                                                    (r + 1) * tiles].cpu())
+    mesh = sp.make_mesh((p,), ("model",), devices=devices)
+    want = sp.spmm_24(s, b, out_dtype=torch.float32, design="mma_sp")
+    fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
+    kw = dict(m_tile=128) if tiled else {}
+    counter = rk.ring_step_wg_tiled_cuda if tiled else rk.ring_step_wg_cuda
+    n_mt = rows // p // 128 if tiled else 1
+    ring_graph.clear()
+    for odt in (torch.bfloat16, torch.float32):
+        n0 = counter.launches
+        got = fn(s, b, mesh, "model", out_dtype=odt, design="wgmma_sp",
+                 **kw)
+        assert got.device == want.device and got.dtype == odt
+        assert _rel(got.float(), want) < TOL[torch.bfloat16]
+        assert counter.launches == n0 + p * p * n_mt
+    assert not ring_graph._cache
+
+
 CAPTURE_ACROSS_CARDS = """
 import torch
 d0, d1 = torch.device("cuda:0"), torch.device("cuda:1")
@@ -952,6 +1011,252 @@ def test_one_capture_cannot_span_cards(gen):
     out = subprocess.run([sys.executable, "-c", CAPTURE_ACROSS_CARDS],
                          capture_output=True, text=True, timeout=300).stdout
     assert out.startswith("refused"), out
+
+
+# --- K7's wgmma_sp step (csrc/ring24_wg.cu) ---------------------------------
+
+def _packed_ring_operand(gen, rows, k, n):
+    """A bf16 ring operand whose container carries ``pack_wg``'s operand."""
+    from sparsifyme_tpu_torch.ops.sparse24 import pack_wg
+
+    s, b = _ring_operand(gen, rows, k, n, torch.bfloat16)
+    return pack_wg(s), b
+
+
+WG_STEP_WINDOWS = [
+    (25088, 4, 1, 1024, 256, 0, 6272),    # R: rank 1's whole shard
+    (25088, 4, 1, 1024, 256, 2688, 896),  # R: the tiled route's 4th m-tile
+    (1024, 2, 1, 256, 64, 128, 256),      # 64 columns, an m-tile
+    (512, 1, 0, 128, 128, 0, 512),        # one rank: the whole operand
+]
+
+
+# each window under its plan, two splits, and each width its n takes
+@pytest.mark.parametrize("rows,p,r,k,n,c0,mt,plan", [
+    (*w, plan) for w in WG_STEP_WINDOWS
+    for plan in (None, (None, 2), (64, None), (128, None))
+    if plan is None or plan[0] is None or w[4] % plan[0] == 0])
+@pytest.mark.parametrize("odtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("first,last", [(True, False), (False, False),
+                                        (False, True), (True, True)])
+def test_ring_step_wg_kernel(gen, rows, p, r, k, n, c0, mt, odtype, first,
+                             last, plan):
+    """K7's wgmma_sp step on rank r's window of the container's packed
+    operand (the one-card mesh's addressing: the rank starts at m-tile
+    r * mloc / 128 of it) against its plain version (the packed words
+    decoded) and the mma_sp step's plain version on the planes: the
+    accumulator on middle steps, C on the last, nothing outside the
+    window; under the plan, with two splits (the second pass), at 64
+    columns (at R's 6272 196 units on 132 persistent blocks: two a block)
+    and at 128 (the tiled window's 14 units), each forced as
+    ``bench/ring_probe.py`` forces it."""
+    from sparsifyme_tpu_torch.bench.ring_probe import forced
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    s, _ = _packed_ring_operand(gen, rows, k, n)
+    mloc, k4s = rows // p, s.values0.shape[0] // p
+    planes = [x[:, r * mloc:(r + 1) * mloc]
+              for x in (s.values0, s.values1, s.codes)]
+    a_wg = (s.wg.packed, r * mloc // 128)
+    slot = torch.randn((4 * k4s, n), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    acc0 = torch.randn((mloc, n), generator=gen, device="cuda")
+    src = (r + 1) % p
+    outs = []
+    with forced(*(plan or ())):
+        for fn, a in ((rk.ring_step_wg_cuda, a_wg),
+                      (rk.ring_step_wg_plain, a_wg),
+                      (rk.ring_step_plain, planes)):
+            acc = acc0.clone()
+            out = torch.zeros((mloc, n), dtype=odtype, device="cuda")
+            fn(*a, slot, acc, out, src=src, c0=c0, mt=mt, first=first,
+               last=last)
+            outs.append((acc, out))
+    (acc, out), (acc_p, out_p), (acc_q, out_q) = outs
+    if last:
+        assert torch.equal(acc, acc0)
+        assert _rel(out, out_p) < TOL[odtype]
+        assert _rel(out_p, out_q) < TOL[odtype]
+        assert not out[:c0].any() and not out[c0 + mt:].any()
+    else:
+        assert _rel(acc, acc_p) < TOL[torch.float32]
+        assert _rel(acc_p, acc_q) < TOL[torch.float32]
+        assert torch.equal(acc[:c0], acc0[:c0])
+        assert torch.equal(acc[c0 + mt:], acc0[c0 + mt:])
+        assert not out.any()
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_rings_on_one_card_on_wgmma_sp(gen, p, tiled):
+    """Both K7 routes on a packed container with P logical ranks on one
+    card take the wgmma_sp step: eager, then captured and replayed, the
+    replays bitwise the eager ring, all within 2e-2 of single-card
+    spmm_24, bf16 and f32 C; the wgmma_sp wrappers count every launch,
+    replays included, and the mma_sp ones none."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_graph
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    batch, m, k, n = 2, 128 * p, 128 * p, 64
+    s, b = _packed_ring_operand(gen, batch * m, k, n)
+    s = type(s)(s.values0, s.values1, s.codes, shape=(batch, m, k), wg=s.wg)
+    mesh = sp.make_mesh((p,), ("model",), devices=["cuda:0"] * p)
+    want = sp.spmm_24(s, b, out_dtype=torch.float32, design="mma_sp")
+    counter = rk.ring_step_wg_tiled_cuda if tiled else rk.ring_step_wg_cuda
+    others = (rk.ring_step_cuda, rk.ring_step_tiled_cuda)
+    fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
+    kw = dict(m_tile=128) if tiled else {}
+    n_mt = batch * m // p // 128 if tiled else 1
+    for odt in (torch.bfloat16, torch.float32):
+        ring_graph.clear()
+        n0, o0 = counter.launches, [f.launches for f in others]
+        got = [fn(s, b, mesh, "model", out_dtype=odt, **kw)
+               for _ in range(3)]
+        assert len(ring_graph._cache) == 1
+        for g in got:
+            assert g.dtype == odt and tuple(g.shape) == (batch, m, n)
+            assert torch.equal(g, got[0])
+        assert _rel(got[0].float(), want) < TOL[torch.bfloat16]
+        assert counter.launches == n0 + 3 * p * p * n_mt
+        assert [f.launches for f in others] == o0
+    ring_graph.clear()
+
+
+@pytest.mark.parametrize("tiled,p,t", [(False, 4, 1), (False, 3, 0),
+                                       (True, 4, 3), (True, 3, 1),
+                                       (True, 2, 1)])
+def test_ring_credit_protocol_on_wgmma_sp(gen, monkeypatch, tiled, p, t):
+    """test_ring_credit_protocol on the wgmma_sp step: rank 1's step t
+    delayed by a long sleep, the ring eager, captured and replayed, each
+    within 2e-2 of spmm_24."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_graph
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    name = "ring_step_wg_tiled_cuda" if tiled else "ring_step_wg_cuda"
+    real = getattr(rk, name)
+    per_ring = p * p * (2 if tiled else 1)
+    calls = []
+
+    def delayed(*a, **kw):
+        if len(calls) % per_ring == t * p + 1:  # step-major: rank 1, step t
+            torch.cuda._sleep(200_000_000)
+        calls.append(1)
+        real(*a, **kw)
+
+    delayed.launches = real.launches
+    monkeypatch.setattr(rk, name, delayed)
+    s, b = _packed_ring_operand(gen, 256 * p, 128 * p, 64)
+    mesh = sp.make_mesh((p,), ("model",), devices=["cuda:0"] * p)
+    fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
+    kw = dict(m_tile=128) if tiled else {}
+    want = sp.spmm_24(s, b, out_dtype=torch.float32, design="mma_sp")
+    n0 = delayed.launches
+    ring_graph.clear()
+    for call in range(3):
+        got = fn(s, b, mesh, "model", out_dtype=torch.float32,
+                 design="wgmma_sp", **kw)
+        assert _rel(got.cpu(), want.cpu()) < TOL[torch.bfloat16]
+        assert len(calls) == min(call + 1, 2) * per_ring
+        assert delayed.launches == n0 + (call + 1) * per_ring
+    ring_graph.clear()
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_ring_replay_is_the_eager_ring_on_wgmma_sp(gen, monkeypatch, tiled):
+    """test_ring_replay_is_the_eager_ring on the wgmma_sp step, and the
+    cache telling the designs apart: the same operands on the mma_sp step
+    capture a graph of their own, as do the plain step's rings."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_graph
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    ring_graph.clear()
+    s, b = _packed_ring_operand(gen, 1024, 256, 64)
+    mesh = sp.make_mesh((4,), ("model",), devices=["cuda:0"] * 4)
+    fn = sp.spmm_24_ring_tiled if tiled else sp.spmm_24_ring_explicit
+    kw = dict(m_tile=128) if tiled else {}
+    counter = rk.ring_step_wg_tiled_cuda if tiled else rk.ring_step_wg_cuda
+    per_ring = 16 * (2 if tiled else 1)
+    n0 = counter.launches
+    eager = fn(s, b, mesh, "model", **kw)
+    assert not ring_graph._cache
+    assert counter.launches == n0 + per_ring
+    for call in (2, 3):
+        replay = fn(s, b, mesh, "model", **kw)
+        assert len(ring_graph._cache) == 1
+        assert counter.launches == n0 + call * per_ring
+        assert torch.equal(replay, eager)
+    for call in (1, 2):
+        other = fn(s, b, mesh, "model", design="mma_sp", **kw)
+        assert len(ring_graph._cache) == 1 + call // 2
+        assert _rel(other, eager) < TOL[torch.bfloat16]
+    name = "ring_step_wg_tiled_cuda" if tiled else "ring_step_wg_cuda"
+    monkeypatch.setattr(rk, name, rk.ring_step_wg_plain)
+    for call in (1, 2):
+        plain = fn(s, b, mesh, "model", **kw)
+        assert len(ring_graph._cache) == 2 + call // 2
+        assert _rel(replay, plain) < TOL[torch.bfloat16]
+    ring_graph.clear()
+
+
+def test_ring_wg_refusals_on_the_card(gen):
+    """The rings take the mma_sp step wherever ring_wg_refusal refuses the
+    wgmma_sp one (f32, an m-tile off 128 rows, n % 64, no packed operand),
+    and a forced wgmma_sp raises there before any launch; a stale operand
+    raises whatever the design."""
+    import sparsifyme_tpu_torch as sp
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    mesh = sp.make_mesh((2,), ("model",), devices=["cuda:0"] * 2)
+    s, b = _packed_ring_operand(gen, 512, 256, 64)
+    s48, b48 = _packed_ring_operand(gen, 512, 256, 48)
+    plain, _ = _ring_operand(gen, 512, 256, 64, torch.bfloat16)
+    cases = [(s, b.float(), {}, "bf16 in"),
+             (s, b, dict(m_tile=64), "m-tile"),
+             (s48, b48, {}, "n 48"),
+             (plain, b, {}, "carries no wg")]
+    for ss, bb, kw, match in cases:
+        fn = sp.spmm_24_ring_tiled if kw else sp.spmm_24_ring_explicit
+        n0 = (rk.ring_step_wg_cuda.launches
+              + rk.ring_step_wg_tiled_cuda.launches)
+        got = fn(ss, bb, mesh, "model", out_dtype=torch.float32, **kw)
+        want = sp.spmm_24(ss, bb, out_dtype=torch.float32, design="mma_sp")
+        assert _rel(got, want) < TOL[torch.bfloat16]
+        with pytest.raises(ValueError, match=match):
+            fn(ss, bb, mesh, "model", design="wgmma_sp", **kw)
+        assert n0 == (rk.ring_step_wg_cuda.launches
+                      + rk.ring_step_wg_tiled_cuda.launches)
+    s.values0.mul_(1.0)  # an in-place write: the operand is stale
+    for design in (None, "wgmma_sp", "mma_sp"):
+        with pytest.raises(ValueError, match="stale"):
+            sp.spmm_24_ring_explicit(s, b, mesh, "model", design=design)
+    with pytest.raises(ValueError, match="design"):
+        sp.spmm_24_ring_explicit(plain, b, mesh, "model", design="wgmma")
+
+
+def test_ring_step_wg_rejects_what_it_does_not_take(gen):
+    from sparsifyme_tpu_torch.parallel import ring_kernel as rk
+
+    s, _ = _packed_ring_operand(gen, 512, 256, 64)
+    wg = s.wg.packed
+    slot = torch.zeros((128, 64), dtype=torch.bfloat16, device="cuda")
+    acc = torch.zeros((256, 64), device="cuda")
+    kw = dict(c0=0, mt=256, first=True, last=False)
+    with pytest.raises(ValueError, match="outside"):
+        rk.ring_step_wg_cuda(wg, 0, slot, acc, acc, src=2, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        rk.ring_step_wg_cuda(wg, 3, slot, acc, acc, src=0, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        rk.ring_step_wg_cuda(wg, 0, slot, acc, acc, src=0, c0=64, mt=128,
+                             first=True, last=False)
+    with pytest.raises(TypeError):
+        rk.ring_step_wg_cuda(wg, 0, slot.float(), acc, acc, src=0, **kw)
+    with pytest.raises(ValueError, match="acc"):
+        rk.ring_step_wg_cuda(wg, 0, slot, None, acc, src=0, **kw)
+    with pytest.raises(ValueError, match="k %"):
+        rk.ring_step_wg_cuda(wg, 0, slot[:96], acc, acc, src=0, **kw)
 
 
 def test_ring_kernel_rejects_what_it_does_not_take(gen):

@@ -8,10 +8,11 @@ joined under a deadline). Each rank runs every op on its blocks and writes
 them to an ``.npz``; the tests put the blocks together and compare. JAX
 runs on the 8-device virtual CPU mesh that ``tests/conftest.py`` forces,
 its Pallas rings in interpret mode. Tolerances: products 1e-4 relative in
-f32 (sums in another order), the train step 1e-5 and the codes exactly
-(as ``tests/test_torch_models.py``), the collectives 1e-6 (f32) and 2e-2
-(bf16); against the one-process mesh, which runs the same local ops on the
-same blocks, 1e-6.
+f32 (sums in another order), K7's rings on its wgmma_sp step (bf16
+operands, each process's shard packed once with ``pack_wg``) 2e-2, the
+train step 1e-5 and the codes exactly (as ``tests/test_torch_models.py``),
+the collectives 1e-6 (f32) and 2e-2 (bf16); against the one-process
+mesh, which runs the same local ops on the same blocks, 1e-6.
 """
 
 import json
@@ -59,6 +60,21 @@ def _k7t(p):
     return (0, 256 * p, 64 * p, 24)  # two m-tiles of 128 per rank
 
 
+# K7's rings on the wgmma_sp step (bf16): whole 128-row tiles a rank, k4
+# a rank a multiple of 16; the tiled one in two m-tiles of 128 a rank
+WG_PROBLEMS = {"k7wg": lambda p: (0, 256 * p, 128 * p, 64),
+               "k7twg": lambda p: (2, 128 * p, 64 * p, 128)}
+WG_TOL = 2e-2
+
+
+def _problem_bf16(rng, batch, m, k, n):
+    """:func:`_problem` in bf16: JAX (Sparse24, B) of bf16 A and B."""
+    a = rng.normal(size=(batch, m, k) if batch else (m, k))
+    b = jnp.asarray(rng.normal(size=(k, n)), jnp.bfloat16)
+    s = js.compress_24(jprune.prune_24(jnp.asarray(a, jnp.bfloat16))[0])
+    return s, b
+
+
 def _problem(rng, batch, m, k, n):
     """JAX (Sparse24, B) of one pruned f32 A and B, and their numpy."""
     a = rng.normal(size=(batch, m, k) if batch else (m, k)).astype(np.float32)
@@ -68,11 +84,11 @@ def _problem(rng, batch, m, k, n):
 
 
 def _put(inputs, name, s, b):
-    inputs[f"{name}_v0"] = np.asarray(s.values0)
-    inputs[f"{name}_v1"] = np.asarray(s.values1)
+    inputs[f"{name}_v0"] = np.asarray(s.values0).astype(np.float32)
+    inputs[f"{name}_v1"] = np.asarray(s.values1).astype(np.float32)
     inputs[f"{name}_codes"] = np.asarray(s.codes)
     inputs[f"{name}_shape"] = np.array(s.shape)
-    inputs[f"{name}_b"] = np.asarray(b)
+    inputs[f"{name}_b"] = np.asarray(b).astype(np.float32)
 
 
 def _inputs(p):
@@ -82,6 +98,9 @@ def _inputs(p):
     inputs, ops = {}, {}
     for name, dims in {**PROBLEMS, "k7t": _k7t(p)}.items():
         ops[name] = _problem(rng, *dims)
+        _put(inputs, name, *ops[name])
+    for name, dims in WG_PROBLEMS.items():  # bf16 values, stored as f32
+        ops[name] = _problem_bf16(rng, *dims(p))
         _put(inputs, name, *ops[name])
     inputs["ag_x"] = rng.normal(size=(p, 2, 3)).astype(np.float32)
     inputs["ag_ct"] = rng.normal(size=(p, 2 * tp, 3)).astype(np.float32)
@@ -181,6 +200,10 @@ def _jax_products(ops, p):
                                       out_dtype=f32),
         "k7t": jrk.spmm_24_ring_tiled_pallas(*ops["k7t"], jm, "model",
                                              out_dtype=f32, m_tile=128),
+        "k7wg": jrk.spmm_24_ring_pallas(*ops["k7wg"], jm, "model",
+                                        out_dtype=jnp.bfloat16),
+        "k7twg": jrk.spmm_24_ring_tiled_pallas(*ops["k7twg"], jm, "model",
+                                               out_dtype=f32, m_tile=128),
     }
 
 
@@ -266,6 +289,51 @@ def test_process_products_match_jax(runs, p, name):
     want = runs[p]["jax"][name]
     got = _blocks(runs[p]["ranks"], name).reshape(want.shape)
     assert _rel(got, want) < TOL
+
+
+@pytest.mark.parametrize("name", list(WG_PROBLEMS))
+@pytest.mark.parametrize("p", PS_)
+def test_process_rings_on_wgmma_sp_match_jax(runs, p, name):
+    """Both K7 rings with design="wgmma_sp" on a process mesh, each
+    process's shard packed once after shard_planes (the plain wgmma_sp
+    step reading its window of the shard's own operand), against the
+    Pallas rings interpreted on the same bf16 operands: bf16 C for the
+    plain route, f32 C for the tiled one (2e-2)."""
+    want = runs[p]["jax"][name]
+    got = _blocks(runs[p]["ranks"], name).reshape(want.shape)
+    assert _rel(got, want) < WG_TOL
+
+
+@pytest.mark.parametrize("name", list(WG_PROBLEMS))
+@pytest.mark.parametrize("p", PS_)
+def test_process_rings_on_wgmma_sp_match_the_one_process_mesh(runs, p,
+                                                              name):
+    """The same rings on the one-process mesh of ["cpu"] * P ranks, which
+    reads each rank's window of the whole container's operand: the same
+    local steps on the same windows (SAME_TOL)."""
+    from sparsifyme_tpu_torch.ops.sparse24 import pack_wg
+
+    s, b = runs[p]["ops"][name]
+    q = sparse24_from_numpy(*(np.asarray(x).astype(np.float32)
+                              for x in (s.values0, s.values1)),
+                            np.asarray(s.codes), s.shape, device="cpu")
+    q = pack_wg(type(q)(q.values0.to(torch.bfloat16),
+                        q.values1.to(torch.bfloat16), q.codes,
+                        shape=q.shape))
+    tb = torch.from_numpy(np.asarray(b).astype(np.float32)).to(
+        torch.bfloat16)
+    mesh = tmesh.make_mesh((p,), ("model",), devices=["cpu"] * p)
+    if name == "k7wg":
+        want = trk.spmm_24_ring_explicit(q, tb, mesh, "model",
+                                         out_dtype=torch.bfloat16,
+                                         design="wgmma_sp")
+    else:
+        want = trk.spmm_24_ring_tiled(q, tb, mesh, "model",
+                                      out_dtype=torch.float32, m_tile=128,
+                                      design="wgmma_sp")
+    want = tensor_to_numpy(want)
+    got = _blocks(runs[p]["ranks"], name).reshape(want.shape)
+    assert _rel(got, want) <= SAME_TOL
 
 
 @pytest.mark.parametrize("p", PS_)

@@ -178,7 +178,9 @@ def test_converters_round_trip_fold2_containers(rng, jdt):
 def test_smoke_ring_bound_counts_what_the_ring_must_move(p, tiles):
     """The ring's bound in the kernels line: at P = 1 the bytes of one 2:4
     SpMM, plus each rank's halo (P-1 shards of [k/P, n] in bf16) once per
-    m-tile; K7's f32 accumulator is reported apart."""
+    m-tile; K7's f32 accumulator is reported apart. A is counted as the
+    step reads it: the planes (1.25 B a logical element) for the mma_sp
+    step, the packed operand (1.125 B) for the wgmma_sp step."""
     import chip_smoke
 
     rows, n, k = 25088, 256, 1024
@@ -186,6 +188,11 @@ def test_smoke_ring_bound_counts_what_the_ring_must_move(p, tiles):
     halo = (p - 1) * (k // p) * n * 2
     assert chip_smoke._ring_bytes(rows, n, k, p, tiles) == (
         one + p * halo * tiles)
+    assert chip_smoke._ring_bytes(rows, n, k, p, tiles, design="mma_sp") \
+        == one + p * halo * tiles
+    assert chip_smoke._ring_bytes(rows, n, k, p, tiles,
+                                  design="wgmma_sp") == (
+        one - 0.125 * rows * k + p * halo * tiles)
     assert chip_smoke._ring_design_bytes(rows, n, p) == 8 * (p - 1) * rows * n
 
 

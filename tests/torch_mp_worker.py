@@ -74,6 +74,7 @@ def _run(rank: int, world: int, work: pathlib.Path) -> None:
                                               tensor_to_numpy)
     from sparsifyme_tpu_torch.entry import train_mesh_shape
     from sparsifyme_tpu_torch.models import sparse_mlp as tmlp
+    from sparsifyme_tpu_torch.ops.sparse24 import pack_wg
     from sparsifyme_tpu_torch.parallel import collectives
     from sparsifyme_tpu_torch.parallel.mesh import (init_distributed,
                                                     make_mesh, shard)
@@ -95,9 +96,11 @@ def _run(rank: int, world: int, work: pathlib.Path) -> None:
         return Sparse24(t(f"{name}_v0"), t(f"{name}_v1"), t(f"{name}_codes"),
                         shape=tuple(int(d) for d in inp[f"{name}_shape"]))
 
-    def k_shard(name, mesh):
+    def k_shard(name, mesh, dtype=torch.float32):
         s = sparse(name)
-        bp = pad_rows(t(f"{name}_b"), 4 * s.values0.shape[0])
+        s = Sparse24(s.values0.to(dtype), s.values1.to(dtype), s.codes,
+                     shape=s.shape)
+        bp = pad_rows(t(f"{name}_b").to(dtype), 4 * s.values0.shape[0])
         return (shard_planes(s, mesh, "model")[0],
                 shard(bp, ("model", None), mesh)[0])
 
@@ -127,6 +130,15 @@ def _run(rank: int, world: int, work: pathlib.Path) -> None:
     s, b = k_shard("k7t", mesh_m)
     out["k7t"] = spmm_24_ring_tiled(s, b, mesh_m, "model", out_dtype=f32,
                                     m_tile=128)
+    # K7's wgmma_sp step: bf16, the shard packed once after shard_planes
+    bf16 = torch.bfloat16
+    s, b = k_shard("k7wg", mesh_m, bf16)
+    out["k7wg"] = spmm_24_ring_explicit(pack_wg(s), b, mesh_m, "model",
+                                        out_dtype=bf16, design="wgmma_sp")
+    s, b = k_shard("k7twg", mesh_m, bf16)
+    out["k7twg"] = spmm_24_ring_tiled(pack_wg(s), b, mesh_m, "model",
+                                      out_dtype=f32, m_tile=128,
+                                      design="wgmma_sp")
 
     part = t("ag_x")[rank].clone().requires_grad_()
     full = collectives.all_gather([part], mesh2, "model")[0]
