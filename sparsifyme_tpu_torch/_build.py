@@ -25,6 +25,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .utils import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prune_nm", "compress24", "spmm24", "ell_spmm", "ell_expand",
@@ -133,13 +135,14 @@ def build_all() -> None:
     todo = [n for n in SOURCES if not (out_dir / f"lib{n}.so").exists()]
     if not todo:
         return
-    nvcc = find_nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
-        futs = [pool.submit(_compile, nvcc, n, out_dir / f"lib{n}.so")
-                for n in todo]
-        for f in futs:
-            f.result()
+    with trace.trace_range("sparsifyme.kernel_build"):
+        nvcc = find_nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            futs = [pool.submit(_compile, nvcc, n, out_dir / f"lib{n}.so")
+                    for n in todo]
+            for f in futs:
+                f.result()
 
 
 def load(name: str, entry: str, spec: str):
@@ -149,15 +152,17 @@ def load(name: str, entry: str, spec: str):
     with _lock:
         fn = _entries.get((name, entry))
         if fn is None:
-            build_all()
-            path = build_dir() / f"lib{name}.so"
-            try:
-                fn = getattr(ctypes.CDLL(str(path)), entry)
-            except OSError as e:
-                raise KernelBuildError(f"cannot load {path}: {e}") from e
-            fn.argtypes = argtypes(spec)
-            fn.restype = ctypes.c_int
-            _entries[(name, entry)] = fn
+            with trace.trace_range("sparsifyme.kernel_load"):
+                build_all()
+                path = build_dir() / f"lib{name}.so"
+                try:
+                    fn = getattr(ctypes.CDLL(str(path)), entry)
+                except OSError as e:
+                    raise KernelBuildError(
+                        f"cannot load {path}: {e}") from e
+                fn.argtypes = argtypes(spec)
+                fn.restype = ctypes.c_int
+                _entries[(name, entry)] = fn
         return fn
 
 

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..containers import BlockedEll
+from ..utils import trace
 from .kernels.ell_kernel import (ell_expand_spmm_cuda,
                                  ell_expand_spmm_plain, ell_spmm_cuda,
                                  ell_spmm_plain)
@@ -99,36 +100,45 @@ def spmm_ell(
     On the card a plan the tile cannot take raises ``ValueError`` before
     the launch; the plain version ignores both.
     """
-    if transpose_a:
-        raise NotImplementedError(
-            "transpose_a is unsupported for Blocked-ELL SpMM: the block "
-            "column indices address the contraction axis; densify and use "
-            "batched_gemm(transpose_a=True) instead")
-    if transpose_b:
-        b = b.transpose(-1, -2)
-    *lead, m, k = e.shape
-    n = b.shape[-1]
-    out_dtype = out_dtype or torch.promote_types(e.dtype, b.dtype)
-    values = e.values.reshape(-1, e.values.shape[-1])
-    cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
-    if c is not None and beta != 0.0 and not transpose_out:
-        c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
-    if c is None or beta == 0.0:
-        c = None
-    cfg = (e.block_size, e.block_k, out_dtype, alpha, beta, transpose_out,
-           block_n, splits)
-    args = (values, cols, b, c)
-    out = (_SpmmEll.apply(*args, cfg) if _build.needs_grad(*args)
-           else _ell_forward(*args, cfg))
-    if transpose_out:
-        return out
-    return out.reshape(*lead, m, n)
+    call = trace.begin("sparsifyme.spmm_ell", "prep")
+    try:
+        if transpose_a:
+            raise NotImplementedError(
+                "transpose_a is unsupported for Blocked-ELL SpMM: the block "
+                "column indices address the contraction axis; densify and use "
+                "batched_gemm(transpose_a=True) instead")
+        if transpose_b:
+            b = b.transpose(-1, -2)
+        *lead, m, k = e.shape
+        n = b.shape[-1]
+        out_dtype = out_dtype or torch.promote_types(e.dtype, b.dtype)
+        values = e.values.reshape(-1, e.values.shape[-1])
+        cols = e.col_indices.reshape(-1, e.col_indices.shape[-1])
+        if c is not None and beta != 0.0 and not transpose_out:
+            c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
+        if c is None or beta == 0.0:
+            c = None
+        cfg = (e.block_size, e.block_k, out_dtype, alpha, beta, transpose_out,
+               block_n, splits)
+        args = (values, cols, b, c)
+        out = (_SpmmEll.apply(*args, cfg) if _build.needs_grad(*args)
+               else _ell_forward(*args, cfg))
+        if transpose_out:
+            return out
+        return out.reshape(*lead, m, n)
+    finally:
+        if call:
+            trace.end(call)
 
 
 def _ell_forward(values, cols, b, c, cfg) -> torch.Tensor:
     """K4 on CUDA values, its plain version on CPU ones."""
     bs, bk, out_dtype, alpha, beta, transpose_out, block_n, splits = cfg
-    fn = ell_spmm_cuda if _build.use_kernel(values) else ell_spmm_plain
+    if _build.use_kernel(values):
+        fn = ell_spmm_cuda
+    else:
+        trace.mark("plain")
+        fn = ell_spmm_plain
     return fn(values, cols, b, block_size=bs, block_k=bk,
               out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
               transpose_out=transpose_out, block_n=block_n, splits=splits)

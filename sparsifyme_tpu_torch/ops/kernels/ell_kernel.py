@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import _build
+from ...utils import trace
 from .prune_kernel import DTYPE_CODES
 from .spmm24_kernel import H100_SMS, _epilogue_plain, sm_count
 
@@ -102,6 +103,7 @@ def ell_plan(m: int, n: int, ell: int, bk: int, bs: int,
     A and C, plus split-k's second pass; ties go to fewer splits, then to
     the wider tile. Stages fill the shared memory of ``cta_counts`` blocks
     per SM (two only for tiles of at most 128 columns), 3 to 5 of them."""
+    trace.count("plan_miss")  # the body runs on a cache miss only
     if bs % TILE_M or m % bs or bk % 32 or bk not in BLOCK_KS or n % 8 \
             or n <= 0 or ell <= 0:
         return None
@@ -274,16 +276,23 @@ def ell_spmm_cuda(values, cols, b, *, block_size: int, block_k: int,
     c32 = None
     if c is not None and beta != 0.0:
         c32 = c.to(torch.float32).reshape(out_shape).contiguous()
-    out = torch.empty(out_shape, dtype=out_dtype, device=values.device)
+    trace.mark("plan")
+    # C is not among the tensors checked for alignment: a fresh allocation
+    # is (the caching allocator hands out blocks of 512 bytes)
     plan = _plan_for(values.device, m, n, ell, bk, bs, dtype,
-                     (values, b, out, c32), block_n, splits)
+                     (values, b, c32), block_n, splits)
+    trace.mark("alloc")
+    out = torch.empty(out_shape, dtype=out_dtype, device=values.device)
     ws = _workspace(plan, m, n, values.device)
-    # (values, cols, b, c, out, ws, M, N, Kb, bs, bk, ell, alpha, beta, tout,
-    #  dtype, out_dtype, bn, bk_step, stages, splits, ctas, grid, stream)
-    launch = _build.load("ell_spmm", "ell_spmm_launch",
-                         "pppppp" "iiiiii" "ff" "iii" "iiiiii" "p")
+    trace.mark("device_guard")
     # the entry point launches on the current card: make it the tensors'
     with torch.cuda.device(values.device):
+        trace.mark("launch")
+        # (values, cols, b, c, out, ws, M, N, Kb, bs, bk, ell, alpha, beta,
+        #  tout, dtype, out_dtype, bn, bk_step, stages, splits, ctas, grid,
+        #  stream)
+        launch = _build.load("ell_spmm", "ell_spmm_launch",
+                             "pppppp" "iiiiii" "ff" "iii" "iiiiii" "p")
         _build.check(launch(
             values.data_ptr(), cols.data_ptr(), b.data_ptr(),
             _build.ptr(c32), out.data_ptr(), _build.ptr(ws), m, n, kb, bs,

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import _build
+from ...utils import trace
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,9 +77,12 @@ def prune_nm_cuda(w: torch.Tensor, n: int = 2,
     w = w.contiguous()
     k = w.shape[-1]
     rows = w.numel() // k
+    trace.mark("plan")
+    plan = prune_plan(rows, k, m, w.element_size())
+    trace.mark("alloc")
     out = torch.empty_like(w)
     mask = torch.empty_like(w)
-    plan = prune_plan(rows, k, m, w.element_size())
+    trace.mark("launch")
     launch = _build.load("prune_nm", "prune_nm_launch",
                          "ppp" "l" "iiiiiiii" "p")
     _build.check(launch(  # (w, out, mask, rows, k, n, m, mode, R, KT,
@@ -141,6 +145,7 @@ def prune_plan(rows: int, k: int, m: int, itemsize: int,
 
     The kernel launches one block a unit; block ``x`` of a grid of
     ``grid`` blocks takes units ``x + i * grid``."""
+    trace.count("plan_miss")  # the body runs on a cache miss only
     unit = 16 // itemsize
     if k % m == 0 and m in (4, 8) and unit % m == 0:
         return PrunePlan("stream", 1, unit, -(-rows * k // (unit * 256)))
@@ -308,6 +313,7 @@ def compress_plan(rows: int, k: int, itemsize: int) -> CompressPlan:
     k-tile ``u % (kp / KT)``; the kernel launches as many persistent
     blocks as fit on the card (at most ``units``), and block ``x`` of
     ``grid`` takes units ``x + i * grid``."""
+    trace.count("plan_miss")  # the body runs on a cache miss only
     kp = _round_up(k, 64)
     span = k <= COMPRESS_KMAX
     kt = kp if span else COMPRESS_KTILE
@@ -373,10 +379,13 @@ def _compress_launch(
     w2 = w2.contiguous()
     rows, k = w2.shape
     k4 = _round_up(k, 64) // 4
+    trace.mark("plan")
     plan = compress_plan(rows, k, w2.element_size())
+    trace.mark("alloc")
     v0 = torch.empty((k4, rows), dtype=w2.dtype, device=w2.device)
     v1 = torch.empty_like(v0)
     codes = torch.empty((k4, rows), dtype=torch.uint8, device=w2.device)
+    trace.mark("launch")
     launch = _build.load("compress24", "compress24_launch",
                          "pppp" "iiiiiii" "p")
     _build.check(launch(  # (w, v0, v1, codes, M, k, K4, R, KT, dtype,

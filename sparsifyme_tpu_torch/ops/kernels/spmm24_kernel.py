@@ -45,6 +45,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ... import _build
+from ...utils import trace
 from .prune_kernel import DTYPE_CODES
 
 # Tiles (rows of C, columns of C) of the sparse tensor-core fast path, in
@@ -330,7 +331,12 @@ def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
     c32 = None
     if c is not None and beta != 0.0:
         c32 = c.to(torch.float32).reshape(out_shape).contiguous()
+    trace.mark("plan")
+    if tile is None:
+        tile = card_tile(v0.device, m, n, k_logical, fold)
+    trace.mark("alloc")
     out = torch.empty(out_shape, dtype=out_dtype, device=v0.device)
+    trace.mark("launch")
     # (v0, v1, codes, b, c, out, M, N, K, K4, alpha, beta, tout, packed,
     #  fold, dtype, out_dtype, tile, stream)
     launch = _build.load("spmm24", "spmm24_launch",
@@ -342,10 +348,7 @@ def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
             _build.ptr(c32), out.data_ptr(), m, n, k_logical, k4,
             float(alpha), float(beta) if c32 is not None else 0.0,
             int(transpose_out), int(packed_codes), fold, DTYPE_CODES[dtype],
-            DTYPE_CODES[out_dtype],
-            card_tile(v0.device, m, n, k_logical, fold) if tile is None
-            else tile,
-            _build.stream_ptr(v0)), what)
+            DTYPE_CODES[out_dtype], tile, _build.stream_ptr(v0)), what)
     return out
 
 
@@ -519,6 +522,7 @@ def card_wg_plan(index: int, m: int, n: int, k: int,
     """:func:`wg_plan` on card ``index`` or, with ``bn`` or ``splits``
     given, :func:`wg_forced_plan` (the other from :func:`wg_plan`), once per
     shape and card."""
+    trace.count("plan_miss")  # the body runs on a cache miss only
     sms = sm_count(index)
     if bn is None and splits is None:
         return wg_plan(m, n, k, sms)
@@ -637,8 +641,10 @@ def pack_wgmma_sp_cuda(v0, v1, codes) -> torch.Tensor:
                          f"{tuple(v1.shape)}, {tuple(codes.shape)}")
     v0, v1, codes = (t.contiguous() for t in (v0, v1, codes))
     ktp = -(-k4 // 16)
+    trace.mark("alloc")
     out = torch.empty((ktp, m // WG_BM, WG_WORDS), dtype=torch.int32,
                       device=v0.device)
+    trace.mark("launch")
     launch = _build.load("spmm24", "spmm24_pack_launch", PACK_SPEC)
     _build.check(launch(v0.data_ptr(), v1.data_ptr(), codes.data_ptr(),
                         out.data_ptr(), m, k4, ktp, _build.device_index(v0),
@@ -763,10 +769,13 @@ def spmm24_wg_cuda(wg, b, *, m: int, k_logical: int,
             not wg.is_contiguous():
         raise ValueError(f"spmm24_wg_cuda needs n % 64 == 0 and contiguous, "
                          f"16-byte aligned operands (n {n})")
+    trace.mark("plan")
     plan = card_wg_plan(index, m, n, k_logical, block_n, splits)
+    trace.mark("alloc")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=b.device)
     ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,
                       device=b.device) if plan.splits > 1 else None)
+    trace.mark("launch")
     launch = _build.load("spmm24", "spmm24_wg_launch", WG_SPEC)
     _build.check(launch(
         wg.data_ptr(), b.data_ptr(), out.data_ptr(), _build.ptr(ws), m, n,

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils import trace
 from .kernels.prune_kernel import prune_nm_cuda, prune_nm_plain
 
 
@@ -26,9 +27,15 @@ def prune_nm(w: torch.Tensor, n: int = 2,
     ``m``; equal magnitudes rank by position, later positions winning. The
     last axis acts as zero-padded to a multiple of ``m``.
     """
-    if _build.use_kernel(w):
-        return prune_nm_cuda(w, n, m)
-    return prune_nm_plain(w, n, m)
+    call = trace.begin("sparsifyme.prune_nm", "prep")
+    try:
+        if _build.use_kernel(w):
+            return prune_nm_cuda(w, n, m)
+        trace.mark("plain")
+        return prune_nm_plain(w, n, m)
+    finally:
+        if call:
+            trace.end(call)
 
 
 def prune_24(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..containers import Sparse24, WgOperand, plane_identity
+from ..utils import trace
 from .kernels.prune_kernel import (compress_24_cuda, compress_24_plain,
                                    prune_compress_24_cuda,
                                    prune_compress_24_plain)
@@ -43,14 +44,20 @@ def compress_24(w: torch.Tensor) -> Sparse24:
     4 are kept (ties to the later position, as in
     :func:`~.prune.prune_nm`), so an exactly 2:4 input keeps precisely its
     nonzeros."""
-    k = w.shape[-1]
-    w2 = w.reshape(-1, k)
-    if _build.use_kernel(w):
-        v0, v1, codes = compress_24_cuda(w2)
-    else:
-        v0, v1, codes = compress_24_plain(w2)
-    return Sparse24(values0=v0, values1=v1, codes=codes,
-                    shape=tuple(w.shape))
+    call = trace.begin("sparsifyme.compress_24", "prep")
+    try:
+        k = w.shape[-1]
+        w2 = w.reshape(-1, k)
+        if _build.use_kernel(w):
+            v0, v1, codes = compress_24_cuda(w2)
+        else:
+            trace.mark("plain")
+            v0, v1, codes = compress_24_plain(w2)
+        return Sparse24(values0=v0, values1=v1, codes=codes,
+                        shape=tuple(w.shape))
+    finally:
+        if call:
+            trace.end(call)
 
 
 def prune_compress_24(w: torch.Tensor, rank_mxu: bool = False,
@@ -70,23 +77,29 @@ def prune_compress_24(w: torch.Tensor, rank_mxu: bool = False,
     same selection: accepted and ignored (``fold_rows`` returns the standard
     planes, as it does in the JAX package).
     """
-    k = w.shape[-1]
-    w2 = w.reshape(-1, k)
-    if fold > 1:
-        if fold != 2:
-            raise ValueError(f"fold {fold} unsupported (use 2)")
-        rows = w2.shape[0]
-        if rows % fold:
-            raise ValueError(f"rows {rows} % fold {fold} != 0")
-        kp = -(-k // 64) * 64  # compress_24's k padding quantum
-        w2 = F.pad(w2, (0, kp - k)) if kp != k else w2
-        w2 = w2.reshape(rows // fold, fold * kp)
-    if _build.use_kernel(w):
-        v0, v1, codes = prune_compress_24_cuda(w2)
-    else:
-        v0, v1, codes = prune_compress_24_plain(w2)
-    return Sparse24(values0=v0, values1=v1, codes=codes,
-                    shape=tuple(w.shape), fold=fold)
+    call = trace.begin("sparsifyme.prune_compress_24", "prep")
+    try:
+        k = w.shape[-1]
+        w2 = w.reshape(-1, k)
+        if fold > 1:
+            if fold != 2:
+                raise ValueError(f"fold {fold} unsupported (use 2)")
+            rows = w2.shape[0]
+            if rows % fold:
+                raise ValueError(f"rows {rows} % fold {fold} != 0")
+            kp = -(-k // 64) * 64  # compress_24's k padding quantum
+            w2 = F.pad(w2, (0, kp - k)) if kp != k else w2
+            w2 = w2.reshape(rows // fold, fold * kp)
+        if _build.use_kernel(w):
+            v0, v1, codes = prune_compress_24_cuda(w2)
+        else:
+            trace.mark("plain")
+            v0, v1, codes = prune_compress_24_plain(w2)
+        return Sparse24(values0=v0, values1=v1, codes=codes,
+                        shape=tuple(w.shape), fold=fold)
+    finally:
+        if call:
+            trace.end(call)
 
 
 def pack_wg(s: Sparse24) -> Sparse24:
@@ -95,23 +108,30 @@ def pack_wg(s: Sparse24) -> Sparse24:
     version on CPU ones) and bound to them, so that :func:`spmm_24` refuses
     it once a plane is replaced or written in place. Takes fold=1 bf16
     planes whose width M is a multiple of 128; raises otherwise."""
-    if s.fold != 1:
-        raise ValueError("pack_wg takes fold=1 planes (the wgmma_sp route "
-                         "has no fold mode)")
-    v0, v1, codes = s.values0, s.values1, s.codes
-    if v0.dtype != torch.bfloat16 or v1.dtype != torch.bfloat16:
-        raise ValueError(f"pack_wg takes bf16 planes, not {v0.dtype}")
-    if v0.shape[-1] % WG_BM:
-        raise ValueError(f"pack_wg needs M % {WG_BM} == 0, got "
-                         f"{v0.shape[-1]}")
-    if _build.use_kernel(v0):
-        packed = pack_wgmma_sp_cuda(v0, v1, codes)
-    elif any(t.device.type != "cpu" for t in (v1, codes)):
-        raise ValueError("pack_wg needs the planes on one device")
-    else:
-        packed = pack_wgmma_sp(v0, v1, codes)
-    return dataclasses.replace(
-        s, wg=WgOperand(packed, plane_identity(v0, v1, codes)))
+    call = trace.begin("sparsifyme.pack_wg", "prep")
+    try:
+        if s.fold != 1:
+            raise ValueError("pack_wg takes fold=1 planes (the wgmma_sp "
+                             "route has no fold mode)")
+        v0, v1, codes = s.values0, s.values1, s.codes
+        if v0.dtype != torch.bfloat16 or v1.dtype != torch.bfloat16:
+            raise ValueError(f"pack_wg takes bf16 planes, not {v0.dtype}")
+        if v0.shape[-1] % WG_BM:
+            raise ValueError(f"pack_wg needs M % {WG_BM} == 0, got "
+                             f"{v0.shape[-1]}")
+        if _build.use_kernel(v0):
+            packed = pack_wgmma_sp_cuda(v0, v1, codes)
+        elif any(t.device.type != "cpu" for t in (v1, codes)):
+            raise ValueError("pack_wg needs the planes on one device")
+        else:
+            trace.mark("plain")
+            packed = pack_wgmma_sp(v0, v1, codes)
+        trace.mark("bind")
+        return dataclasses.replace(
+            s, wg=WgOperand(packed, plane_identity(v0, v1, codes)))
+    finally:
+        if call:
+            trace.end(call)
 
 
 def check_wg(s: Sparse24) -> None:
@@ -212,64 +232,78 @@ def spmm_24(
     back from one tile to the other. The backward, where there is one, is
     the planes' (``wg`` is forward only).
     """
-    check_wg(s)
-    if transpose_a:
-        raise NotImplementedError(
-            "transpose_a is unsupported for 2:4 SpMM: the compression axis "
-            "must be the contraction axis (cusparseLt has the same "
-            "restriction)")
-    if transpose_b:
-        b = b.transpose(-1, -2)
-    *lead, m, k = s.shape
-    n = b.shape[-1]
-    out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
-    if s.fold > 1:
-        if design == "wgmma_sp":
-            raise ValueError("design 'wgmma_sp' cannot take this call: "
-                             "fold=2 planes")
-        if transpose_out:
+    call = trace.begin("sparsifyme.spmm_24", "check_wg")
+    try:
+        check_wg(s)
+        trace.mark("design")
+        if transpose_a:
             raise NotImplementedError(
-                "transpose_out is unsupported for folded operands (the "
-                "[Mf, 2n] -> [M, n] un-fold is only free in row-major C)")
-        if c is not None and beta != 0.0:
-            c = c.reshape(-1, c.shape[-1])
-        if _build.use_kernel(s.values0):
-            # as in JAX: "no VJP -- train with fold=1 operands"
-            _build.refuse_grad("spmm_24 on fold=2 operands", s.values0,
-                               s.values1, b, c)
-            fn = spmm24_fold_cuda
-        else:
-            fn = spmm24_fold_plain
-        out = fn(s.values0, s.values1, s.codes, b, k_logical=k,
-                 out_dtype=out_dtype, alpha=alpha, beta=beta, c=c, tile=tile)
+                "transpose_a is unsupported for 2:4 SpMM: the compression "
+                "axis must be the contraction axis (cusparseLt has the same "
+                "restriction)")
+        if transpose_b:
+            b = b.transpose(-1, -2)
+        *lead, m, k = s.shape
+        n = b.shape[-1]
+        out_dtype = out_dtype or torch.promote_types(s.dtype, b.dtype)
+        if s.fold > 1:
+            if design == "wgmma_sp":
+                raise ValueError("design 'wgmma_sp' cannot take this call: "
+                                 "fold=2 planes")
+            if transpose_out:
+                raise NotImplementedError(
+                    "transpose_out is unsupported for folded operands (the "
+                    "[Mf, 2n] -> [M, n] un-fold is only free in row-major "
+                    "C)")
+            if c is not None and beta != 0.0:
+                c = c.reshape(-1, c.shape[-1])
+            if _build.use_kernel(s.values0):
+                # as in JAX: "no VJP -- train with fold=1 operands"
+                _build.refuse_grad("spmm_24 on fold=2 operands", s.values0,
+                                   s.values1, b, c)
+                trace.mark("prep")
+                fn = spmm24_fold_cuda
+            else:
+                trace.mark("plain")
+                fn = spmm24_fold_plain
+            out = fn(s.values0, s.values1, s.codes, b, k_logical=k,
+                     out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
+                     tile=tile)
+            return out.reshape(*lead, m, n)
+        if c is not None and beta != 0.0 and not transpose_out:
+            c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
+        if c is None or beta == 0.0:
+            c = None
+        wg = None
+        if spmm24_design(s, b, out_dtype=out_dtype, alpha=alpha, beta=beta,
+                         c=c, transpose_out=transpose_out,
+                         packed_codes=packed_codes, tile=tile,
+                         design=design) == "wgmma_sp":
+            wg = s.wg.packed
+        cfg = (k, out_dtype, alpha, beta, transpose_out, packed_codes, tile,
+               wg)
+        args = (s.values0, s.values1, s.codes, b, c)
+        out = (_Spmm24.apply(*args, cfg) if _build.needs_grad(*args)
+               else _spmm24_forward(*args, cfg))
+        if transpose_out:
+            return out
         return out.reshape(*lead, m, n)
-    if c is not None and beta != 0.0 and not transpose_out:
-        c = torch.broadcast_to(c, (*lead, m, n)).reshape(-1, n)
-    if c is None or beta == 0.0:
-        c = None
-    wg = None
-    if spmm24_design(s, b, out_dtype=out_dtype, alpha=alpha, beta=beta, c=c,
-                     transpose_out=transpose_out, packed_codes=packed_codes,
-                     tile=tile, design=design) == "wgmma_sp":
-        wg = s.wg.packed
-    cfg = (k, out_dtype, alpha, beta, transpose_out, packed_codes, tile, wg)
-    args = (s.values0, s.values1, s.codes, b, c)
-    out = (_Spmm24.apply(*args, cfg) if _build.needs_grad(*args)
-           else _spmm24_forward(*args, cfg))
-    if transpose_out:
-        return out
-    return out.reshape(*lead, m, n)
+    finally:
+        if call:
+            trace.end(call)
 
 
 def _spmm24_forward(v0, v1, codes, b, c, cfg) -> torch.Tensor:
     """K3 on CUDA planes, its plain version on CPU ones: the ``wgmma_sp``
     route on the packed operand ``wg`` where ``cfg`` carries one."""
     k_logical, out_dtype, alpha, beta, transpose_out, packed, tile, wg = cfg
+    cuda = _build.use_kernel(v0)
+    trace.mark("prep" if cuda else "plain")
     if wg is not None:
-        fn = spmm24_wg_cuda if _build.use_kernel(v0) else spmm24_wg_plain
+        fn = spmm24_wg_cuda if cuda else spmm24_wg_plain
         return fn(wg, b, m=v0.shape[-1], k_logical=k_logical,
                   out_dtype=out_dtype)
-    fn = spmm24_cuda if _build.use_kernel(v0) else spmm24_plain
+    fn = spmm24_cuda if cuda else spmm24_plain
     return fn(v0, v1, pack_codes_fp(codes) if packed else codes, b,
               k_logical=k_logical, out_dtype=out_dtype, alpha=alpha,
               beta=beta, c=c, transpose_out=transpose_out,
