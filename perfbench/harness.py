@@ -5,7 +5,8 @@ result line.
 Everything particular to a cell lives in files found by name from
 ``BENCHMARK.json``: the configuration's layers (its ``file``), the traffic
 mix (``perfbench/traffic/<traffic>.json``, whose ``route`` picks the path
-through the program in :mod:`.routes`), the limits of the comparison
+through the program: one of :mod:`.routes`, or a model's route file
+``perfbench/model_routes/<route>.py``), the limits of the comparison
 (``perfbench/checks/<workload>.json``) and one reader per per-layer metric
 (``perfbench/metrics/<metric>.py``, a ``read(run)`` that returns a number
 or ``None``).
@@ -48,8 +49,10 @@ class Cell:
     @property
     def layers(self):
         """``(rows on a card, n, k)`` per layer, the batch folded into
-        rows."""
-        return [(b * m, n, k) for m, n, k, b in self.config["layers"]]
+        rows; none for a configuration that is a whole model (no
+        ``layers``), which its route sizes from ``config``."""
+        return [(b * m, n, k) for m, n, k, b in self.config.get("layers",
+                                                                 [])]
 
 
 def _applies(metric: dict, cell: str, e2e_names: List[str]) -> bool:
@@ -113,6 +116,8 @@ class Ctx:
     rank: int = 0
     world: int = 1
     mesh: object = None
+    # the configuration file's dict, from which a model's route sizes itself
+    config: Optional[dict] = None
     # smallest relative gap at the Blocked-ELL cut the reference saw
     ell_margin: Optional[float] = None
 
@@ -182,7 +187,7 @@ def run_seed(cell: Cell, ctx: Ctx, seconds: float, trace: bool, t0: float,
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
     traffic, layers = cell.traffic, cell.layers
-    route = routes.ROUTES[traffic["route"]]()
+    route = routes.resolve(traffic["route"], cell.root)()
     state = route.setup(ctx, layers)
     designs = route.designs(state)
     for _ in range(int(traffic["warmup_passes"])):
@@ -233,10 +238,11 @@ def run_seed(cell: Cell, ctx: Ctx, seconds: float, trace: bool, t0: float,
 
     del state
     # the outputs go one by one as they are judged, so the reference fits
-    outs = list(outs) if len(outs) == len(layers) else [None] * len(layers)
+    count = route.outputs(ctx, layers)
+    outs = list(outs) if len(outs) == count else [None] * count
     worst = {"rel_err": 0.0, "max_err": 0.0}
     ctrl = dict(worst)
-    for i in range(len(layers)):
+    for i in range(count):
         ref, ctl = route.reference(ctx, layers, i, control)
         got, outs[i] = outs[i], None
         for key, v in zip(worst, (float("inf"),) * 2 if got is None
@@ -283,7 +289,8 @@ def run_seeds(cell: Cell, job: dict, rank: int = 0, world: int = 1,
         dev = torch.device("cuda", torch.cuda.current_device())
     out = []
     for seed in job["seeds"]:
-        ctx = Ctx(dev, int(seed), cell.traffic, rank, world, mesh)
+        ctx = Ctx(dev, int(seed), cell.traffic, rank, world, mesh,
+                  config=cell.config)
         res = run_seed(cell, ctx, job["seconds"], job["trace"], job["t0"],
                        int(seed) in job.get("control_seeds", ()))
         if world > 1:
@@ -311,9 +318,7 @@ def rank_main(rank: int, world: int, port: int, job: dict, queue) -> None:
     try:
         from sparsifyme_tpu_torch.parallel.mesh import (init_distributed,
                                                         make_mesh)
-        cell = load_cell(job["workload"], Path(job["root"]))
-        if job.get("layers") is not None:
-            cell.config = dict(cell.config, layers=job["layers"])
+        cell = job_cell(job)
         init_distributed(f"tcp://localhost:{port}", world, rank,
                          timeout_s=job.get("collective_timeout_s", 300))
         mesh = make_mesh((world,), ("model",))
@@ -384,12 +389,22 @@ def run_ranks(job: dict, world: int, timeout_s: float,
     return results[0]
 
 
+def job_cell(job: dict) -> Cell:
+    """The job's cell, with ``job["config"]`` (keys of the configuration
+    file) merged over its configuration and ``job["layers"]`` over its
+    layers, where the job gives them: the sizes of the tests' runs."""
+    cell = load_cell(job["workload"], Path(job["root"]))
+    if job.get("config") is not None:
+        cell.config = dict(cell.config, **job["config"])
+    if job.get("layers") is not None:
+        cell.config = dict(cell.config, layers=job["layers"])
+    return cell
+
+
 def run_job(job: dict) -> List[List[dict]]:
     """The job's seeds on its cell: in this process on one chip, or in one
     process a rank on several. Per seed, every rank's numbers."""
-    cell = load_cell(job["workload"], Path(job["root"]))
-    if job.get("layers") is not None:
-        cell.config = dict(cell.config, layers=job["layers"])
+    cell = job_cell(job)
     if cell.chips == 1:
         return run_seeds(cell, job)
     if job["device"] == "cuda":
@@ -416,10 +431,15 @@ def end_to_end_values(ranks: List[dict]) -> Dict[str, float]:
 
 
 def reader_view(cell: Cell, ranks: List[dict]) -> SimpleNamespace:
-    """What a per-layer metric's reader gets."""
+    """What a per-layer metric's reader gets: ``config`` and ``route``
+    (the route's class) let a model's readers count its work with the
+    functions of its route file."""
+    from . import routes
     e2e = end_to_end_values(ranks)
     return SimpleNamespace(
         cell=cell.name, layers=cell.layers, traffic=cell.traffic,
+        config=cell.config,
+        route=routes.resolve(cell.traffic["route"], cell.root),
         world=len(ranks), pass_ms=e2e["pass_ms"],
         enqueue_ms=[r["enqueue_ms"] for r in ranks],
         dense_pass_ms=ranks[0].get("dense_pass_ms"),

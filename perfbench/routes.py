@@ -1,16 +1,21 @@
 """How a traffic mix drives the program: its set-up, one pass, the dense
 baseline and the reference for what the pass produced.
 
-A traffic file names its route (``"route"``). Each route calls the
-program only through its public ops and parallel entries, and knows from
-the configuration's layers alone what to make; the reference it hands back
-is worked out from the benchmark's own inputs (``data``), never from what
-the program made.
+A traffic file names its route (``"route"``): one of :data:`ROUTES`, or a
+model's ``ROUTE`` in ``perfbench/model_routes/<route>.py`` (:func:`resolve`).
+Each route calls the program only through its public entries, and knows
+from the configuration alone what to make (a GEMM configuration's layers,
+or a model configuration's keys in ``ctx.config``); the reference it hands
+back is worked out from the benchmark's own inputs (``data``), never from
+what the program made.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib.util
+import sys
+from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -40,13 +45,18 @@ class Route:
     def setup(self, ctx, layers: Sequence[Layer]) -> list:
         raise NotImplementedError
 
+    def outputs(self, ctx, layers: Sequence[Layer]) -> int:
+        """How many outputs a pass returns, each judged against
+        :meth:`reference` of its index: one a layer."""
+        return len(layers)
+
     def run_pass(self, state: list, traced: bool) -> List[torch.Tensor]:
         raise NotImplementedError
 
     def reference(self, ctx, layers: Sequence[Layer], i: int,
                   control: bool) -> Tuple[torch.Tensor, Optional[
                       torch.Tensor]]:
-        """Layer ``i``'s float32 reference and, with ``control``, the
+        """Output ``i``'s float32 reference and, with ``control``, the
         control's output."""
         a, b = self.kept_inputs(ctx, layers, i)
         ref = reference.product(a, b)
@@ -206,3 +216,37 @@ class Ring24(Route):
 
 ROUTES = {"sparse24_static": Static24, "sparse24_pipeline": Pipeline24,
           "ell": Ell, "sparse24_ring": Ring24}
+
+
+def load_file(path: Path, name: str):
+    """The module in the file ``path``, loaded by path as ``name`` and
+    entered in ``sys.modules`` first, as the import system does, so that a
+    dataclass in it finds its module."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_RESOLVED: dict = {}
+
+
+def resolve(name: str, root: Path) -> type:
+    """The route class of traffic route ``name``: one of :data:`ROUTES`,
+    or the ``ROUTE`` of ``root/perfbench/model_routes/<name>.py``, whose
+    file is run once a process and root."""
+    if name in ROUTES:
+        return ROUTES[name]
+    path = (Path(root) / "perfbench" / "model_routes" / f"{name}.py").resolve()
+    if path in _RESOLVED:
+        return _RESOLVED[path]
+    if not path.is_file():
+        raise KeyError(f"route {name!r} is neither one of {sorted(ROUTES)} "
+                       f"nor a file {path}")
+    route = getattr(load_file(path, "perfbench_route_" + name.replace(
+        ".", "_").replace("-", "_")), "ROUTE", None)
+    if not (isinstance(route, type) and issubclass(route, Route)):
+        raise TypeError(f"{path} has no ROUTE that is a routes.Route")
+    _RESOLVED[path] = route
+    return route

@@ -54,19 +54,67 @@ RING_ENTRIES = {
 }
 
 
-def with_ring(tmp_path) -> Path:
-    """A copy of the benchmark with the four-card cell put back, as data
-    alone; returns its root."""
+def _copy_with(tmp_path, entries: dict, cell: str, read_by,
+               files: Path | None = None) -> Path:
+    """A copy of the benchmark with ``files`` (a tree laid out as
+    ``perfbench/``) added beside its own, ``entries`` added to its
+    ``BENCHMARK.json``, and ``cell`` added to the ``workloads`` of the
+    metrics named in ``read_by``; returns its root."""
     root = tmp_path / "checkout"
     shutil.copytree(harness.ROOT / "perfbench", root / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    for path in (files.rglob("*") if files else ()):
+        if path.is_file() and "__pycache__" not in path.parts:
+            dest = root / "perfbench" / path.relative_to(files)
+            assert not dest.exists(), dest  # added, never over a file
+            dest.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(path, dest)
     bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    for key, entries in RING_ENTRIES.items():
-        bench[key] += entries
+    for key, more in entries.items():
+        bench[key] += more
     for m in bench["per_layer"] + bench["end_to_end"]:
-        if "workloads" in m and m["name"] in (
-                "pass_ms", "peak_mem_gib", "setup_s", "enqueue_ms",
-                "idle_share", "pass_mfu") and RING not in m["workloads"]:
-            m["workloads"].append(RING)
+        if "workloads" in m and m["name"] in read_by and \
+                cell not in m["workloads"]:
+            m["workloads"].append(cell)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
+
+
+def with_ring(tmp_path) -> Path:
+    """A copy of the benchmark with the four-card cell put back, as data
+    alone; returns its root."""
+    return _copy_with(tmp_path, RING_ENTRIES, RING, (
+        "pass_ms", "peak_mem_gib", "setup_s", "enqueue_ms", "idle_share",
+        "pass_mfu"))
+
+
+# A model cell added as files alone: the files under model_files/ go into
+# a copy of the benchmark beside its own, and these entries into its
+# BENCHMARK.json.
+MODEL = "sparse-mlp.mlp24"
+MODEL_FILES = Path(__file__).resolve().parent / "model_files"
+MODEL_ENTRIES = {
+    "configs": [{"name": "sparse-mlp",
+                 "source": "sparsifyme_tpu_torch/models/sparse_mlp.py",
+                 "file": "perfbench/configs/sparse-mlp.json",
+                 "reduced": ["num_hidden_layers"],
+                 "why": "the port's 2:4 MLP, a whole model by its widths"}],
+    "workloads": [{"name": MODEL, "config": "sparse-mlp",
+                   "traffic": "mlp24", "chips": 1,
+                   "why": "4 batches of 512 tokens a pass through "
+                          "sparse_mlp.forward, K3 a layer, one client in "
+                          "a closed loop"}],
+    "per_layer": [
+        {"name": "mlp24_mfu", "unit": "%", "better": "higher",
+         "source": "host_clock", "layer": "whole pass", "moves": "pass_ms",
+         "workloads": [MODEL]}],
+}
+# the CPU tests' sizes, merged over the configuration's keys
+TINY_MODEL = {"hidden_size": 64, "intermediate_size": 128}
+
+
+def with_model(tmp_path) -> Path:
+    """A copy of the benchmark with the model cell added as files and
+    entries alone, and ``enqueue_ms`` read there too; returns its root."""
+    return _copy_with(tmp_path, MODEL_ENTRIES, MODEL, ("enqueue_ms",),
+                      MODEL_FILES)
