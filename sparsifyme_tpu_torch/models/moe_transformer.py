@@ -1,0 +1,593 @@
+"""A mixture-of-experts transformer with hybrid window / full attention
+and 2:4-pruned linear weights (MiMo-V2-Flash's block), as one card's share
+of a layer that several cards divide.
+
+Every linear weight of the blocks (q, k, v, o, the dense FFN, each
+expert's gate, up and down) is pruned 2:4 along its input axis and
+compressed by K2 (:func:`~..ops.sparse24.prune_compress_24`), packed for
+K3's ``wgmma_sp`` route where its row count allows (:func:`~..ops.sparse24.
+pack_wg`, M % 128 == 0) and run by :func:`~..ops.sparse24.spmm_24`. The
+router, the embedding and the head stay dense bf16, as pruning practice
+leaves them. A weight given as a dense tensor runs through ``torch.matmul``
+instead (:func:`densify`: the dense baseline).
+
+Activations are feature-major ``[features, tokens]``, so that one layer's
+product is the next one's B operand as K3 takes it (``spmm_24(W, x)`` is
+``W @ x``); the residual stream is float32, every product's operands bf16.
+
+One block (pre-norm, RMSNorm without bias)::
+
+    h = x + Attn(RMSNorm(x));  y = h + FFN(RMSNorm(h))
+
+* Attention: GQA with q/k head size ``head_dim`` and v head size
+  ``v_head_dim``; rotate-half RoPE on the first ``int(partial_rotary_factor
+  * head_dim)`` dims of q and k (the rest pass through); softmax scale
+  ``head_dim ** -0.5``, causal; a window layer lets query i see keys
+  ``i - window + 1 .. i`` and adds a per-head sink logit to the softmax's
+  denominator (a key of value zero); V is scaled by
+  ``attention_value_scale``. The output projection sums over the heads this
+  card holds: the partial sum that tensor parallelism would all-reduce.
+* FFN: SwiGLU ``W2(silu(W1 x) * W3 x)``, gate and up fused into one 2:4
+  weight. A MoE layer routes every token over all ``n_routed_experts``:
+  sigmoid scores, the top ``num_experts_per_tok`` of score + correction
+  bias, weights the selected scores over their sum, and adds the share of
+  the experts this card holds (``held_experts``); the other experts' share
+  is another card's.
+
+The MoE layer is three public steps that :func:`forward` composes:
+:func:`moe_route` (router, selection, tokens grouped by held expert, each
+group padded to a multiple of ``PAD_ROWS`` so that K3's ``wgmma_sp`` route
+takes every call), :func:`moe_experts` (two 2:4 products an expert) and
+:func:`moe_combine` (the weighted scatter back into the residual stream).
+The expert layer gathers and scatters token-major ``[tokens, hidden]``
+rows, each a contiguous run, and turns each expert's rows feature-major
+for its products: on the H100, gathering and scattering columns of the
+feature-major tensors instead (``index_select`` / ``index_add_`` on dim
+1, a strided access a column) took 96 ms of a 323 ms pass, against 44 ms
+for these transposes, the cat and the row scatter. They record one
+program span ``sparsifyme.moe`` (phases ``router``, ``select``,
+``dispatch``, ``experts``, ``combine``) and the counters
+``moe.rows`` / ``moe.pad_rows``; :func:`attention` records
+``sparsifyme.attention`` (``proj``, ``rope``, ``core``, ``out``).
+:func:`attention` and :func:`dense_ffn` enter an optional ``products()``
+context around their 2:4 products, so a caller can time them apart (a
+profiler's range).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+from typing import (Callable, ContextManager, List, Optional, Tuple,
+                    Union)
+
+import torch
+import torch.nn.functional as F
+
+from ..containers import Sparse24
+from ..ops.sparse24 import (decompress_24, pack_wg, prune_compress_24,
+                            spmm_24)
+from ..ops.kernels.spmm24_kernel import WG_BM
+from ..utils import trace
+
+BF16 = torch.bfloat16
+PAD_ROWS = 64  # a group's rows: a multiple of the wgmma_sp route's n tile
+Linear = Union[Sparse24, torch.Tensor]
+# weight(name, shape) -> a dense bf16 tensor on the device the model runs on
+WeightFn = Callable[[str, Tuple[int, ...]], torch.Tensor]
+# entered around a block's 2:4 products (a profiler's range, say)
+Products = Callable[[], ContextManager]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeTransformerConfig:
+    """Widths and conventions of the model, and what this card holds:
+    ``num_attention_heads`` / ``num_key_value_heads`` (and the ``swa_``
+    pair of window layers) count the heads held here, ``held_experts``
+    the experts (of ``n_routed_experts`` the router scores)."""
+
+    hidden_size: int
+    intermediate_size: int
+    moe_intermediate_size: int
+    vocab_size: int
+    # per layer: 1 a window (SWA) layer, 0 a full-attention layer
+    hybrid_layer_pattern: Tuple[int, ...]
+    # per layer: 1 a MoE layer, 0 a dense FFN
+    moe_layer_freq: Tuple[int, ...]
+    head_dim: int
+    v_head_dim: int
+    swa_head_dim: int
+    swa_v_head_dim: int
+    num_attention_heads: int
+    num_key_value_heads: int
+    swa_num_attention_heads: int
+    swa_num_key_value_heads: int
+    n_routed_experts: int
+    held_experts: Tuple[int, ...]
+    num_experts_per_tok: int
+    norm_topk_prob: bool
+    sliding_window: int
+    add_swa_attention_sink_bias: bool
+    add_full_attention_sink_bias: bool
+    partial_rotary_factor: float
+    rope_theta: float
+    swa_rope_theta: float
+    attention_value_scale: float
+    layernorm_epsilon: float
+
+    @property
+    def num_hidden_layers(self) -> int:
+        return len(self.hybrid_layer_pattern)
+
+    @classmethod
+    def from_dict(cls, keys: dict, **over) -> "MoeTransformerConfig":
+        """From a dict with the source's ``config.json`` keys (others are
+        ignored), lists as tuples; ``over`` sets fields besides."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        got = {k: tuple(v) if isinstance(v, list) else v
+               for k, v in keys.items() if k in names}
+        got.update(over)
+        return cls(**got)
+
+    def attention_shape(self, layer: int):
+        """``(heads, kv heads, qk dim, v dim, window, sink, rope theta)``
+        of layer ``layer`` (window 0: full attention)."""
+        if self.hybrid_layer_pattern[layer]:
+            return (self.swa_num_attention_heads,
+                    self.swa_num_key_value_heads, self.swa_head_dim,
+                    self.swa_v_head_dim, self.sliding_window,
+                    self.add_swa_attention_sink_bias, self.swa_rope_theta)
+        return (self.num_attention_heads, self.num_key_value_heads,
+                self.head_dim, self.v_head_dim, 0,
+                self.add_full_attention_sink_bias, self.rope_theta)
+
+
+@dataclasses.dataclass
+class Attention:
+    norm: torch.Tensor  # [hidden]
+    q: Linear  # [heads * qk_dim, hidden]
+    k: Linear  # [kv_heads * qk_dim, hidden]
+    v: Linear  # [kv_heads * v_dim, hidden]
+    o: Linear  # [hidden, heads * v_dim]
+    sinks: Optional[torch.Tensor]  # [heads] float32, or None
+    heads: int
+    kv_heads: int
+    window: int  # 0: full attention
+    rope_theta: float
+
+
+@dataclasses.dataclass
+class DenseFfn:
+    norm: torch.Tensor
+    gate_up: Linear  # [2 * intermediate, hidden]: gate rows, then up rows
+    down: Linear  # [hidden, intermediate]
+
+
+@dataclasses.dataclass
+class Moe:
+    norm: torch.Tensor
+    router: torch.Tensor  # [n_routed_experts, hidden] bf16, dense
+    bias: torch.Tensor  # [n_routed_experts] float32 correction bias
+    experts: List[Tuple[Linear, Linear]]  # per held expert: gate_up, down
+    local: torch.Tensor  # [n_routed_experts] int64: held index, or -1
+
+
+@dataclasses.dataclass
+class Params:
+    embed: torch.Tensor  # [vocab, hidden] bf16
+    layers: List[Tuple[Attention, Union[DenseFfn, Moe]]]
+    norm: torch.Tensor
+    head: torch.Tensor  # [vocab, hidden] bf16
+
+
+@dataclasses.dataclass
+class Dispatch:
+    """Tokens grouped by held expert: ``index[r]`` is row r's token and
+    ``weight[r]`` its routing weight (0 on the padding rows, which repeat
+    token 0); held expert e's rows are ``bounds[e]``, ``rows[e]`` of them
+    real. ``selected [tokens, top]`` holds every token's chosen experts
+    (of all). ``call`` is the open ``sparsifyme.moe`` record, which
+    :func:`moe_combine` closes."""
+
+    index: torch.Tensor
+    weight: torch.Tensor
+    bounds: List[Tuple[int, int]]
+    rows: List[int]
+    selected: torch.Tensor
+    call: Optional[int] = None
+
+
+# --- set-up ----------------------------------------------------------------
+
+def sparse_weight(w: torch.Tensor) -> Sparse24:
+    """A dense weight ``[M, K]`` pruned 2:4 along K and compressed (K2's
+    fused route), packed for K3's ``wgmma_sp`` route where M % 128 == 0."""
+    s = prune_compress_24(w)
+    return pack_wg(s) if w.shape[0] % WG_BM == 0 else s
+
+
+def weight_shape(config: MoeTransformerConfig, name: str
+                 ) -> Tuple[int, ...]:
+    """The shape of the weight called ``name`` (``embed``, ``head``,
+    ``norm`` or ``<layer>.<part>``): ``[out, in]`` for a product."""
+    c, hid = config, config.hidden_size
+    if name in ("embed", "head"):
+        return (c.vocab_size, hid)
+    if name == "norm":
+        return (hid,)
+    layer, part = name.split(".", 1)
+    heads, kv, dqk, dv, _, _, _ = c.attention_shape(int(layer))
+    if part.startswith("e"):
+        part = "expert_" + part.split(".")[1]
+    return {"attn_norm": (hid,), "ffn_norm": (hid,), "q": (heads * dqk, hid),
+            "k": (kv * dqk, hid), "v": (kv * dv, hid),
+            "o": (hid, heads * dv), "sinks": (heads,),
+            "gate": (c.intermediate_size, hid),
+            "up": (c.intermediate_size, hid),
+            "down": (hid, c.intermediate_size),
+            "router": (c.n_routed_experts, hid),
+            "router_bias": (c.n_routed_experts,),
+            "expert_gate": (c.moe_intermediate_size, hid),
+            "expert_up": (c.moe_intermediate_size, hid),
+            "expert_down": (hid, c.moe_intermediate_size)}[part]
+
+
+def init_params(config: MoeTransformerConfig, weight: WeightFn) -> Params:
+    """The model's parameters from ``weight(name, shape)``, one dense bf16
+    tensor at a time (names ``embed``, ``head``, ``norm`` and, per layer
+    ``i``, ``i.attn_norm``, ``i.q``, ``i.k``, ``i.v``, ``i.o``, ``i.sinks``
+    (window layers), ``i.ffn_norm``, then ``i.gate`` / ``i.up`` /
+    ``i.down`` or ``i.router``, ``i.router_bias`` and ``i.e<expert>.gate``
+    / ``.up`` / ``.down`` for each held expert; shapes by
+    :func:`weight_shape`): each product's weight pruned, compressed and
+    packed (:func:`sparse_weight`), gate and up stacked first; norms,
+    sinks, the router and its bias, the embedding and the head as given
+    (bias and sinks float32). Each dense weight is dropped once
+    prepared."""
+    def w(name):
+        return weight(name, weight_shape(config, name))
+
+    def fused(gate, up):
+        return sparse_weight(torch.cat([w(gate), w(up)]))
+
+    layers = []
+    for i in range(config.num_hidden_layers):
+        heads, kv, _, _, window, sink, theta = config.attention_shape(i)
+        attn = Attention(
+            norm=w(f"{i}.attn_norm"), q=sparse_weight(w(f"{i}.q")),
+            k=sparse_weight(w(f"{i}.k")), v=sparse_weight(w(f"{i}.v")),
+            o=sparse_weight(w(f"{i}.o")),
+            sinks=w(f"{i}.sinks").float() if sink else None,
+            heads=heads, kv_heads=kv, window=window, rope_theta=theta)
+        if config.moe_layer_freq[i]:
+            router = w(f"{i}.router")
+            local = torch.full((config.n_routed_experts,), -1,
+                               dtype=torch.int64, device=router.device)
+            local[list(config.held_experts)] = torch.arange(
+                len(config.held_experts), device=router.device)
+            ffn = Moe(norm=w(f"{i}.ffn_norm"), router=router,
+                      bias=w(f"{i}.router_bias").float(),
+                      experts=[(fused(f"{i}.e{e}.gate", f"{i}.e{e}.up"),
+                                sparse_weight(w(f"{i}.e{e}.down")))
+                               for e in config.held_experts],
+                      local=local)
+        else:
+            ffn = DenseFfn(norm=w(f"{i}.ffn_norm"),
+                           gate_up=fused(f"{i}.gate", f"{i}.up"),
+                           down=sparse_weight(w(f"{i}.down")))
+        layers.append((attn, ffn))
+    return Params(embed=w("embed"), layers=layers, norm=w("norm"),
+                  head=w("head"))
+
+
+def densify(params: Params) -> Params:
+    """``params`` with every 2:4 weight expanded to its dense bf16 matrix
+    (zeros kept): the same model through ``torch.matmul``."""
+    def d(x):
+        return decompress_24(x) if isinstance(x, Sparse24) else x
+
+    layers = []
+    for attn, ffn in params.layers:
+        attn = dataclasses.replace(attn, q=d(attn.q), k=d(attn.k),
+                                   v=d(attn.v), o=d(attn.o))
+        if isinstance(ffn, Moe):
+            ffn = dataclasses.replace(ffn, experts=[
+                (d(gu), d(dn)) for gu, dn in ffn.experts])
+        else:
+            ffn = dataclasses.replace(ffn, gate_up=d(ffn.gate_up),
+                                      down=d(ffn.down))
+        layers.append((attn, ffn))
+    return dataclasses.replace(params, layers=layers)
+
+
+# --- pieces ----------------------------------------------------------------
+
+def linear(w: Linear, x: torch.Tensor) -> torch.Tensor:
+    """``w @ x`` for feature-major ``x [in, tokens]`` bf16: ``spmm_24`` on a
+    2:4 weight, ``torch.matmul`` on a dense one; bf16 out."""
+    if isinstance(w, Sparse24):
+        return spmm_24(w, x, out_dtype=BF16)
+    return torch.matmul(w, x)
+
+
+def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands with float32 accumulation and a float32
+    result (batched over leading dims): cuBLAS's ``out_dtype`` on a card,
+    the float32 product of the same values on the CPU."""
+    if a.is_cuda:
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def rms_norm(h: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm of feature-major float32 ``h [hidden, tokens]`` by weight
+    ``w [hidden]``, bf16 out."""
+    ms = torch.linalg.vector_norm(h, dim=0, keepdim=True).square_().div_(
+        h.shape[0])
+    return (h * ms.add_(eps).rsqrt_()).mul_(w.float()[:, None]).to(BF16)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_table(seq: int, rot: int, theta: float, device: str):
+    inv = theta ** (-torch.arange(0, rot, 2, dtype=torch.float64) / rot)
+    ang = torch.arange(seq, dtype=torch.float64)[:, None] * inv[None]
+    return (ang.cos().float().to(device), ang.sin().float().to(device))
+
+
+def split_heads(x: torch.Tensor, heads: int, batch: int) -> torch.Tensor:
+    """Feature-major ``x [heads * dim, batch * seq]`` as a contiguous
+    ``[batch, heads, seq, dim]`` of its dtype."""
+    dim, seq = x.shape[0] // heads, x.shape[1] // batch
+    return x.view(heads, dim, batch, seq).permute(2, 0, 3, 1).contiguous()
+
+
+def rope(y: torch.Tensor, theta: float, rot: int) -> torch.Tensor:
+    """Rotate-half RoPE in place on the first ``rot`` dims of ``y [batch,
+    heads, seq, dim]`` (computed in float32, rounded once), positions
+    0..seq-1 in each sequence; returns ``y``."""
+    if rot:
+        cos, sin = _rope_table(y.shape[2], rot, float(theta), str(y.device))
+        half = rot // 2
+        r = y[..., :rot].float()
+        x1, x2 = r[..., :half], r[..., half:]
+        y[..., :half] = x1 * cos - x2 * sin
+        y[..., half:rot] = x2 * cos + x1 * sin
+    return y
+
+
+def full_attention(q, k, v) -> torch.Tensor:
+    """Causal GQA: ``q [B, heads, S, d]``, ``k [B, kv, S, d]``, ``v [B, kv,
+    S, dv]`` bf16 to ``[B, heads, S, dv]`` bf16, scale ``d ** -0.5``."""
+    b, heads, s, d = q.shape
+    g = heads // k.shape[1]
+    k = k[:, :, None].expand(-1, -1, g, -1, -1).reshape(b, heads, s, d)
+    v = v[:, :, None].expand(-1, -1, g, -1, -1).reshape(
+        b, heads, s, v.shape[-1])
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          scale=d ** -0.5)
+
+
+@functools.lru_cache(maxsize=16)
+def _band(window: int, group: int, device: str) -> torch.Tensor:
+    """Additive ``[group * window, 2 * window]`` float32 mask: query i of a
+    chunk (each of ``group`` heads) sees slots ``i + 1 .. i + window`` of
+    its keys, the previous chunk's then its own."""
+    i = torch.arange(window)[:, None]
+    j = torch.arange(2 * window)[None, :]
+    ok = (j > i) & (j <= i + window)
+    band = torch.zeros(ok.shape).masked_fill_(~ok, float("-inf"))
+    return band.repeat(group, 1).to(device)
+
+
+def window_attention(q, k, v, sinks: Optional[torch.Tensor],
+                     window: int) -> torch.Tensor:
+    """Causal GQA over a sliding window: query i sees keys ``i - window + 1
+    .. i``; ``sinks [heads]`` add ``exp(sink)`` to each head's softmax
+    denominator. Exact, in chunks of ``window`` queries against the
+    ``2 * window`` keys that can reach them, float32 scores; a sink scales
+    a row's output by ``Z / (Z + exp(sink))``, ``Z`` the row's sum of
+    exponentials."""
+    b, heads, s, d = q.shape
+    kv, dv = k.shape[1], v.shape[-1]
+    g, n = heads // kv, s // window
+    if s % window:
+        raise ValueError(f"sequence {s} is not a multiple of the window "
+                         f"{window}")
+    qc = q.view(b, kv, g, n, window, d).permute(0, 1, 3, 2, 4, 5).reshape(
+        b * kv * n, g * window, d)
+
+    def two_chunks(t):
+        p = F.pad(t, (0, 0, window, 0))
+        return torch.cat([p[:, :, :s].reshape(b, kv, n, window, -1),
+                          p[:, :, window:].reshape(b, kv, n, window, -1)],
+                         dim=3).reshape(b * kv * n, 2 * window, -1)
+
+    band = _band(window, g, str(q.device))[None]
+    kt = two_chunks(k).transpose(1, 2)
+    if q.is_cuda:
+        scores = torch.baddbmm(band, qc, kt, alpha=d ** -0.5,
+                               out_dtype=torch.float32)
+    else:
+        scores = torch.baddbmm(band, qc.float(), kt.float(),
+                               alpha=d ** -0.5)
+    # the first chunk has no previous one: its padding keys see nothing
+    scores.view(b * kv, n, g * window, 2 * window)[:, 0, :, :window] = \
+        float("-inf")
+    o = torch.bmm(torch.softmax(scores, dim=-1).to(BF16), two_chunks(v))
+    if sinks is not None:
+        lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+        keep = torch.sigmoid(lse.view(b, kv, n, g, window, 1)
+                             - sinks.view(1, kv, 1, g, 1, 1))
+        o = (o.view(b, kv, n, g, window, dv) * keep).to(BF16)
+    return o.view(b, kv, n, g, window, dv).permute(0, 1, 3, 2, 4, 5).reshape(
+        b, heads, s, dv)
+
+
+# --- blocks ----------------------------------------------------------------
+
+def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
+    """Token ids ``[batch, seq]`` to the feature-major float32 residual
+    stream ``[hidden, batch * seq]``."""
+    rows = params.embed.index_select(0, ids.reshape(-1))
+    return rows.T.to(torch.float32, memory_format=torch.contiguous_format)
+
+
+def attention(p: Attention, h: torch.Tensor, config: MoeTransformerConfig,
+              batch: int, products: Products = contextlib.nullcontext
+              ) -> torch.Tensor:
+    """``h + Attn(RMSNorm(h))`` for ``batch`` sequences of equal length:
+    the heads this card holds, the output projection's partial sum.
+    ``products()`` is entered around the 2:4 products (q, k, v; o)."""
+    call = trace.begin("sparsifyme.attention", "proj")
+    try:
+        x = rms_norm(h, p.norm, config.layernorm_epsilon)
+        with products():
+            q, k, v = linear(p.q, x), linear(p.k, x), linear(p.v, x)
+        trace.mark("rope")
+        rot = int(config.partial_rotary_factor * (q.shape[0] // p.heads))
+        q = rope(split_heads(q, p.heads, batch), p.rope_theta, rot)
+        k = rope(split_heads(k, p.kv_heads, batch), p.rope_theta, rot)
+        v = split_heads(v, p.kv_heads, batch).mul_(
+            config.attention_value_scale)
+        trace.mark("core")
+        if p.window:
+            o = window_attention(q, k, v, p.sinks, p.window)
+        else:
+            o = full_attention(q, k, v)
+        trace.mark("out")
+        o = o.permute(1, 3, 0, 2).reshape(-1, h.shape[1])
+        with products():
+            o = linear(p.o, o)
+        return h + o
+    finally:
+        if call:
+            trace.end(call)
+
+
+def dense_ffn(p: DenseFfn, h: torch.Tensor, config: MoeTransformerConfig,
+              products: Products = contextlib.nullcontext) -> torch.Tensor:
+    """``h + W2(silu(W1 x) * W3 x)``, ``x = RMSNorm(h)``; ``products()`` is
+    entered around each 2:4 product."""
+    x = rms_norm(h, p.norm, config.layernorm_epsilon)
+    with products():
+        gu = linear(p.gate_up, x)
+    gu = swiglu(gu)
+    with products():
+        y = linear(p.down, gu)
+    return h + y
+
+
+def swiglu(gu: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` of a fused product ``[2 * width, n]`` (gate rows
+    first), bf16."""
+    half = gu.shape[0] // 2
+    return F.silu(gu[:half]) * gu[half:]
+
+
+def moe_route(p: Moe, h: torch.Tensor, config: MoeTransformerConfig
+              ) -> Tuple[torch.Tensor, Dispatch]:
+    """The MoE layer's first step: ``x = RMSNorm(h)``, token-major ``[tokens,
+    hidden]`` bf16; the router's float32 logits over all experts, sigmoid
+    scores, the top ``num_experts_per_tok`` of score + bias with their
+    scores as weights (over their sum where ``norm_topk_prob``), and the
+    (token, expert) pairs of the held experts grouped by expert in token
+    order, each group padded to a multiple of ``PAD_ROWS`` rows. One copy
+    to the host (the group sizes). Opens the ``sparsifyme.moe`` record."""
+    call = trace.begin("sparsifyme.moe", "router")
+    x = rms_norm(h, p.norm, config.layernorm_epsilon).T.contiguous()
+    logits = product_f32(x, p.router.T)  # [tokens, experts]
+    trace.mark("select")
+    scores = logits.sigmoid_()
+    top = config.num_experts_per_tok
+    sel = torch.topk(scores + p.bias, top, dim=-1).indices  # [tokens, top]
+    w = scores.gather(1, sel)
+    if config.norm_topk_prob:
+        w = w / w.sum(-1, keepdim=True)
+    trace.mark("dispatch")
+    held = len(p.experts)
+    group = p.local[sel].reshape(-1)
+    group = torch.where(group < 0, held, group)  # the others: a last group
+    order = torch.argsort(group, stable=True)
+    counts = torch.bincount(group, minlength=held + 1)
+    rows = counts.tolist()[:held]
+    real = sum(rows)
+    padded = [-(-r // PAD_ROWS) * PAD_ROWS for r in rows]
+    total = sum(padded)
+    counts = counts[:held]
+    pad_t = (counts + PAD_ROWS - 1) // PAD_ROWS * PAD_ROWS
+    first = order[:real]
+    g = group[first]
+    dest = (torch.cumsum(pad_t, 0) - pad_t)[g] + torch.arange(
+        real, device=g.device) - (torch.cumsum(counts, 0) - counts)[g]
+    index = torch.zeros(total, dtype=torch.int64, device=g.device)
+    index[dest] = first // top
+    weight = torch.zeros(total, dtype=torch.float32, device=g.device)
+    weight[dest] = w.reshape(-1)[first]
+    starts = [sum(padded[:e]) for e in range(held)]
+    trace.count("moe.rows", real)
+    trace.count("moe.pad_rows", total - real)
+    bounds = [(s0, s0 + n) for s0, n in zip(starts, padded)]
+    return x, Dispatch(index, weight, bounds, rows, sel, call)
+
+
+def moe_experts(p: Moe, x: torch.Tensor, d: Dispatch) -> torch.Tensor:
+    """The MoE layer's second step: each held expert's SwiGLU on its rows of
+    token-major ``x``, ``[rows, hidden]`` bf16 in :class:`Dispatch` order
+    (two 2:4 products an expert that receives a token, on its rows
+    feature-major; none for one that does not)."""
+    trace.mark("experts")
+    rows = x.index_select(0, d.index)
+    out = []
+    for (gate_up, down), (s0, s1) in zip(p.experts, d.bounds):
+        if s1 > s0:
+            xe = rows[s0:s1].T.contiguous()
+            out.append(linear(down, swiglu(linear(gate_up, xe))).T)
+    if not out:
+        return rows
+    return torch.cat(out)
+
+
+def moe_combine(h: torch.Tensor, d: Dispatch, y: torch.Tensor
+                ) -> torch.Tensor:
+    """The MoE layer's last step: ``h`` plus each row of ``y`` times its
+    weight, added at its token (the padding rows add 0). Closes the
+    ``sparsifyme.moe`` record."""
+    trace.mark("combine")
+    try:
+        acc = h.new_zeros((h.shape[1], h.shape[0]))
+        acc.index_add_(0, d.index, y * d.weight[:, None])
+        return h + acc.T
+    finally:
+        if d.call:
+            trace.end(d.call)
+
+
+def head(params: Params, h: torch.Tensor, config: MoeTransformerConfig,
+         batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final RMSNorm of every token (feature-major bf16) and each
+    sequence's last-position logits ``[batch, vocab]`` (dense bf16 head)."""
+    x = rms_norm(h, params.norm, config.layernorm_epsilon)
+    seq = x.shape[1] // batch
+    last = x[:, seq - 1::seq].contiguous()
+    return x, torch.matmul(params.head, last).T
+
+
+def forward(params: Params, ids: torch.Tensor,
+            config: MoeTransformerConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A prefill of ``ids [batch, seq]``: the final-norm hidden state of
+    every token ``[hidden, batch * seq]`` and the last position's logits
+    ``[batch, vocab]``."""
+    batch = ids.shape[0]
+    h = embed(params, ids)
+    for attn, ffn in params.layers:
+        h = attention(attn, h, config, batch)
+        if isinstance(ffn, Moe):
+            x, d = moe_route(ffn, h, config)
+            h = moe_combine(h, d, moe_experts(ffn, x, d))
+        else:
+            h = dense_ffn(ffn, h, config)
+    return head(params, h, config, batch)

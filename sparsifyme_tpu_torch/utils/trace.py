@@ -25,7 +25,8 @@ that could drift (:func:`chrome_events`, :func:`profile_trace`).
   opens the next, the end closes both.
 * :func:`trace_range` — a span around a block (nested in the innermost
   open span); :func:`annotate` is its decorator form.
-* :func:`count` — a counter (``plan_miss``: a cached plan computed anew).
+* :func:`count` — a counter, by one or by an amount (``plan_miss``: a
+  cached plan computed anew; ``moe.rows``, ``moe.pad_rows``).
 * :func:`recording` — record without the profiler.
 * :func:`summary`, :func:`chrome_events`, :func:`reset` — read and clear.
 * :func:`profile_trace` — a ``torch.profiler.profile`` over the CPU and,
@@ -238,10 +239,10 @@ def end(token: int) -> None:
     _REC.close(token)
 
 
-def count(name: str) -> None:
-    """Add one to counter ``name`` while someone measures."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while someone measures."""
     if _recording or _profiler._is_profiler_enabled:
-        _REC.counters[name] += 1
+        _REC.counters[name] += n
 
 
 class trace_range:

@@ -1,0 +1,331 @@
+"""MiMo-V2-Flash's block on the port (``models/moe_transformer.py``)
+against the benchmark's plain float32 reference
+(``perfbench/model_refs/mimo.py``), on the CPU at a small size: hidden
+256, 4 held of 16 experts, top-4, 4 of 8 heads, window 16, the source's
+first 7 layers' pattern, 2 sequences of 64 tokens. Weights come from the
+benchmark route's seeded generator (``perfbench/model_routes/mimo24.py``),
+2:4-kept for the reference by ``reference.keep_24``.
+
+Tolerances: a block's products take bf16 operands and give bf16 results
+(about 2**-9 relative each), so one block reads 3-5e-3 against the float32
+reference; 1e-2 holds each block with room. A MoE layer compares the
+tokens whose top-4 choice is the reference's: a choice flips where the
+4th and 5th scores lie within the rounding of the bf16 input, and a flipped
+token's share is another expert's.
+"""
+
+import dataclasses
+import functools
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from perfbench import reference
+from perfbench.model_routes import mimo24
+from sparsifyme_tpu_torch.models import moe_transformer as mt
+from sparsifyme_tpu_torch.utils import trace
+
+REF = mimo24.REF
+SEED = 2 ** 31 + 11
+BATCH, SEQ = 2, 64
+SMALL = {
+    "hidden_size": 256, "intermediate_size": 512,
+    "moe_intermediate_size": 128, "vocab_size": 512,
+    "num_hidden_layers": 7, "hybrid_layer_pattern": [0, 1, 1, 1, 1, 0, 1],
+    "moe_layer_freq": [0, 1, 1, 1, 1, 1, 1], "head_dim": 48,
+    "v_head_dim": 32, "swa_head_dim": 48, "swa_v_head_dim": 32,
+    "num_attention_heads": 4, "num_key_value_heads": 1,
+    "swa_num_attention_heads": 4, "swa_num_key_value_heads": 1,
+    "n_routed_experts": 4, "num_experts_per_tok": 4, "norm_topk_prob": True,
+    "sliding_window": 16, "add_swa_attention_sink_bias": True,
+    "add_full_attention_sink_bias": False, "partial_rotary_factor": 0.334,
+    "rope_theta": 5e6, "swa_rope_theta": 1e4, "attention_value_scale": 0.707,
+    "layernorm_epsilon": 1e-5, "published": {"n_routed_experts": 16}}
+TOL = 1e-2
+
+
+def _ctx(config=SMALL, seed=SEED):
+    return SimpleNamespace(device=torch.device("cpu"), seed=seed,
+                           config=config, rank=0,
+                           traffic={"sequences": BATCH, "seq_len": SEQ})
+
+
+@pytest.fixture(scope="module")
+def small():
+    ctx = _ctx()
+    params, ids, cfg = mimo24.Mimo24().setup(ctx, [])
+    return SimpleNamespace(ctx=ctx, params=params, ids=ids, cfg=cfg,
+                           spec=mimo24.ref_spec(SMALL),
+                           weight=functools.partial(mimo24.kept_weight, ctx))
+
+
+def _hidden(seed=1, tokens=BATCH * SEQ, width=256):
+    """A token-major float32 residual stream of unit-normal values."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((tokens, width), generator=g)
+
+
+def _rel(got, ref):
+    return float((got - ref).norm() / ref.norm())
+
+
+@pytest.mark.parametrize("layer", [0, 1], ids=["full", "window"])
+def test_attention_block_matches_the_reference(small, layer):
+    h = _hidden()
+    attn = small.params.layers[layer][0]
+    assert bool(attn.window) == bool(layer) and (attn.sinks is None) == (
+        layer == 0)
+    got = mt.attention(attn, h.T.contiguous(), small.cfg, BATCH) - h.T
+    x = REF.rms_norm(h, torch.ones(256), 1e-5)
+    want = REF.attention(x, small.spec, layer, small.weight, BATCH)
+    assert _rel(got, want.T) < TOL
+
+
+def test_dense_ffn_matches_the_reference(small):
+    h = _hidden(2)
+    got = mt.dense_ffn(small.params.layers[0][1], h.T.contiguous(),
+                       small.cfg) - h.T
+    x = REF.rms_norm(h, torch.ones(256), 1e-5)
+    assert _rel(got, REF.dense_ffn(x, small.spec, 0, small.weight).T) < TOL
+
+
+def _moe(moe, h, cfg):
+    x, d = mt.moe_route(moe, h.T.contiguous(), cfg)
+    y = mt.moe_experts(moe, x, d)
+    return mt.moe_combine(h.T.contiguous(), d, y) - h.T, d
+
+
+@pytest.mark.parametrize("layer", [1, 6])
+def test_moe_layer_matches_the_reference_where_the_choice_agrees(small,
+                                                                 layer):
+    h = _hidden(3 + layer)
+    moe = small.params.layers[layer][1]
+    got, d = _moe(moe, h, small.cfg)
+    x = REF.rms_norm(h, torch.ones(256), 1e-5)
+    sel, _ = REF.route(x, small.spec, layer, small.weight)
+    same = (d.selected.sort(-1).values == sel.sort(-1).values).all(-1)
+    assert int((~same).sum()) <= 2  # of 128 tokens
+    want = REF.moe(x, small.spec, layer, small.weight)
+    assert _rel(got.T[same], want[same]) < TOL
+    held = torch.tensor(small.spec["held_experts"])
+    assert sum(d.rows) == int((d.selected[..., None] == held).sum())
+
+
+def test_groups_are_padded_to_64_rows_and_counted(small):
+    moe = small.params.layers[2][1]
+    h = _hidden(9)
+    trace.reset()
+    with trace.recording():
+        x, d = mt.moe_route(moe, h.T.contiguous(), small.cfg)
+        y = mt.moe_experts(moe, x, d)
+        mt.moe_combine(h.T.contiguous(), d, y)
+    got = trace.summary()
+    trace.reset()
+    start = 0
+    for (s0, s1), rows in zip(d.bounds, d.rows):
+        assert s0 == start and (s1 - s0) % mt.PAD_ROWS == 0
+        assert rows <= s1 - s0 < rows + mt.PAD_ROWS
+        assert bool((d.weight[s0:s0 + rows] > 0).all())
+        assert bool((d.weight[s0 + rows:s1] == 0).all())
+        assert bool((d.index[s0 + rows:s1] == 0).all())
+        tokens = d.index[s0:s0 + rows]
+        assert bool((tokens[1:] > tokens[:-1]).all())  # token order
+        start = s1
+    assert y.shape == (start, 256)  # token-major rows
+    assert got["counters"]["moe.rows"] == sum(d.rows)
+    assert got["counters"]["moe.pad_rows"] == start - sum(d.rows)
+    spans = got["spans"]
+    assert spans["sparsifyme.moe"]["count"] == 1
+    for phase in ("router", "select", "dispatch", "experts", "combine"):
+        assert spans["sparsifyme.moe." + phase]["count"] == 1
+    assert spans["sparsifyme.spmm_24"]["count"] == 2 * sum(
+        r > 0 for r in d.rows)
+
+
+def test_an_expert_that_receives_no_token(small):
+    """Held expert 1's correction bias far below every score: no token
+    chooses it, its group is empty and its products are not called."""
+    moe = small.params.layers[1][1]
+    bias = moe.bias.clone()
+    bias[small.spec["held_experts"][1]] = -100.0
+    moe = dataclasses.replace(moe, bias=bias)
+    h = _hidden(11)
+    trace.reset()
+    with trace.recording():
+        got, d = _moe(moe, h, small.cfg)
+    calls = trace.summary()["spans"]["sparsifyme.spmm_24"]["count"]
+    trace.reset()
+    assert d.rows[1] == 0 and d.bounds[1][0] == d.bounds[1][1]
+    assert calls == 2 * sum(r > 0 for r in d.rows)
+
+    def weight(name, shape):
+        w = small.weight(name, shape)
+        return bias if name == "1.router_bias" else w
+
+    x = REF.rms_norm(h, torch.ones(256), 1e-5)
+    sel, _ = REF.route(x, small.spec, 1, weight)
+    same = (d.selected.sort(-1).values == sel.sort(-1).values).all(-1)
+    want = REF.moe(x, small.spec, 1, weight)
+    assert _rel(got.T[same], want[same]) < TOL
+
+
+def test_the_window_edge_and_the_sink():
+    """Values one-hot by position: query i's output is its attention row.
+    It reaches exactly keys i-15..i, and the sink takes exp(s) /
+    (Z + exp(s)) of it; without a sink the row sums to 1."""
+    g = torch.Generator().manual_seed(5)
+    seq, window, d = 48, 16, 16
+    q = torch.randn((1, 2, seq, d), generator=g).to(torch.bfloat16)
+    k = torch.randn((1, 1, seq, d), generator=g).to(torch.bfloat16)
+    v = torch.eye(seq, dtype=torch.bfloat16)[None, None]
+    sinks = torch.tensor([0.5, -1.0])
+    rows = mt.window_attention(q, k, v, sinks, window).float()[0]
+    plain = mt.window_attention(q, k, v, None, window).float()[0]
+    pos = torch.arange(seq)
+    seen = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+    assert bool((rows[:, ~seen] == 0).all())
+    assert bool((rows[:, seen] > 0).all())
+    assert torch.allclose(plain.sum(-1), torch.ones(2, seq), atol=1e-2)
+    scores = (q.float() @ k.float().transpose(-1, -2))[0] * d ** -0.5
+    scores = scores.masked_fill(~seen, float("-inf"))
+    z = torch.exp(scores).sum(-1)
+    share = z / (z + torch.exp(sinks)[:, None])
+    assert torch.allclose(rows.sum(-1), share, atol=1e-2)
+    want = torch.exp(scores) / (z + torch.exp(sinks)[:, None])[..., None]
+    assert (rows - want).abs().max() < 1e-2
+
+
+def test_the_whole_forward_matches_the_reference(small):
+    """Both outputs within 2e-2: each block's bf16 rounding (3-5e-3), and
+    the rare token whose choice flips in some layer."""
+    hidden, logits = mt.forward(small.params, small.ids, small.cfg)
+    ref_hidden, ref_logits = REF.forward(small.ids, small.spec,
+                                         small.weight)
+    assert hidden.shape == ref_hidden.shape == (256, BATCH * SEQ)
+    assert logits.shape == ref_logits.shape == (BATCH, 512)
+    assert reference.readings(hidden, ref_hidden)[0] < 2e-2
+    assert reference.readings(logits, ref_logits)[0] < 2e-2
+
+
+def test_the_routes_pass_is_the_models_forward(small):
+    """The route's pass gives the model's two outputs, then what each of
+    the 6 MoE layers added to the residual stream."""
+    route = mimo24.Mimo24()
+    state = (small.params, small.ids, small.cfg)
+    got = route.run_pass(state, False)
+    want = mt.forward(small.params, small.ids, small.cfg)
+    assert len(got) == route.outputs(small.ctx, []) == 2 + 6
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for delta, (before, after, sel) in zip(got[2:], route._moe):
+        assert delta.shape == after.shape == (256, BATCH * SEQ)
+        assert torch.equal(delta[5:9], after[5:9] - before[5:9])
+        assert sel.shape == (BATCH * SEQ, 4)
+    designs = dict(d.split() for d in route.designs(state))
+    assert designs["o"] == designs["expert.gate_up"] == "wgmma_sp"
+    assert designs["q"] == "mma_sp"  # 4 x 48 rows: not a multiple of 128
+
+
+def test_the_routes_references_follow_near_ties_only(small):
+    """Each MoE layer's reference is the reference's layer on the
+    program's own input, taking the program's choice only within the
+    route's margin: every layer reads within 1e-2; the same layer with
+    the choice of one token moved to an expert far below its top-k
+    departs from it."""
+    route = mimo24.Mimo24()
+    got = route.run_pass((small.params, small.ids, small.cfg), False)
+    before, after, sel = route._moe[0]
+    for i in range(2, len(got)):
+        ref, ctl = route.reference(small.ctx, [], i, True)
+        assert reference.readings(got[i], ref)[0] < TOL
+        assert reference.readings(ctl, ref)[0] > TOL
+    assert route._moe is None  # dropped after the last layer's
+    x = REF.rms_norm(before.T, torch.ones(256), 1e-5)
+    _, biased = REF.router_scores(x, small.spec, 1, small.weight)
+    v = REF.violation(biased, sel)
+    assert float(v.max()) <= mimo24.TIE
+    moved = sel.clone()
+    moved[0, 0] = int(biased[0].argmin())
+    assert float(REF.violation(biased, moved)[0]) > mimo24.TIE
+    follows = REF.moe(x, small.spec, 1, small.weight, prefer=sel,
+                      tie=mimo24.TIE)
+    other = REF.moe(x, small.spec, 1, small.weight, prefer=moved,
+                    tie=mimo24.TIE)
+    own = REF.moe(x, small.spec, 1, small.weight)
+    assert torch.allclose(other[0], own[0], rtol=0, atol=1e-6)
+    assert torch.allclose(other[1:], follows[1:], rtol=0, atol=1e-6)
+    twice = sel.clone()
+    twice[:, 1] = twice[:, 0]
+    assert bool(torch.isinf(REF.violation(biased, twice)).all())
+
+
+# the shares test: 16 heads and 16 experts, 8 cards of 2 heads and 2
+# experts each; layer 0 full (2 KV heads, 8 q heads each), layer 1 window
+# (4 KV heads, 4 q heads each), both MoE
+SHARES = 8
+WHOLE = dict(SMALL, num_hidden_layers=2, hybrid_layer_pattern=[0, 1],
+             moe_layer_freq=[1, 1], num_attention_heads=16,
+             num_key_value_heads=2, swa_num_attention_heads=16,
+             swa_num_key_value_heads=4, n_routed_experts=16)
+
+
+def _share_weight(full, j, name, shape):
+    """Share j's part of the whole model's weight ``name``."""
+    layer, part = name.split(".", 1) if "." in name else (None, name)
+    if layer is None or part not in ("q", "k", "v", "o", "sinks"):
+        return full(name, shape)
+    heads, kv, dqk, dv = 16, (4 if int(layer) else 2), 48, 32
+    h0, kvh = 2 * j, (2 * j) // (heads // kv)
+    size = {"q": dqk, "k": dqk, "v": dv, "o": dv, "sinks": 1}[part]
+    whole = full(name, {"q": (heads * dqk, 256), "k": (kv * dqk, 256),
+                        "v": (kv * dv, 256), "o": (256, heads * dv),
+                        "sinks": (heads,)}[part])
+    if part == "o":
+        return whole[:, h0 * dv:(h0 + 2) * dv]
+    first = kvh if part in ("k", "v") else h0
+    count = 1 if part in ("k", "v") else 2
+    return whole[first * size:(first + count) * size]
+
+
+def test_the_shares_of_eight_cards_add_up_to_the_whole_layer():
+    ctx = _ctx(WHOLE, SEED + 1)
+    full = functools.partial(mimo24.weight, ctx)
+    kept = functools.partial(mimo24.kept_weight, ctx)
+    h = _hidden(21)
+    x = REF.rms_norm(h, torch.ones(256), 1e-5)
+    whole = mimo24.ref_spec(WHOLE)
+    for layer in (0, 1):
+        want_attn = REF.attention(x, whole, layer, kept, BATCH)
+        want_moe = REF.moe(x, whole, layer, kept)
+        sel, _ = REF.route(x, whole, layer, kept)
+        ref_attn = torch.zeros_like(h)
+        ref_moe = torch.zeros_like(h)
+        port_attn = torch.zeros_like(h.T)
+        port_moe = torch.zeros_like(h.T)
+        same = torch.ones(h.shape[0], dtype=torch.bool)
+        for j in range(SHARES):
+            held = [2 * j, 2 * j + 1]
+            share = dict(WHOLE, num_attention_heads=2, num_key_value_heads=1,
+                         swa_num_attention_heads=2, swa_num_key_value_heads=1,
+                         n_routed_experts=2)
+            spec = dict(mimo24.ref_spec(share), held_experts=held)
+            ref_attn += REF.attention(
+                x, spec, layer, functools.partial(_share_weight, kept, j),
+                BATCH)
+            ref_moe += REF.moe(x, spec, layer, kept)
+            cfg = mt.MoeTransformerConfig.from_dict(
+                share, n_routed_experts=16, held_experts=tuple(held))
+            params = mt.init_params(
+                cfg, functools.partial(_share_weight, full, j))
+            attn, moe = params.layers[layer]
+            port_attn += mt.attention(attn, h.T.contiguous(), cfg,
+                                      BATCH) - h.T
+            got, d = _moe(moe, h, cfg)
+            port_moe += got
+            same &= (d.selected.sort(-1).values == sel.sort(-1).values).all(-1)
+        assert _rel(ref_attn, want_attn) < 1e-5
+        assert _rel(ref_moe, want_moe) < 1e-5
+        assert _rel(port_attn, want_attn.T) < TOL
+        assert int((~same).sum()) <= 2
+        assert _rel(port_moe.T[same], want_moe[same]) < TOL
