@@ -137,7 +137,9 @@ Phases, each raising on failure:
      K2 and its fused route have a second entry at their worst main-path
      shape, 12544x64x147; K3's wgmma_sp route, ``spmm_24_wg``, has
      three, at U, E and D (784x256x1024, 12544x256x64, 196x512x4608), and
-     its pack, ``pack_wg``, one at U, each with ``graph_ms`` (device time,
+     its pack, ``pack_wg``, one at U, and its 256-row unit,
+     ``spmm_24_wg256``, six, at the MiMo path's shapes, each with
+     ``graph_ms`` (device time,
      the calls replayed in a CUDA graph) and ``enqueue_ms``, the route's
      also with ``mma_sp_graph_ms`` and ``library_graph_ms`` (K3's mma_sp
      tile and ``torch.matmul`` on the same operands, replayed alike); K6
@@ -187,6 +189,18 @@ Phases, each raising on failure:
      ``fused_io``, ``fused_rank``, ``fused_dot1``, ``fused_rm``, the last
      with ``transposed_ms``: the planes transposed after it; the units
      entries with ``graph_ms``), launches on path ``probes``;
+  8c. the MiMo path: K3's wgmma_sp route at MiMo-V2-Flash's 2:4 products
+     as one card of its TP8/EP8 deployment runs them (``bench/wg_tall.py``'s
+     six shapes: q 1536x4096, o 4096x1024, gate_up 32768x4096 and down
+     4096x16384 at n 32768, an expert's gate_up 4096x4096 and down
+     4096x2048 at n 1024), counters set to 0 just before and read just
+     after: at each shape ``wg_plan``'s plan must be the 256-row unit, the
+     call must move ``spmm24_wg_cuda.wg256_launches`` by one, and its
+     output must be within 2e-2 of the plain
+     version and bit for bit the 128-row unit's at the same width and
+     split count; the kernels line (step 9) gets six ``spmm_24_wg256``
+     entries, at those shapes, with ``graph_ms`` and ``library_graph_ms``,
+     launches on path ``mimo``;
   9b. the process path, after the kernels line's measurements (like
      ``profiling_cli`` in step 8, it runs other processes on the card):
      ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
@@ -270,6 +284,8 @@ REPLACES = {
     "pack_wg": "sparsifyme_tpu/ops/kernels/spmm24_kernel.py:703 "
                "spmm24_pallas (the wgmma_sp route's operand, packed once "
                "after compress)",
+    "spmm_24_wg256": "sparsifyme_tpu/ops/kernels/spmm24_kernel.py:703 "
+                     "spmm24_pallas (K3's wgmma_sp route, 256-row unit)",
     "spmm_ell": "sparsifyme_tpu/ops/kernels/ell_kernel.py:206 "
                 "ell_spmm_pallas",
     "spmm_ell_expand": "sparsifyme_tpu/ops/kernels/ell_kernel.py:448 "
@@ -293,6 +309,7 @@ SOURCES = {
     "spmm_24_fold": "sparsifyme_tpu_torch/csrc/spmm24.cu",
     "spmm_24_wg": "sparsifyme_tpu_torch/csrc/spmm24.cu",
     "pack_wg": "sparsifyme_tpu_torch/csrc/spmm24.cu",
+    "spmm_24_wg256": "sparsifyme_tpu_torch/csrc/spmm24.cu",
     "spmm_ell": "sparsifyme_tpu_torch/csrc/ell_spmm.cu",
     "spmm_ell_expand": "sparsifyme_tpu_torch/csrc/ell_expand.cu",
     "spmm_coo": "sparsifyme_tpu_torch/csrc/coo_spmm.cu",
@@ -314,7 +331,10 @@ RING_WG_ROUTES = ("pack_wg", "ring_step_wg", "ring_step_wg_tiled")
 MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
 MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
 PATHS = ("bench", "plan", "coo", "ring", "model", "tune", "probes",
-         "procs")
+         "mimo", "procs")
+# K3's 256-row unit: no ResNet shape takes it, so only the MiMo path (and
+# not the kernels phase) launches it
+TALL_ROUTE = "spmm_24_wg256"
 # the process path's kernels that must launch on every rank (K1 and K2
 # build its operands where a card prunes and compresses)
 PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled", "ring_step_wg",
@@ -533,7 +553,7 @@ def phase_kernels() -> None:
     phase_kernels_ring(gen)
     counts = launch_counts()
     for name in REPLACES:
-        if counts[name] <= counts0[name]:
+        if name != TALL_ROUTE and counts[name] <= counts0[name]:
             raise AssertionError(f"{name}: launch counter did not move")
 
 
@@ -1071,7 +1091,10 @@ def probe_counts():
 
 
 def launch_counts():
+    from sparsifyme_tpu_torch.ops.kernels import spmm24_kernel
+
     return {**{name: fn.launches for name, fn in _wrappers().items()},
+            TALL_ROUTE: spmm24_kernel.spmm24_wg_cuda.wg256_launches,
             **probe_counts()}
 
 
@@ -1080,6 +1103,7 @@ def reset_counts() -> None:
 
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["spmm_24_wg"].wg256_launches = 0
     units_probe.fp1_cuda.launches = 0
     units_probe.units_cuda.launches.clear()
     fused_probe.fused_cuda.launches.clear()
@@ -1791,6 +1815,51 @@ def phase_probe_path() -> dict:
     return counts
 
 
+def phase_mimo_path() -> dict:
+    """K3's 256-row unit at MiMo-V2-Flash's 2:4 product shapes (step
+    8c)."""
+    from sparsifyme_tpu_torch.bench.wg_tall import SHAPES, forced
+    from sparsifyme_tpu_torch.ops.kernels import spmm24_kernel as k3
+    from sparsifyme_tpu_torch.ops.kernels.prune_kernel import (
+        prune_compress_24_cuda)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    t0 = time.perf_counter()
+    reset_counts()
+    for name, m, k, n in SHAPES:
+        tag = f"{name} {m}x{k} n {n} bf16"
+        a = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        packed = k3.pack_wgmma_sp_cuda(*prune_compress_24_cuda(a))
+        del a
+        b = torch.randn((k, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kw = dict(m=m, k_logical=k, out_dtype=torch.bfloat16)
+        plan = k3.card_wg_plan(b.get_device(), m, n, k)
+        if type(plan) is not k3.WgTallPlan:
+            raise AssertionError(f"{TALL_ROUTE} {tag}: wg_plan gave {plan}")
+        before = k3.spmm24_wg_cuda.wg256_launches
+        got = k3.spmm24_wg_cuda(packed, b, **kw)
+        if k3.spmm24_wg_cuda.wg256_launches != before + 1:
+            raise AssertionError(f"{TALL_ROUTE} {tag}: the 256-row unit "
+                                 f"did not launch")
+        close(TALL_ROUTE, got, k3.spmm24_wg_plain(packed, b, **kw),
+              torch.bfloat16, f"{tag} (packed words decoded)")
+        with forced(k3.wg_forced_plan(m, n, k, plan.bn, plan.splits,
+                                      k3.sm_count(b.get_device()))):
+            short = k3.spmm24_wg_cuda(packed, b, **kw)
+        exact(TALL_ROUTE, (got,), (short,),
+              f"{tag} = the 128-row unit, {plan.splits} split(s)")
+        del packed, b, got, short
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"mimo path: {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {k: counts[k] for k in ('spmm_24_wg', TALL_ROUTE)} }",
+          flush=True)
+    return counts
+
+
 def run_launcher(p: int) -> dict:
     """One ``torch.distributed.run`` job of ``p`` processes running the
     port's entry ``--processes``; rank 0's record. Its process group is
@@ -1983,6 +2052,7 @@ def _plain_ring(fn, mesh, design):
 
 def phase_kernel_line(path_counts) -> dict:
     from sparsifyme_tpu_torch.bench import roofline as rl
+    from sparsifyme_tpu_torch.bench import wg_tall
     from sparsifyme_tpu_torch.ops.coo import coo_layout, pack_coo
     from sparsifyme_tpu_torch.ops.ell import ell_to_dense, ell_values_kmajor
     from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
@@ -2117,6 +2187,24 @@ def phase_kernel_line(path_counts) -> dict:
                 "pack_wg", tag, spmm24_kernel.pack_wgmma_sp_cuda,
                 spmm24_kernel.pack_wgmma_sp, (v0, v1, codes), None,
                 (rl.pack_wg_sol_ms(m, k, BATCH), "bytes")))
+
+    # the same route on its 256-row unit at MiMo's six product shapes (the
+    # MiMo path's), against torch.matmul on the dense pruned A
+    for tall_name, m, k, n in wg_tall.SHAPES:
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        w2 = prune_kernel.prune_nm_cuda(a)[0]
+        packed = spmm24_kernel.pack_wgmma_sp_cuda(
+            *prune_kernel.compress_24_cuda(w2))
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dt)
+        kww = dict(m=m, k_logical=k, out_dtype=dt)
+        specs.append((
+            TALL_ROUTE, f"{tall_name} {m}x{k} n {n} bf16",
+            lambda pk, y, kw=kww: spmm24_kernel.spmm24_wg_cuda(pk, y, **kw),
+            lambda pk, y, kw=kww: spmm24_kernel.spmm24_wg_plain(pk, y, **kw),
+            (packed, b), (torch.matmul, (w2, b)),
+            _bound(2.0 * m * n * k, rl.H100.sparse24_tflops,
+                   4.0 * packed.numel() + 2 * k * n + 2 * m * n)))
+        del a
 
     # K5 at its worst main-path shape against torch.matmul
     m, n, k = NAMED_EXPAND
@@ -2258,7 +2346,7 @@ def phase_kernel_line(path_counts) -> dict:
         if name.startswith("ring_step"):
             extra["design"] = ring_design[name]
             extra["design_bytes"] = design_bytes
-        if name in WG_ROUTES:
+        if name in WG_ROUTES + (TALL_ROUTE,):
             # device time with the calls replayed in a CUDA graph, and the
             # host's time to queue one (the wrapper must queue a call in
             # less than the kernel's time, or eager callers see the host)
@@ -2272,6 +2360,9 @@ def phase_kernel_line(path_counts) -> dict:
                 reps=5).ms
             extra["library_graph_ms"] = time_graph(
                 torch.matmul, dense_ops, iters=20, reps=5).ms
+        if name == TALL_ROUTE:
+            extra["library_graph_ms"] = time_graph(lib[0], lib[1], iters=20,
+                                                   reps=5).ms
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": shape,
@@ -2423,6 +2514,8 @@ def main() -> int:
     phase_drivers()
     print("probe path:", flush=True)
     counts["probes"] = phase_probe_path()
+    print("mimo path:", flush=True)
+    counts["mimo"] = phase_mimo_path()
     kernels_line = phase_kernel_line(counts)
     print("process path (one rank per process):", flush=True)
     add_path_counts(kernels_line, "procs", phase_process_path())

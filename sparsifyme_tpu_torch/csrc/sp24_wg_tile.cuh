@@ -63,6 +63,20 @@
 //     wgmma.sp on slot kt % STAGES with no loads.
 // kRing is kFull on a window of a larger operand with an accumulator
 // epilogue: K7's step (ring24_wg.cu says what it adds).
+//
+// The 256-row unit (wgsp256_kernel, K3's route on large compute-bound
+// products: spmm24_kernel.wg_plan picks it): kFull at 4 stages on units of
+// two adjacent 128-row tiles, whose blocks of one k-step lie side by side in
+// the operand, so one bulk copy of 18 KB a stage moves both. Consumer
+// warpgroup wg owns tile 2j + wg as two 64-row slabs and issues four
+// wgmma.sp a stage (each slab's k32 halves in the 128-row unit's order, so
+// the product is that unit's bit for bit), retired before the next wait as
+// above: a stage's fill and drain are paid on twice the products. Units go
+// in bands of p.band m-tiles, the m-tile fastest within a band, then the
+// n-tile (splits adjacent): the blocks in flight share a few of B's column
+// strips, each read from device memory about once a band rather than once
+// an m-tile, while the band's A blocks stay in L2 (the band's height:
+// spmm24_kernel.WG_BAND).
 #pragma once
 
 #include "ell_tile.cuh"
@@ -72,6 +86,7 @@ namespace sp24w {
 using smt::bf16;
 
 constexpr int kBM = 128;       // rows of a tile: two warpgroups of 64
+constexpr int kTallBM = 256;   // rows of the tall unit: two of 128
 constexpr int kKS = 64;        // logical k of a stage
 constexpr int kKC = kKS / 2;   // compressed columns of a stage
 constexpr int kWords = 256;    // metadata words of a stage (1 KB)
@@ -80,9 +95,10 @@ constexpr int kThreads = 288;  // two consumer warpgroups, a producer warp
 // The modes (bench/units_probe.py: MODES), as sp24_tile.cuh's, and K7's.
 constexpr int kFull = 0, kFeed = 1, kMma = 2, kRing = 3;
 
-template <int BN, int STAGES>
+template <int BN, int STAGES, int ROWS = kBM>
 struct Layout {
-  static constexpr int A_STAGE = kBlock;  // values, then metadata words
+  // values, then metadata words, of each 128-row tile of a unit
+  static constexpr int A_STAGE = ROWS / kBM * kBlock;
   static constexpr int E_OFF_IN = kBM * kKC * 2;
   static constexpr int B_STAGE = kKS * BN * 2;
   static constexpr int STAGING = ellt::Layout<BN, kKS>::STAGING;  // elements
@@ -110,6 +126,7 @@ struct Params {
   // out_f32, else in bf16; with more, f32 partials.
   const float* c;
   int a_tiles, mt0, kt0, out_f32;
+  int band;  // the 256-row unit's m-tiles a band (its m-tiles: M / 256)
 };
 
 // D[64 x BN] += A[64 x 32, 2:4, compressed to 64 x 16] B[32 x BN]: bf16 in,
@@ -200,14 +217,28 @@ struct Unit {
     n_tile = t % p.n_tiles;
     m_tile = t / p.n_tiles;
   }
+  // The 256-row unit's order: bands of p.band m-tiles (the last may hold
+  // fewer), the m-tile fastest within a band, then the n-tile.
+  __device__ __forceinline__ Unit(const Params& p, int u, int band) {
+    split = u % p.splits;
+    const int t = u / p.splits;
+    const int first = t / (band * p.n_tiles) * band;
+    const int r = t - first * p.n_tiles;
+    const int g = min(band, p.m_tiles - first);
+    m_tile = first + r % g;
+    n_tile = r / g;
+  }
 };
 
-// The tile's body: a block of kThreads threads with Layout<BN, STAGES>::BYTES
-// of dynamic shared memory walks its units. p is the kernel's
-// __grid_constant__ parameter (its tensor map is read in place).
-template <int MODE, int STAGES, int BN>
+// The tile's body: a block of kThreads threads with Layout<BN, STAGES,
+// ROWS>::BYTES of dynamic shared memory walks its units of ROWS rows. p is
+// the kernel's __grid_constant__ parameter (its tensor map is read in place).
+template <int MODE, int STAGES, int BN, int ROWS = kBM>
 __device__ __forceinline__ void wgsp_tile(const Params& p) {
-  using L = Layout<BN, STAGES>;
+  static_assert(ROWS == kBM || (ROWS == kTallBM && MODE == kFull),
+                "the 256-row unit is kFull's");
+  constexpr bool kTall = ROWS == kTallBM;
+  using L = Layout<BN, STAGES, ROWS>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (ellt::smem_addr(smem_raw) & 1023)) & 1023);
@@ -230,6 +261,12 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // kMma stages k-steps 0..nload-1 of each unit, once
   const int nload = p.KT < STAGES ? p.KT : STAGES;
+  auto unit = [&](int u) {
+    if constexpr (kTall)
+      return Unit(p, u, p.band);
+    else
+      return Unit(p, u);
+  };
 
   if (warp == 8) {  // the producer: every lane walks, lane 0 issues
     auto load = [&](int slot, int kt, int m_tile, int n0) {
@@ -238,7 +275,7 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
           p.a + (MODE == kRing ? (size_t)(p.kt0 + kt) * p.a_tiles + p.mt0 +
                                      m_tile
                                : (size_t)kt * p.m_tiles + m_tile) *
-                    (kBlock / 4);
+                    (ROWS / kBM * kBlock / 4);
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
           "[%0], [%1], %2, [%3];" ::"r"(ellt::smem_addr(a_st +
@@ -253,7 +290,7 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
     int stage = 0;
     uint32_t phase = 0;
     for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      const Unit w(p, u);
+      const Unit w = unit(u);
       const int n0 = w.n_tile * BN;
       if constexpr (MODE == kMma) {
         for (int s = 0; s < nload; ++s) {
@@ -276,10 +313,12 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
     return;
   }
 
-  // a consumer warpgroup: rows 64 wg.. of every tile
+  // a consumer warpgroup: rows ROWS / 2 * wg.. of every unit
   const int wg = warp / 4, t = threadIdx.x % 128;
   // this thread's metadata word in a stage's [2][64] words of warpgroup wg
-  const int widx = wg * 128 + (t / 32) * 16 + ((t / 4) & 7) * 2 + (t & 1);
+  // (of the 256-row unit: of slab 0 of tile wg; slab 1's lie 128 on)
+  const int widx = (kTall ? 0 : wg * 128) + (t / 32) * 16 +
+                   ((t / 4) & 7) * 2 + (t & 1);
   ellt::Params ep;  // what store_tile reads
   ep.c = nullptr;
   ep.M = p.M;
@@ -289,6 +328,7 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
   ep.tout = 0;
   ep.out = p.out;
   float acc[BN / 2];
+  float acc1[kTall ? BN / 2 : 1];  // the 256-row unit's second slab
   // kRing with one split: C = the product + c, c's fragment loaded before
   // the unit's k-steps, so that its latency hides behind them
   const float* cin_src = MODE == kRing && p.splits == 1 ? p.c : nullptr;
@@ -297,28 +337,49 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
   uint32_t phase = 0;
   int parity = 0;  // kFeed: which of the two sets of side words
 
-  // the two wgmma.sp of a stage on its slot
+  // the two wgmma.sp of a stage on its slot (four: the 256-row unit's)
   auto mma_stage = [&](int slot) {
-    const uint32_t* words = reinterpret_cast<const uint32_t*>(
-        a_st + slot * L::A_STAGE + L::E_OFF_IN);
+    const unsigned char* blk =
+        a_st + slot * L::A_STAGE + (kTall ? wg * kBlock : 0);
+    const uint32_t* words =
+        reinterpret_cast<const uint32_t*>(blk + L::E_OFF_IN);
     const uint32_t e0 = words[widx], e1 = words[widx + 64];
-    const uint32_t a = ellt::smem_addr(a_st + slot * L::A_STAGE) + wg * 4096;
+    const uint32_t a = ellt::smem_addr(blk) + (kTall ? 0 : wg * 4096);
     const uint32_t b = ellt::smem_addr(b_st + slot * L::B_STAGE);
-    ellt::fence_acc(acc);
-    ellt::wg_fence();
-    WgmmaSp<BN>::mma(acc, ellt::desc(a, 16, 512, 2),
-                     ellt::desc(b, kKS * 128, 1024, 1), e0);
-    WgmmaSp<BN>::mma(acc, ellt::desc(a + 32, 16, 512, 2),
-                     ellt::desc(b + 32 * 128, kKS * 128, 1024, 1), e1);
+    if constexpr (kTall) {
+      const uint32_t f0 = words[widx + 128], f1 = words[widx + 192];
+      ellt::fence_acc(acc);
+      ellt::fence_acc(acc1);
+      ellt::wg_fence();
+      WgmmaSp<BN>::mma(acc, ellt::desc(a, 16, 512, 2),
+                       ellt::desc(b, kKS * 128, 1024, 1), e0);
+      WgmmaSp<BN>::mma(acc1, ellt::desc(a + 4096, 16, 512, 2),
+                       ellt::desc(b, kKS * 128, 1024, 1), f0);
+      WgmmaSp<BN>::mma(acc, ellt::desc(a + 32, 16, 512, 2),
+                       ellt::desc(b + 32 * 128, kKS * 128, 1024, 1), e1);
+      WgmmaSp<BN>::mma(acc1, ellt::desc(a + 4096 + 32, 16, 512, 2),
+                       ellt::desc(b + 32 * 128, kKS * 128, 1024, 1), f1);
+    } else {
+      ellt::fence_acc(acc);
+      ellt::wg_fence();
+      WgmmaSp<BN>::mma(acc, ellt::desc(a, 16, 512, 2),
+                       ellt::desc(b, kKS * 128, 1024, 1), e0);
+      WgmmaSp<BN>::mma(acc, ellt::desc(a + 32, 16, 512, 2),
+                       ellt::desc(b + 32 * 128, kKS * 128, 1024, 1), e1);
+    }
     ellt::wg_commit();
   };
 
   for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-    const Unit w(p, u);
+    const Unit w = unit(u);
     const int kt0 = w.split * p.kps;
     const int kt1 = min(p.KT, kt0 + p.kps);
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    if constexpr (kTall) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc1[i] = 0.f;
+    }
     if constexpr (MODE == kRing) {
       if (cin_src != nullptr)
         load_fragment<BN>(cin_src, p.N, w.m_tile * kBM + 64 * wg,
@@ -355,6 +416,7 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
           mma_stage(stage);
           ellt::wg_wait<0>();
           ellt::fence_acc(acc);
+          if constexpr (kTall) ellt::fence_acc(acc1);
           if (t == 0) ellt::bar_arrive(&empty[stage]);
         }
         ellt::advance(stage, phase, STAGES);
@@ -384,7 +446,7 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
     } else if (threadIdx.x == 0 && p.side != nullptr) {
       p.side[unit_word] = 0;
     }
-    const int m0 = w.m_tile * kBM + 64 * wg, n0 = w.n_tile * BN;
+    const int m0 = w.m_tile * ROWS + ROWS / 2 * wg, n0 = w.n_tile * BN;
     if constexpr (MODE == kRing) {
       if (cin_src != nullptr) {
 #pragma unroll
@@ -399,9 +461,15 @@ __device__ __forceinline__ void wgsp_tile(const Params& p) {
     } else if (p.splits == 1) {
       ellt::store_tile<BN, bf16>(ep, acc, staging + wg * L::STAGING, wg, m0,
                                  n0, 0);
+      if constexpr (kTall)
+        ellt::store_tile<BN, bf16>(ep, acc1, staging + wg * L::STAGING, wg,
+                                   m0 + 64, n0, 0);
     } else {
       ellt::store_tile<BN, float>(ep, acc, staging + wg * L::STAGING, wg,
                                   m0, n0, w.split);
+      if constexpr (kTall)
+        ellt::store_tile<BN, float>(ep, acc1, staging + wg * L::STAGING, wg,
+                                    m0 + 64, n0, w.split);
     }
   }
 }
@@ -410,6 +478,13 @@ template <int MODE, int STAGES, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     wgsp_kernel(__grid_constant__ const Params p) {
   wgsp_tile<MODE, STAGES, BN>(p);
+}
+
+// The 256-row unit: kFull at 4 stages.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    wgsp256_kernel(__grid_constant__ const Params p) {
+  wgsp_tile<kFull, 4, BN, kTallBM>(p);
 }
 
 // The second pass of split-k: out = the sum of the f32 partials [splits,
@@ -458,6 +533,17 @@ static cudaError_t launch_kernel(const Params& p, int grid,
   return cudaGetLastError();
 }
 
+template <int BN>
+static cudaError_t launch_tall(const Params& p, int grid,
+                               cudaStream_t stream) {
+  constexpr int bytes = Layout<BN, 4, kTallBM>::BYTES;
+  static bool ready[smt::kMaxDevices] = {};
+  const cudaError_t e = smt::allow_smem(wgsp256_kernel<BN>, bytes, ready);
+  if (e != cudaSuccess) return e;
+  wgsp256_kernel<BN><<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // The (mode, stages) pairs built: units_probe.VARIANTS.
 template <int BN>
 cudaError_t launch_variant(int mode, int stages, const Params& p, int grid,
@@ -481,15 +567,18 @@ cudaError_t launch_variant(int mode, int stages, const Params& p, int grid,
 // second pass. a: A and its metadata words [KTP, M / 128, kBlock / 4]; out:
 // C [M, N] bf16; side: [N / bn, M / 128] int32, or nullptr (no side words;
 // kFull only); with splits > 1, ws: f32 [splits, M, N] and, with side
-// words, parts: int32 [splits, N / bn * M / 128].
+// words, parts: int32 [splits, N / bn * M / 128]. rows: the unit's (256:
+// the tall unit, in bands of band m-tiles, without side words).
 template <class Launch>
 inline cudaError_t run_plan(Launch&& launch, const void* a, const void* b,
                             void* out, void* side, void* ws, void* parts,
                             int M, int N, int K, int KTP, int bn, int splits,
-                            int kps, int grid, cudaStream_t stream) {
+                            int kps, int grid, cudaStream_t stream,
+                            int rows = kBM, int band = 1) {
   const int KT = (K + kKS - 1) / kKS;
   const bool ok =
-      M > 0 && M % kBM == 0 && (bn == 64 || bn == 128) && N > 0 &&
+      (rows == kBM || (rows == kTallBM && band >= 1 && side == nullptr)) &&
+      M > 0 && M % rows == 0 && (bn == 64 || bn == 128) && N > 0 &&
       N % bn == 0 && K > 0 && KT <= KTP && splits >= 1 && kps >= 1 &&
       (splits - 1) * kps < KT && splits * kps >= KT && grid >= 1 &&
       smt::aligned16(a) && smt::aligned16(b) && smt::aligned16(out) &&
@@ -508,13 +597,14 @@ inline cudaError_t run_plan(Launch&& launch, const void* a, const void* b,
   p.KT = KT;
   p.KTP = KTP;
   p.n_tiles = N / bn;
-  p.m_tiles = M / kBM;
+  p.m_tiles = M / rows;
   p.splits = splits;
   p.kps = kps;
   p.units = p.m_tiles * p.n_tiles * splits;
   p.c = nullptr;  // kRing's fields: the whole operand, no accumulator
   p.a_tiles = p.m_tiles;
   p.mt0 = p.kt0 = p.out_f32 = 0;
+  p.band = band;
   e = launch(bn, p, grid, stream);
   if (e != cudaSuccess || splits == 1) return e;
   const long long mn = (long long)M * N;

@@ -42,10 +42,13 @@
 // spmm24_kernel.pack_wgmma_sp is its plain version). It takes bf16 A and
 // B, bf16 C, M % 128 == 0 and N % 64 == 0, and no epilogue; every other
 // call keeps the mma_sp tile. Split-k (spmm24_kernel.wg_plan) sums f32
-// partials in a second pass. Where it wins on the H100 (PERF.md): a
-// warpgroup issues 64 x BN x 32 sparse products from shared memory, where
-// mma.sp issues 16 x 8 x 32 from registers, and a stage's A and metadata
-// arrive in one bulk copy instead of being built by the block.
+// partials in a second pass. On large compute-bound products (M % 256 ==
+// 0) the plan may take the tile's 256-row unit instead, walked in bands of
+// m-tiles that share B's column strips (spmm24_wg256_launch). Where it
+// wins on the H100 (PERF.md): a warpgroup issues 64 x BN x 32 sparse
+// products from shared memory, where mma.sp issues 16 x 8 x 32 from
+// registers, and a stage's A and metadata arrive in one bulk copy instead
+// of being built by the block.
 #include "sp24_tile.cuh"
 
 namespace {
@@ -249,6 +252,13 @@ cudaError_t wg_full(int bn, const sp24w::Params& p, int grid,
              : sp24w::launch_kernel<sp24w::kFull, 4, 64>(p, grid, stream);
 }
 
+// The same on the 256-row unit.
+cudaError_t wg_tall(int bn, const sp24w::Params& p, int grid,
+                    cudaStream_t stream) {
+  return bn == 128 ? sp24w::launch_tall<128>(p, grid, stream)
+                   : sp24w::launch_tall<64>(p, grid, stream);
+}
+
 }  // namespace
 
 // The wgmma_sp operand [KTP, M / 128, 2304] int32 from planes v0, v1 (bf16)
@@ -283,4 +293,18 @@ extern "C" int spmm24_wg_launch(const void* a, const void* b, void* out,
   return (int)sp24w::run_plan(wg_full, a, b, out, nullptr, ws, nullptr, M,
                               N, K, KTP, bn, splits, kps, grid,
                               static_cast<cudaStream_t>(stream));
+}
+
+// The same on the 256-row unit (M % 256 == 0), its units in bands of band
+// m-tiles: the plan (bn, splits, kps, band, grid) of spmm24_kernel.wg_plan.
+extern "C" int spmm24_wg256_launch(const void* a, const void* b, void* out,
+                                   void* ws, int M, int N, int K, int KTP,
+                                   int bn, int splits, int kps, int band,
+                                   int grid, int device, void* stream) {
+  const smt::OnDevice on(device);
+  if (on.error != cudaSuccess) return (int)on.error;
+  return (int)sp24w::run_plan(wg_tall, a, b, out, nullptr, ws, nullptr, M,
+                              N, K, KTP, bn, splits, kps, grid,
+                              static_cast<cudaStream_t>(stream),
+                              sp24w::kTallBM, band);
 }

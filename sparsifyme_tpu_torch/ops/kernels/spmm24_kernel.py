@@ -34,7 +34,11 @@ from the planes (:func:`pack_wgmma_sp_cuda`, plain version
 :func:`wg_refusal` lets through: bf16 in and out, no epilogue, C row-major,
 unpacked codes, fold 1, M % 128 == 0 and n % 64 == 0; ``spmm24_cuda``'s
 ``design`` knob picks between the two and never falls back from one to the
-other.
+other. On large products bound by the tensor cores (:func:`wg_tall`: M %
+256 == 0) :func:`wg_plan` may give the tile units of 256 rows instead of
+128 (:class:`WgTallPlan`), walked in bands of m-tiles (:func:`wg_band`) so
+that the blocks in flight share B's column strips: the same products in
+the same k-order, so the same C bit for bit.
 """
 
 from __future__ import annotations
@@ -413,28 +417,57 @@ spmm24_fold_cuda.launches = 0
 
 DESIGNS = ("wgmma_sp", "mma_sp")  # K3's tiles, as spmm_24's design names them
 WG_BM = 128  # rows of a wgmma_sp tile: two warpgroups of 64
+WG_TALL_BM = 256  # rows of its tall unit: two tiles of 128, one a warpgroup
 WG_KS = 64  # logical k of one of its k-steps
 WG_WORDS = 2304  # 32-bit words of a tile's k-step: 8 KB of A, 1 KB of meta
 # spmm24_wg_launch's ctypes spec: (a, b, out, ws, M, N, K, KTP, bn, splits,
 # kps, grid, device, stream)
 WG_SPEC = "pppp" "iiii" "iiii" "i" "p"
+# spmm24_wg256_launch's: (a, b, out, ws, M, N, K, KTP, bn, splits, kps,
+# band, grid, device, stream)
+WG256_SPEC = "pppp" "iiii" "iiii" "ii" "p"
 # spmm24_pack_launch's: (v0, v1, codes, out, M, K4, KTP, device, stream)
 PACK_SPEC = "pppp" "iii" "i" "p"
 
 
 class WgPlan(NamedTuple):
     """A launch of the ``wgmma_sp`` tile: its width, split count, k-steps a
-    split, work units (m-tile, n-tile, split) and persistent blocks."""
+    split, work units (m-tile, n-tile, split) and persistent blocks. Its
+    units are 128 rows, the n-tiles of an m-tile adjacent (``band`` 0)."""
     bn: int
     splits: int
     kps: int
     units: int
     grid: int
 
+    rows = WG_BM
+    band = 0
+
+
+class WgTallPlan(NamedTuple):
+    """A launch of the tile's 256-row unit: :class:`WgPlan`'s fields, then
+    the m-tiles (of 256 rows) of a band (:func:`wg_band`), which the
+    units walk m-tile first, then n-tile."""
+    bn: int
+    splits: int
+    kps: int
+    units: int
+    grid: int
+    band: int
+
+    rows = WG_TALL_BM
+
 
 # A k-step of the wgmma_sp tile on one SM (microseconds, by tile width):
 # its time under the one-split plan at D (units_probe --plans, PERF.md)
 WG_STEP_US = {64: 0.36, 128: 0.43}
+# The same of the 256-row unit: four waves of one-split units at k 8192
+# (bench/wg_tall.py --steps, PERF.md)
+WG256_STEP_US = {64: 0.35, 128: 0.46}
+# m-tiles of 256 rows a band of its walk: at MiMo's q, o, gate_up and down
+# every band from 3 to 16 is within 5% of the best (bench/wg_tall.py,
+# PERF.md), band 1 (no band) 25-35% slower
+WG_BAND = 8
 
 
 def _wg_shape(m: int, n: int, k: int) -> None:
@@ -443,17 +476,39 @@ def _wg_shape(m: int, n: int, k: int) -> None:
                          f"n % 64 == 0, got {m} x {n} x {k}")
 
 
+def wg_tall(m: int, n: int, k: int, sms: int = H100_SMS) -> bool:
+    """Whether the 256-row unit may take ``m x n x k``: M a multiple of 256
+    and the product bound by the tensor cores, its kept products at 989
+    TFLOP/s (``sms`` SMs) taking longer than the packed A (1.125 B a
+    logical element), B and C at 3.35 TB/s."""
+    from . import ell_kernel as ellk  # it imports this module
+
+    return m % WG_TALL_BM == 0 and \
+        m * k * n / (ellk.FLOP_PER_US_SM * sms) > \
+        (1.125 * m * k + 2 * k * n + 2 * m * n) / ellk.BYTES_PER_US
+
+
+def wg_band(m: int) -> int:
+    """The m-tiles (of 256 rows) of a band of the tall unit's walk:
+    :data:`WG_BAND`, or every m-tile where there are fewer."""
+    return min(WG_BAND, m // WG_TALL_BM)
+
+
 def wg_plan(m: int, n: int, k: int, sms: int = H100_SMS,
-            extra_bytes: float = 0.0, widths: tuple = ()) -> WgPlan:
+            extra_bytes: float = 0.0, widths: tuple = (),
+            tall: bool = True) -> WgPlan:
     """The plan of the ``wgmma_sp`` tile at ``m x n x k`` on ``sms`` SMs:
     128 columns where n allows, else 64 (``widths``: the column counts to
-    choose among instead, where n allows them); among split counts up to
+    choose among instead, where n allows them); units of 128 rows or, where
+    ``tall`` (the caller's kernel has it) and :func:`wg_tall` allow, of
+    256 (:class:`WgTallPlan`); among split counts up to
     ``ell_kernel.MAX_SPLITS`` that leave no split empty, the least
     estimated time: waves of units on ``sms`` persistent blocks, each unit
-    its k-steps (:data:`WG_STEP_US`) and its epilogue, against the bytes
-    (A, B and C, plus ``extra_bytes``: K7's step adds its f32
-    accumulator's), plus split-k's second pass (``ell_kernel.ell_plan``'s
-    constants); ties go to fewer splits, then to the earlier width."""
+    its k-steps (:data:`WG_STEP_US`, :data:`WG256_STEP_US`) and its
+    epilogue, against the bytes (A, B and C, plus ``extra_bytes``: K7's
+    step adds its f32 accumulator's), plus split-k's second pass
+    (``ell_kernel.ell_plan``'s constants); ties go to fewer splits, then to
+    the earlier width, then to 128 rows."""
     from . import ell_kernel as ellk  # it imports this module
 
     _wg_shape(m, n, k)
@@ -462,54 +517,77 @@ def wg_plan(m: int, n: int, k: int, sms: int = H100_SMS,
         / ellk.BYTES_PER_US
     best = None
     bns = [w for w in widths if n % w == 0] or [128 if n % 128 == 0 else 64]
-    for splits, bn in [(splits, bn)
-                       for splits in range(1, min(kt, ellk.MAX_SPLITS) + 1)
-                       for bn in bns]:
-        tiles = (m // WG_BM) * (n // bn)
+    heights = (WG_BM, WG_TALL_BM) if tall and wg_tall(m, n, k, sms) \
+        else (WG_BM,)
+    for splits, bn, rows in [
+            (splits, bn, rows)
+            for splits in range(1, min(kt, ellk.MAX_SPLITS) + 1)
+            for bn in bns for rows in heights]:
+        tiles = (m // rows) * (n // bn)
         kps = -(-kt // splits)
         if (splits - 1) * kps >= kt:
             continue  # the last split would be empty
         units = tiles * splits
-        epi_us = WG_BM * bn * (4 if splits > 1 else 2) / ellk.EPI_BYTES_PER_US
-        est = max(-(-units // sms) * (kps * WG_STEP_US[bn] + epi_us),
-                  floor_us)
+        step_us = (WG_STEP_US if rows == WG_BM else WG256_STEP_US)[bn]
+        epi_us = rows * bn * (4 if splits > 1 else 2) / ellk.EPI_BYTES_PER_US
+        est = max(-(-units // sms) * (kps * step_us + epi_us), floor_us)
         if splits > 1:  # f32 partials written, read by the second pass
             est += ellk.REDUCE_US + (8 * splits + 2) * m * n \
                 / ellk.BYTES_PER_US
         if best is None or est < best[0]:
-            best = (est, WgPlan(bn, splits, kps, units, min(units, sms)))
+            best = (est, _wg_plan_of(m, bn, splits, kps, units,
+                                     min(units, sms), rows))
     return best[1]
 
 
+def _wg_plan_of(m: int, bn: int, splits: int, kps: int, units: int,
+                grid: int, rows: int) -> WgPlan:
+    if rows == WG_BM:
+        return WgPlan(bn, splits, kps, units, grid)
+    return WgTallPlan(bn, splits, kps, units, grid,
+                      wg_band(m))
+
+
 def wg_forced_plan(m: int, n: int, k: int, bn: int, splits: int,
-                   sms: int = H100_SMS) -> WgPlan:
-    """The plan of ``bn`` columns and ``splits`` splits (the tuner's
-    ``--full`` candidates); raises where the tile cannot take it."""
+                   sms: int = H100_SMS, rows: int = WG_BM) -> WgPlan:
+    """The plan of ``bn`` columns, ``splits`` splits and units of ``rows``
+    rows (the tuner's ``--full`` candidates); raises where the tile cannot
+    take it."""
     _wg_shape(m, n, k)
     kt = -(-k // WG_KS)
     kps = -(-kt // max(splits, 1))
     if bn not in (64, 128) or n % bn or splits < 1 or \
-            (splits - 1) * kps >= kt:
-        raise ValueError(f"the wgmma_sp tile cannot take {bn} columns and "
-                         f"{splits} splits at {m} x {n} x {k}")
-    units = (m // WG_BM) * (n // bn) * splits
-    return WgPlan(bn, splits, kps, units, min(units, sms))
+            (splits - 1) * kps >= kt or rows not in (WG_BM, WG_TALL_BM) or \
+            m % rows:
+        raise ValueError(f"the wgmma_sp tile cannot take {bn} columns, "
+                         f"{splits} splits and {rows} rows at {m} x {n} x "
+                         f"{k}")
+    units = (m // rows) * (n // bn) * splits
+    return _wg_plan_of(m, bn, splits, kps, units, min(units, sms), rows)
 
 
 def wg_walk(plan: WgPlan, m: int, n: int, k: int
             ) -> List[List[Tuple[int, int, int, List[int]]]]:
     """The units each persistent block of the ``wgmma_sp`` tile takes, in
     its order: one list per block of ``(m_tile, n_tile, split, k-steps)``,
-    the kernel's own loops (``sp24w::Unit``) replayed."""
+    m-tiles of ``plan.rows`` rows, the kernel's own loops
+    (``sp24w::Unit``) replayed: the n-tiles of an m-tile adjacent or, with
+    a ``band``, bands of that many m-tiles, m-tile first."""
     kt = -(-k // WG_KS)
-    n_tiles = n // plan.bn
+    n_tiles, m_tiles, band = n // plan.bn, m // plan.rows, plan.band
     out = []
     for blk in range(plan.grid):
         walk = []
         for u in range(blk, plan.units, plan.grid):
             split, t = u % plan.splits, u // plan.splits
+            if band:
+                first = t // (band * n_tiles) * band
+                r, g = t - first * n_tiles, min(band, m_tiles - first)
+                m_tile, n_tile = first + r % g, r // g
+            else:
+                m_tile, n_tile = t // n_tiles, t % n_tiles
             k0 = split * plan.kps
-            walk.append((t // n_tiles, t % n_tiles, split,
+            walk.append((m_tile, n_tile, split,
                          list(range(k0, min(kt, k0 + plan.kps)))))
         out.append(walk)
     return out
@@ -527,7 +605,8 @@ def card_wg_plan(index: int, m: int, n: int, k: int,
     if bn is None and splits is None:
         return wg_plan(m, n, k, sms)
     pick = wg_plan(m, n, k, sms)
-    return wg_forced_plan(m, n, k, bn or pick.bn, splits or pick.splits, sms)
+    return wg_forced_plan(m, n, k, bn or pick.bn, splits or pick.splits, sms,
+                          pick.rows)
 
 
 def sw64_offset(r: int, c: int) -> int:
@@ -776,13 +855,23 @@ def spmm24_wg_cuda(wg, b, *, m: int, k_logical: int,
     ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,
                       device=b.device) if plan.splits > 1 else None)
     trace.mark("launch")
-    launch = _build.load("spmm24", "spmm24_wg_launch", WG_SPEC)
-    _build.check(launch(
-        wg.data_ptr(), b.data_ptr(), out.data_ptr(), _build.ptr(ws), m, n,
-        k_logical, ktp, plan.bn, plan.splits, plan.kps, plan.grid, index,
-        _build.raw_stream(index)), "spmm24_wg_cuda")
+    if plan.band:  # the 256-row unit
+        launch = _build.load("spmm24", "spmm24_wg256_launch", WG256_SPEC)
+        _build.check(launch(
+            wg.data_ptr(), b.data_ptr(), out.data_ptr(), _build.ptr(ws), m,
+            n, k_logical, ktp, plan.bn, plan.splits, plan.kps, plan.band,
+            plan.grid, index, _build.raw_stream(index)), "spmm24_wg_cuda")
+        trace.count("spmm24.wg256")
+        spmm24_wg_cuda.wg256_launches += 1
+    else:
+        launch = _build.load("spmm24", "spmm24_wg_launch", WG_SPEC)
+        _build.check(launch(
+            wg.data_ptr(), b.data_ptr(), out.data_ptr(), _build.ptr(ws), m,
+            n, k_logical, ktp, plan.bn, plan.splits, plan.kps, plan.grid,
+            index, _build.raw_stream(index)), "spmm24_wg_cuda")
     spmm24_wg_cuda.launches += 1
     return out
 
 
 spmm24_wg_cuda.launches = 0
+spmm24_wg_cuda.wg256_launches = 0  # of them, on the 256-row unit

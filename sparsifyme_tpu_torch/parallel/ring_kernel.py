@@ -271,9 +271,9 @@ def ring_wg_plan(mt: int, n: int, k: int, sms: int = H100_SMS) -> WgPlan:
     the f32 accumulator's bytes (read and written, 8 B a C element) in its
     byte floor, choosing between 128 and 64 columns: a window of less than
     a wave of 128-column units (the tiled route's) runs twice the units at
-    64, each of half the work."""
+    64, each of half the work; units of 128 rows (``kRing`` has no other)."""
     return wg_plan(mt, n, k, sms, extra_bytes=8.0 * mt * n,
-                   widths=(128, 64))
+                   widths=(128, 64), tall=False)
 
 
 @functools.lru_cache(maxsize=256)

@@ -261,6 +261,8 @@ def test_wgmma_sp_metadata_registers_outlive_their_groups(gen, name):
     _build.build_all()
     found = sass.library_hazards(_build.build_dir() / f"lib{name}.so")
     assert found, f"lib{name}.so issues no HGMMA.SP"
+    if name == "spmm24":  # the 256-row unit's kernels among them
+        assert sum("wgsp256_kernel" in fn for fn in found) == 2, list(found)
     bad = {fn: [(hex(w), f"R{r}", hex(h)) for w, r, h in hz][:4]
            for fn, hz in found.items() if hz}
     assert not bad, bad
@@ -2122,7 +2124,8 @@ def test_wgmma_sp_route_refuses_on_the_card(gen):
 
 def test_k3_library_holds_the_wgmma_sp_route(gen, tmp_path):
     """libspmm24.so holds the route's sparse warpgroup MMAs (HGMMA ... SP)
-    fed by TMA (UTMALDG) and the pack kernel, and the mma_sp kernels are
+    fed by TMA (UTMALDG), on 128- and 256-row units, and the pack kernel,
+    and the mma_sp kernels are
     those of spmm24.cu built without the route (its text above the route's
     marker line), instruction for instruction."""
     import collections
@@ -2134,7 +2137,9 @@ def test_k3_library_holds_the_wgmma_sp_route(gen, tmp_path):
     funcs = _sass_functions("spmm24")
     wg = [body for name, body in funcs.items() if "wgsp_kernel" in name]
     assert len(wg) == 2  # kFull at 4 stages, 64 and 128 columns
-    for body in wg:
+    tall = [body for name, body in funcs.items() if "wgsp256_kernel" in name]
+    assert len(tall) == 2  # the 256-row unit, 64 and 128 columns
+    for body in wg + tall:
         assert "HGMMA" in body and ".SP" in body and "UTMALDG" in body
     assert any("wg_pack_kernel" in name for name in funcs)
     text = (_build.CSRC / "spmm24.cu").read_text()
@@ -2146,6 +2151,99 @@ def test_k3_library_holds_the_wgmma_sp_route(gen, tmp_path):
                    capture_output=True)
     alone = collections.Counter(sass_functions(lib).values())
     assert alone and not alone - collections.Counter(funcs.values())
+
+
+# MiMo-V2-Flash's 2:4 products (M, K, n): q, o, layer 0's gate_up and down
+# at 4096 tokens, an expert's gate_up and down at ragged routed rows
+MIMO_TALL = [(1536, 4096, 4096), (4096, 1024, 4096), (32768, 4096, 4096),
+             (4096, 16384, 4096), (4096, 4096, 64 * 13),
+             (4096, 4096, 64 * 17), (4096, 4096, 1024),
+             (4096, 2048, 64 * 13), (4096, 2048, 64 * 17),
+             (4096, 2048, 1024)]
+
+
+def _forced_plan(monkeypatch, plan):
+    monkeypatch.setattr(spmm24_kernel, "card_wg_plan",
+                        lambda *a, **kw: plan)
+
+
+@pytest.mark.parametrize("m,k,n", MIMO_TALL)
+def test_wgmma_sp_tall_unit_at_mimos_products(gen, monkeypatch, m, k, n):
+    """wg_plan takes the 256-row unit (its banded walk) at each shape; its
+    product is the 128-row unit's bit for bit at the same width and split
+    count, and the plain version's (the packed words decoded) within
+    2e-2; the call counts as one of the wrapper's wg256 launches."""
+    v0, v1, codes, b = _wg_operands(gen, m, n, k)
+    packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
+    del v0, v1, codes
+    kw = dict(m=m, k_logical=k, out_dtype=torch.bfloat16)
+    plan = spmm24_kernel.card_wg_plan(b.get_device(), m, n, k)
+    assert isinstance(plan, spmm24_kernel.WgTallPlan), plan
+    launches = (spmm24_kernel.spmm24_wg_cuda.launches,
+                spmm24_kernel.spmm24_wg_cuda.wg256_launches)
+    got = spmm24_kernel.spmm24_wg_cuda(packed, b, **kw)
+    assert (spmm24_kernel.spmm24_wg_cuda.launches,
+            spmm24_kernel.spmm24_wg_cuda.wg256_launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    _forced_plan(monkeypatch, spmm24_kernel.wg_forced_plan(
+        m, n, k, plan.bn, plan.splits))
+    short = spmm24_kernel.spmm24_wg_cuda(packed, b, **kw)
+    assert spmm24_kernel.spmm24_wg_cuda.wg256_launches == launches[1] + 1
+    assert torch.equal(got, short)
+    assert _rel(got, spmm24_kernel.spmm24_wg_plain(packed, b, **kw)) < \
+        TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("bn,splits", [(128, 2), (64, 3), (128, 8)])
+def test_wgmma_sp_tall_unit_under_split_k(gen, monkeypatch, bn, splits):
+    """Split-k plans of the 256-row unit, bands of 1 to all 16 m-tiles:
+    the f32 partials and the second pass give the 128-row unit's C at the
+    same plan bit for bit, and the plain version's within 2e-2."""
+    m, k, n = 4096, 4096, 1024
+    v0, v1, codes, b = _wg_operands(gen, m, n, k)
+    packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
+    kw = dict(m=m, k_logical=k, out_dtype=torch.bfloat16)
+    want = spmm24_kernel.spmm24_wg_plain(packed, b, **kw)
+    _forced_plan(monkeypatch, spmm24_kernel.wg_forced_plan(
+        m, n, k, bn, splits))
+    short = spmm24_kernel.spmm24_wg_cuda(packed, b, **kw)
+    tall = spmm24_kernel.wg_forced_plan(m, n, k, bn, splits, rows=256)
+    for band in sorted({1, 3, 16, tall.band}):
+        _forced_plan(monkeypatch, tall._replace(band=band))
+        got = spmm24_kernel.spmm24_wg_cuda(packed, b, **kw)
+        assert torch.equal(got, short), band
+    assert _rel(short, want) < TOL[torch.bfloat16]
+
+
+def test_wgmma_sp_tall_unit_refuses_on_the_card(gen, monkeypatch):
+    """The 256-row entry refuses M % 256 != 0 and a band below 1 and
+    writes nothing; the wrapper raises on its refusal; a forced plan of
+    256 rows at M % 256 != 0 raises before any launch."""
+    from sparsifyme_tpu_torch import _build
+
+    m, k, n = 384, 256, 128
+    v0, v1, codes, b = _wg_operands(gen, m, n, k)
+    packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
+    out = torch.full((m, n), 7.0, dtype=torch.bfloat16, device="cuda")
+    launch = _build.load("spmm24", "spmm24_wg256_launch",
+                         spmm24_kernel.WG256_SPEC)
+    index = b.get_device()
+    for rows, band in ((m, 1), (256, 0), (256, -2)):
+        assert launch(packed.data_ptr(), b.data_ptr(), out.data_ptr(), 0,
+                      rows, n, k, packed.shape[0], 128, 1, 4, band, 1,
+                      index, _build.raw_stream(index)) != 0, (rows, band)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    kw = dict(m=m, k_logical=k, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="256 rows"):
+        spmm24_kernel.wg_forced_plan(m, n, k, 128, 1, rows=256)
+    before = spmm24_kernel.spmm24_wg_cuda.launches
+    tall = spmm24_kernel.spmm24_wg_cuda.wg256_launches
+    _forced_plan(monkeypatch, spmm24_kernel.WgTallPlan(128, 1, 4, 1, 1, 1))
+    with pytest.raises(RuntimeError, match="spmm24_wg_cuda"):
+        spmm24_kernel.spmm24_wg_cuda(packed, b, **kw)
+    assert spmm24_kernel.spmm24_wg_cuda.launches == before
+    assert spmm24_kernel.spmm24_wg_cuda.wg256_launches == tall
 
 
 def test_wgmma_sp_enqueue_is_under_its_device_time(gen):

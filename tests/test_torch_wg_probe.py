@@ -242,3 +242,131 @@ def test_rebuilds_find_their_code():
     text = (_build.CSRC / "sp24_wg_units.cu").read_text()
     params = re.search(r'extern "C" int wgsp_launch\(([^)]*)\)', text)
     assert len(params.group(1).split(",")) == len(up.WG_SPEC)
+
+
+# --- K3's 256-row unit -------------------------------------------------------
+
+# MiMo-V2-Flash's 2:4 products as one card of its TP8/EP8 deployment runs
+# them (M x K, n): q, o, layer 0's gate_up and down at 32768 tokens, and an
+# expert's gate_up and down at the routed rows of a compute-bound expert
+MIMO_TALL = [(1536, 4096, 32768), (4096, 1024, 32768), (32768, 4096, 32768),
+             (4096, 16384, 32768), (4096, 4096, 1024), (4096, 4096, 64 * 13),
+             (4096, 4096, 64 * 17), (4096, 2048, 1024), (4096, 2048, 64 * 17)]
+
+
+def _tall_walk_cases():
+    """Shapes and split counts 1-3 that leave no split empty."""
+    for m, n, k in [(256, 64, 64), (768, 192, 200), (2560, 1024, 4096),
+                    (1280, 320, 4608), (3072, 128, 1000)]:
+        kt = -(-k // 64)
+        for splits in (1, 2, 3):
+            if (splits - 1) * -(-kt // splits) < kt:
+                yield m, n, k, splits
+
+
+@pytest.mark.parametrize("m,n,k,splits", list(_tall_walk_cases()))
+def test_wg_walk_of_the_tall_unit_covers_every_step_once(m, n, k, splits):
+    """Every band the walk can take (one m-tile to all of them, and a last
+    band that holds fewer), at each width and split count that leaves no
+    split empty: each (256-row m-tile, n-tile, split) once, its k-steps the
+    split's, and every k-step of every tile once."""
+    kt = -(-k // 64)
+    mt = m // 256
+    for bn in (64, 128):
+        if n % bn:
+            continue
+        base = k3.wg_forced_plan(m, n, k, bn, splits, rows=256)
+        assert isinstance(base, k3.WgTallPlan) and base.rows == 256
+        assert base.units == mt * (n // bn) * splits
+        for band in sorted({1, 2, 3, mt, max(1, mt - 1), base.band}):
+            plan = base._replace(band=band)
+            units, steps = set(), set()
+            for walk in k3.wg_walk(plan, m, n, k):
+                for m_tile, n_tile, split, ks in walk:
+                    assert 0 <= m_tile < mt and 0 <= n_tile < n // bn
+                    assert (m_tile, n_tile, split) not in units
+                    units.add((m_tile, n_tile, split))
+                    k0 = split * plan.kps
+                    assert ks == list(range(k0, min(kt, k0 + plan.kps)))
+                    steps.update((m_tile, n_tile, s) for s in ks)
+            assert len(units) == plan.units
+            assert len(steps) == mt * (n // bn) * kt
+
+
+def test_wg_walk_of_a_band_puts_the_m_tiles_first():
+    """A band of 3 m-tiles of 8 at 4 n-tiles: units 0-11 are the band's
+    three m-tiles at n-tile 0, 1, 2, 3 in turn, then the next band; the
+    last band holds the 2 m-tiles left."""
+    plan = k3.WgTallPlan(128, 1, 1, 32, 32, 3)
+    order = [walk[0][:2] for walk in k3.wg_walk(plan, 8 * 256, 512, 64)]
+    assert order[:7] == [(0, 0), (1, 0), (2, 0), (0, 1), (1, 1), (2, 1),
+                         (0, 2)]
+    assert order[12:15] == [(3, 0), (4, 0), (5, 0)]
+    assert order[24:] == [(6, 0), (7, 0), (6, 1), (7, 1), (6, 2), (7, 2),
+                          (6, 3), (7, 3)]
+
+
+@pytest.mark.parametrize("m,k,n", MIMO_TALL)
+def test_wg_plan_takes_the_tall_unit_on_mimos_products(m, k, n):
+    plan = k3.wg_plan(m, n, k)
+    assert k3.wg_tall(m, n, k)
+    assert isinstance(plan, k3.WgTallPlan), plan
+    assert plan.units == (m // 256) * (n // plan.bn) * plan.splits
+    assert 1 <= plan.band <= m // 256
+    # K7's ring step has no tall unit
+    assert isinstance(k3.wg_plan(m, n, k, tall=False), k3.WgPlan)
+
+
+@pytest.mark.parametrize("model", ["resnet50", "resnet152"])
+def test_wg_plan_keeps_the_128_row_unit_on_resnet(model):
+    """No ResNet shape (b = 32 folded into M) is both compute-bound and a
+    multiple of 256 rows; a byte-bound expert (few routed rows) and a
+    compute-bound shape too narrow to fill a wave of 256-row units keep
+    128 rows."""
+    from sparsifyme_tpu_torch.models.resnet_shapes import resnet_conv_shapes
+
+    for s in resnet_conv_shapes(model):
+        m, n = s.m * s.b, s.n
+        if m % 128 or n % 64:
+            continue
+        assert type(k3.wg_plan(m, n, s.k)) is k3.WgPlan, s
+    assert not k3.wg_tall(4096, 64, 4096)
+    assert type(k3.wg_plan(4096, 64, 4096)) is k3.WgPlan
+    assert k3.wg_tall(4096, 512, 4096)
+    assert type(k3.wg_plan(4096, 512, 4096)) is k3.WgPlan
+
+
+def test_wg_band_is_eight_m_tiles_or_every_one():
+    """A band is WG_BAND m-tiles of 256 rows, or all of them where there
+    are fewer: MiMo's q (6 m-tiles) walks one band, gate_up 16 bands."""
+    assert k3.wg_band(32768) == k3.WG_BAND == 8
+    assert k3.wg_band(2048) == 8
+    assert k3.wg_band(1536) == 6
+    assert k3.wg_band(256) == 1
+    assert k3.wg_plan(32768, 32768, 4096).band == 8
+    assert k3.wg_plan(1536, 32768, 4096).band == 6
+
+
+def test_forced_plans_keep_their_height():
+    with pytest.raises(ValueError, match="256 rows"):
+        k3.wg_forced_plan(384, 64, 64, 64, 1, rows=256)
+    with pytest.raises(ValueError, match="rows"):
+        k3.wg_forced_plan(512, 64, 64, 64, 1, rows=192)
+    assert type(k3.wg_forced_plan(512, 64, 64, 64, 1)) is k3.WgPlan
+
+
+@pytest.mark.parametrize("k4,m", [(16, 512), (40, 768)])
+def test_pack_puts_a_tall_units_tiles_side_by_side(rng, k4, m):
+    """The plain pack's 9 KB blocks of m-tiles 2j and 2j + 1 at a k-step are
+    one contiguous 18 KB run, which is the pack of rows 256 j.. alone: one
+    bulk copy a stage feeds the 256-row unit."""
+    v0, v1, codes = _varied_planes(rng, k4, m)
+    packed = up.pack_wgmma_sp(v0, v1, codes)
+    ktp = packed.shape[0]
+    runs = packed.reshape(-1)  # as the kernel addresses it, in words
+    for j in range(m // 256):
+        cols = slice(256 * j, 256 * (j + 1))
+        alone = up.pack_wgmma_sp(v0[:, cols], v1[:, cols], codes[:, cols])
+        for kt in range(ktp):
+            start = (kt * (m // 128) + 2 * j) * 2304
+            assert torch.equal(runs[start:start + 4608], alone[kt].reshape(-1))
