@@ -166,28 +166,35 @@ def load(name: str, entry: str, spec: str):
         return fn
 
 
-def check(status: int, what: str) -> None:
-    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
-    if status != 0:
-        raise RuntimeError(
-            f"{what}: CUDA launch failed with cudaError {status}")
-
-
-def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def raw_stream(index: int) -> int:
     """The current stream of card ``index`` as a pointer, without making a
     ``torch.cuda.Stream`` (a lean wrapper's per-call host cost)."""
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def device_index(t: torch.Tensor) -> int:
-    """The index of the card that holds ``t``; the entry points that take it
-    launch there whatever the current device is."""
-    return t.device.index if t.device.index is not None \
-        else torch.cuda.current_device()
+class Entry:
+    """The C entry point ``name`` of ``lib<lib>.so`` and its ctypes
+    ``spec`` (:func:`argtypes`), declared once; every entry ends in ``int
+    device, void* stream`` and launches on that card. ``entry(index,
+    *args)`` calls it with ``(*args, index, raw_stream(index))`` and raises
+    naming it on a nonzero ``cudaError_t``. It reads :data:`_entries`
+    without the lock and calls :func:`load` on a miss, so nothing is built
+    or loaded before the first call."""
+
+    __slots__ = ("lib", "name", "spec", "key")
+
+    def __init__(self, lib: str, name: str, spec: str):
+        self.lib, self.name, self.spec = lib, name, spec
+        self.key = (lib, name)
+
+    def __call__(self, index: int, *args) -> None:
+        fn = _entries.get(self.key)
+        if fn is None:
+            fn = load(self.lib, self.name, self.spec)
+        status = fn(*args, index, raw_stream(index))
+        if status != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA launch failed with cudaError {status}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -5,14 +5,13 @@ K2 (``csrc/compress24.cu``), K3 (``csrc/spmm24.cu``) and K7
 ``bench/fused_probe.py`` and ``bench/units_probe.py``:
 ``csrc/compress24_tile.cuh`` and ``csrc/sp24_tile.cuh`` take the probes'
 modes as template parameters whose defaults are the shipped kernels. A
-change to either header must leave those kernels as they were. This script
-builds their three libraries from another checkout (the parent commit,
-unpacked with ``git archive``) beside this tree's and checks:
+change to either header, or to a C entry point, must leave those kernels
+as they were. This script builds every library of the port from another
+checkout (the parent commit, unpacked with ``git archive``) beside this
+tree's and checks:
 
-* SASS: every kernel body of the other build of ``libcompress24.so``,
-  ``libspmm24.so``, ``libring24.so``, of K1's, K4's, K5's and K6's
-  libraries and of the ``wgmma_sp`` probe's (``libsp24_wg_units.so``,
-  whose tile K3's route and K7's ``wgmma_sp`` step share)
+* SASS: every kernel body of the other build of each library (K1-K7, K3's
+  ``wgmma_sp`` route and pack, K7's ``wgmma_sp`` step and the probes')
   (``cuobjdump --dump-sass``, address comments removed) is in
   this build, compared as multisets of bodies (a template parameter added
   with a default renames a kernel, not its code); a library may gain
@@ -24,11 +23,13 @@ unpacked with ``git archive``) beside this tree's and checks:
   on its ``wgmma_sp`` route with its pack (M % 128, n % 64), at
   the six bench shapes, a shape of the JAX units probe and a ragged one
   (b = 32); both K7 rings at 784x256x1024 (b = 32) on four ranks of one
-  card.
+  card, on the planes and on the packed operand (its ``wgmma_sp`` step).
 
 The other build is called through the C entries this tree loads (their
 argument types included), so the other checkout must have the same C
-entries.
+entries, but that :func:`rebind` drops the card this tree passes where the
+other's entry takes none (it launched on the current card, these checks'
+card).
 
 Usage (needs one GPU and ``nvcc``)::
 
@@ -56,8 +57,7 @@ import torch
 from .. import _build
 from ..utils import sass
 
-LIBS = ("compress24", "spmm24", "ring24", "prune_nm", "ell_spmm",
-        "ell_expand", "coo_spmm", "sp24_wg_units")
+LIBS = _build.SOURCES
 # m x n x k (b = 32 folded into m in the operands): the bench shapes, the
 # JAX units probe's first (3136 = 100352 / 32) and a ragged one
 SHAPES = [(12544, 64, 147), (12544, 64, 576), (12544, 256, 64),
@@ -116,19 +116,35 @@ def same_sass(other: Path) -> bool:
     return ok
 
 
-def bitwise(fn: Callable, other: Path) -> bool:
+def rebind(fo, e, csrc: Path, name: str, entry: str):
+    """The other build's ``entry`` of ``lib<name>.so``, ``fo``, called as
+    this tree calls its own ``e`` (``..., int device, void* stream``):
+    where ``csrc/<name>.cu`` of the other checkout declares it without
+    ``device`` (it launched on the current card), through an adapter that
+    drops the card."""
+    decl = re.search(rf'extern "C" int {entry}\(([^)]*)\)',
+                     (csrc / f"{name}.cu").read_text()).group(1)
+    fo.restype = e.restype
+    if "int device" in decl:
+        fo.argtypes = e.argtypes
+        return fo
+    fo.argtypes = e.argtypes[:-2] + e.argtypes[-1:]
+    return lambda *args: fo(*args[:-2], args[-1])
+
+
+def bitwise(fn: Callable, other: Path, csrc: Path) -> bool:
     """``fn()`` on this tree's kernels and on the other build's (the
     entries of :data:`LIBS` that this tree loaded, rebound to the other
-    libraries), each output equal bit for bit."""
+    libraries, whose sources are in ``csrc``), each output equal bit for
+    bit."""
     new = fn()
     saved = {key: e for key, e in _build._entries.items() if key[0] in LIBS}
     for (name, entry), e in saved.items():
         lib = ctypes.CDLL(str(other / f"lib{name}.so"))
         if not hasattr(lib, entry):
             continue  # an entry the other build does not have
-        fo = getattr(lib, entry)
-        fo.argtypes, fo.restype = e.argtypes, e.restype
-        _build._entries[(name, entry)] = fo
+        _build._entries[(name, entry)] = rebind(getattr(lib, entry), e,
+                                                csrc, name, entry)
     try:
         old = fn()
     finally:
@@ -147,12 +163,15 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def same_outputs(other: Path) -> bool:
+def same_outputs(other: Path, csrc: Path) -> bool:
     from .. import make_mesh, spmm_24_ring_explicit, spmm_24_ring_tiled
     from ..ops.kernels import prune_kernel as pk
     from ..ops.kernels import spmm24_kernel as k3
-    from ..ops.sparse24 import prune_compress_24
+    from ..ops.sparse24 import pack_wg, prune_compress_24
     from ..parallel import ring_graph
+
+    def same(fn):
+        return bitwise(fn, other, csrc)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
@@ -161,30 +180,29 @@ def same_outputs(other: Path) -> bool:
             torch.bfloat16)
         b = torch.randn((k, n), generator=gen, device="cuda").to(
             torch.bfloat16)
-        r = [bitwise(lambda: pk.compress_24_cuda(a), other),
-             bitwise(lambda: pk.prune_compress_24_cuda(a), other)]
+        r = [same(lambda: pk.compress_24_cuda(a)),
+             same(lambda: pk.prune_compress_24_cuda(a))]
         v0, v1, codes = pk.compress_24_cuda(pk.prune_nm_cuda(a)[0])
         for tile in range(len(k3.SP_TILES)):
             for odt in (torch.bfloat16, torch.float32):
-                r.append(bitwise(lambda: k3.spmm24_cuda(
+                r.append(same(lambda: k3.spmm24_cuda(
                     v0, v1, codes, b, k_logical=k, out_dtype=odt,
-                    tile=tile), other))
+                    tile=tile)))
         c = torch.ones((BATCH * m, n), device="cuda")
-        r.append(bitwise(lambda: k3.spmm24_cuda(
+        r.append(same(lambda: k3.spmm24_cuda(
             v0, v1, codes, b, k_logical=k, out_dtype=torch.bfloat16,
-            transpose_out=True, alpha=0.5, beta=2.0, c=c), other))
+            transpose_out=True, alpha=0.5, beta=2.0, c=c)))
         if (BATCH * m) % k3.WG_BM == 0 and n % 64 == 0:
-            r.append(bitwise(lambda: k3.pack_wgmma_sp_cuda(v0, v1, codes),
-                             other))
+            r.append(same(lambda: k3.pack_wgmma_sp_cuda(v0, v1, codes)))
             wg = k3.pack_wgmma_sp_cuda(v0, v1, codes)
-            r.append(bitwise(lambda: k3.spmm24_wg_cuda(
+            r.append(same(lambda: k3.spmm24_wg_cuda(
                 wg, b, m=BATCH * m, k_logical=k,
-                out_dtype=torch.bfloat16), other))
+                out_dtype=torch.bfloat16)))
         if k <= 1024:
             s2 = prune_compress_24(a, fold=2)
-            r.append(bitwise(lambda: k3.spmm24_fold_cuda(
+            r.append(same(lambda: k3.spmm24_fold_cuda(
                 s2.values0, s2.values1, s2.codes, b, k_logical=k,
-                out_dtype=torch.bfloat16), other))
+                out_dtype=torch.bfloat16)))
         print(f"bitwise K2/fused/K3 {m}x{n}x{k}: {r}", flush=True)
         ok &= all(r)
     mesh = make_mesh((4,), ("model",), devices=["cuda:0"] * 4)
@@ -194,12 +212,15 @@ def same_outputs(other: Path) -> bool:
         torch.bfloat16)
     s = prune_compress_24(a)
     for ring in (spmm_24_ring_explicit, spmm_24_ring_tiled):
-        def run(ring=ring):
-            ring_graph.clear()  # a captured ring would replay old launches
-            return ring(s, b, mesh, "model")
-        r = bitwise(run, other)
-        print(f"bitwise K7 {ring.__name__}: {r}", flush=True)
-        ok &= r
+        for sw in (s, pack_wg(s)):
+            def run(ring=ring, sw=sw):
+                ring_graph.clear()  # a captured ring would replay old ones
+                return ring(sw, b, mesh, "model")
+            r = same(run)
+            print(f"bitwise K7 {ring.__name__} "
+                  f"{'wgmma_sp' if sw.wg is not None else 'mma_sp'}: {r}",
+                  flush=True)
+            ok &= r
     return ok
 
 
@@ -214,14 +235,15 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    root = Path(argv[0])
     with tempfile.TemporaryDirectory() as tmp:
         other = Path(tmp)
         with ThreadPoolExecutor(1) as pool:
-            fut = pool.submit(build_other, Path(argv[0]), other)
+            fut = pool.submit(build_other, root, other)
             _build.build_all()
             fut.result()
         ok = same_sass(other)
-        ok &= same_outputs(other)
+        ok &= same_outputs(other, root / "sparsifyme_tpu_torch" / "csrc")
     print("same as the other build" if ok else "DIFFERS from the other build",
           flush=True)
     return 0 if ok else 1

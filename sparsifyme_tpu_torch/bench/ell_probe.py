@@ -94,7 +94,8 @@ def plans() -> int:
                     kw = dict(block_size=128, block_k=bk,
                               out_dtype=torch.bfloat16, transpose_out=tout)
                     want = _want(name, v, cols, bp, kw)
-                    pick = ek.card_plan(vals.device, rows, n, ell, bk, 128)
+                    pick = ek.card_plan(vals.get_device(), rows, n, ell, bk,
+                                        128)
                     line = (f"{name} {m}x{n}x{k}x{BATCH} tout={int(tout)} "
                             f"picked {pick.bn}/{pick.splits}/{pick.ctas}:")
                     for bn, splits, ctas in itertools.product(
@@ -189,8 +190,10 @@ def _host_us(fn, calls=200):
 
 def host() -> int:
     """The host's time to queue one K4 call at 784x256x1024 (b=32), and its
-    parts: the ctypes launch alone (two tensor-map encodes and the kernel
-    launch), ``torch.cuda.current_stream``, ``torch.empty`` of C, and one
+    parts: the launch through ``_build.Entry`` (the lookup, the stream,
+    the C call and the status check), the lookup of the loaded entry, the
+    stream pointer, the ctypes launch alone (two tensor-map encodes and
+    the kernel launch), ``torch.empty`` of C, and one
     ``cuTensorMapEncodeTiled`` through ctypes beside a trivial driver call
     (ctypes' own cost)."""
     import ctypes
@@ -203,11 +206,15 @@ def host() -> int:
     (m, ellk), (kb, n) = vals.shape, bp.shape
     kw = dict(block_size=128, block_k=bk, out_dtype=torch.bfloat16)
     ek.ell_spmm_cuda(vals, cols, bp, **kw)  # builds and loads the library
-    launch = _build.load("ell_spmm", "ell_spmm_launch", "")
-    plan = ek.card_plan(vals.device, m, n, ellk // bk, bk, 128)
+    entry, index = ek.ELL_SPMM, vals.get_device()
+    launch = _build._entries[entry.key]
+    plan = ek.card_plan(index, m, n, ellk // bk, bk, 128)
     out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
     code = DTYPE_CODES[torch.bfloat16]
-    stream = _build.stream_ptr(vals)
+    args = (vals.data_ptr(), cols.data_ptr(), bp.data_ptr(), None,
+            out.data_ptr(), None, m, n, kb, 128, bk, ellk // bk, 1.0, 0.0, 0,
+            code, code, *ek.plan_args(plan))
+    stream = _build.raw_stream(index)
     driver = ctypes.CDLL("libcuda.so.1")
     tmap = (ctypes.c_uint8 * 128)()
     u64, u32 = ctypes.c_uint64, ctypes.c_uint32
@@ -217,11 +224,10 @@ def host() -> int:
     version = ctypes.c_int()
     cases = [
         ("wrapper", lambda: ek.ell_spmm_cuda(vals, cols, bp, **kw)),
-        ("ctypes launch", lambda: launch(
-            vals.data_ptr(), cols.data_ptr(), bp.data_ptr(), None,
-            out.data_ptr(), None, m, n, kb, 128, bk, ellk // bk, 1.0, 0.0,
-            0, code, code, *ek.plan_args(plan), stream)),
-        ("current_stream", lambda: _build.stream_ptr(vals)),
+        ("entry launch", lambda: entry(index, *args)),
+        ("lookup", lambda: _build._entries.get(entry.key)),
+        ("stream", lambda: _build.raw_stream(index)),
+        ("ctypes launch", lambda: launch(*args, index, stream)),
         ("empty", lambda: torch.empty((m, n), dtype=torch.bfloat16,
                                       device="cuda")),
         ("tensor-map encode", lambda: driver.cuTensorMapEncodeTiled(

@@ -41,6 +41,9 @@ from ..ops.kernels.prune_kernel import _round_up, compress_24_plain, \
     compress_plan
 
 MODES = {"io": 1, "rank": 2, "dot1": 3, "rm": 4}
+# (w, v0, v1, codes, M, k, K4, R, KT, mode, device, stream)
+COMPRESS_UNITS = _build.Entry("compress_units", "compress_units_launch",
+                              "pppp" "iiiii" "ii" "p")
 # rows x kp (bf16): the JAX probe's two shapes, 12544x64x256 and x576 at
 # b = 32 folded into the rows
 SHAPES = [(401408, 256), (401408, 576)]
@@ -66,13 +69,9 @@ def fused_cuda(x: torch.Tensor, mode: str) -> Planes:
     v0 = torch.empty(shape, dtype=x.dtype, device=x.device)
     v1 = torch.empty_like(v0)
     codes = torch.empty(shape, dtype=torch.uint8, device=x.device)
-    # (w, v0, v1, codes, M, k, K4, R, KT, mode, device, stream)
-    launch = _build.load("compress_units", "compress_units_launch",
-                         "pppp" "iiiii" "ii" "p")
-    _build.check(launch(
-        x.data_ptr(), v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), rows,
-        k, k4, plan.rows_per_tile, plan.k_tile, MODES[mode],
-        _build.device_index(x), _build.stream_ptr(x)), f"fused_cuda({mode})")
+    COMPRESS_UNITS(x.get_device(), x.data_ptr(), v0.data_ptr(),
+                   v1.data_ptr(), codes.data_ptr(), rows, k, k4,
+                   plan.rows_per_tile, plan.k_tile, MODES[mode])
     fused_cuda.launches[mode] += 1
     return v0, v1, codes
 

@@ -101,9 +101,12 @@ VARIANTS = (("full", 4), ("full", 2), ("full", 1), ("feed", 4), ("feed", 2),
             ("mma", 4), ("mma", 2))
 DESIGNS = ("mma_sp", "wgmma_sp")
 KS = k3.WG_KS  # logical k of one stage of the tile
-# fp1_launch's ctypes spec: (v0, v1, codes, b, out, M, N, K, K4, device,
-# stream)
-FP1_SPEC = "ppppp" "iiii" "i" "p"
+# (v0, v1, codes, b, out, side, M, N, K, K4, mode, stages, tile, device,
+#  stream)
+UNITS24 = _build.Entry("sp24_units", "units24_launch",
+                       "pppppp" "iiii" "iiii" "p")
+# (v0, v1, codes, b, out, M, N, K, K4, device, stream)
+FP1 = _build.Entry("sp24_units", "fp1_launch", "ppppp" "iiii" "i" "p")
 # --ablate: the expand-then-dense tile rebuilt with parts of its work taken
 # out, {build name: [(text of csrc/sp24_expand_tile.cuh, replacement)]}; an
 # ablated build's output is wrong by design
@@ -116,9 +119,10 @@ FP1_ABLATIONS = {
     "no products": [("      for (int k = 0; k < kBK / 16; ++k)\n",
                      "      for (int k = 0; k < 0; ++k)\n")],
 }
-# wgsp_launch's ctypes spec: (a, b, out, side, ws, parts, M, N, K, KTP, mode,
-# stages, bn, splits, kps, grid, device, stream)
-WG_SPEC = "pppppp" "iiii" "ii" "iiii" "i" "p"
+# (a, b, out, side, ws, parts, M, N, K, KTP, mode, stages, bn, splits, kps,
+#  grid, device, stream)
+WGSP = _build.Entry("sp24_wg_units", "wgsp_launch",
+                    "pppppp" "iiii" "ii" "iiii" "i" "p")
 # --depths: the wgmma_sp tile rebuilt with its 4-stage variants at these
 # ring depths (csrc/sp24_wg_tile.cuh's launch_variant; 6 is the most its
 # shared memory holds at 128 columns)
@@ -154,7 +158,7 @@ def units_tile(v0: torch.Tensor, b: torch.Tensor,
     m, n, k = v0.shape[1], b.shape[1], b.shape[0]
     if design == "wgmma_sp":
         return WG_BM, wg_plan(m, n, k).bn
-    return k3.SP_TILES[k3.card_tile(v0.device, m, n, k)]
+    return k3.SP_TILES[k3.card_tile(v0.get_device(), m, n, k)]
 
 
 def expand_slot_offset(k: int, m: int, bk: int = KS) -> int:
@@ -167,20 +171,14 @@ def expand_slot_offset(k: int, m: int, bk: int = KS) -> int:
 
 
 def _units_mma_sp(v0, v1, codes, b, mode, stages, k4, m, k, n):
-    tile = k3.card_tile(v0.device, m, n, k)
+    tile = k3.card_tile(v0.get_device(), m, n, k)
     bm, bn = k3.SP_TILES[tile]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=v0.device)
     side = torch.empty((-(-n // bn), -(-m // bm)), dtype=torch.int32,
                        device=v0.device)  # the kernel writes every word
-    # (v0, v1, codes, b, out, side, M, N, K, K4, mode, stages, tile,
-    #  device, stream)
-    launch = _build.load("sp24_units", "units24_launch",
-                         "pppppp" "iiii" "iiii" "p")
-    _build.check(launch(
-        v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), b.data_ptr(),
-        out.data_ptr(), side.data_ptr(), m, n, k, k4, MODES[mode], stages,
-        tile, _build.device_index(v0), _build.stream_ptr(v0)),
-        f"units_cuda({mode}, {stages})")
+    UNITS24(v0.get_device(), v0.data_ptr(), v1.data_ptr(), codes.data_ptr(),
+            b.data_ptr(), out.data_ptr(), side.data_ptr(), m, n, k, k4,
+            MODES[mode], stages, tile)
     return out, side
 
 
@@ -200,15 +198,9 @@ def _units_wgmma_sp(packed, b, mode, stages, m, k, n, plan):
                          device=dev)
         parts = torch.empty((plan.splits, side.numel()), dtype=torch.int32,
                             device=dev)
-    # (a, b, out, side, ws, parts, M, N, K, KTP, mode, stages, bn, splits,
-    #  kps, grid, device, stream)
-    launch = _build.load("sp24_wg_units", "wgsp_launch", WG_SPEC)
-    _build.check(launch(
-        packed.data_ptr(), b.data_ptr(), out.data_ptr(),
-        side.data_ptr(), _build.ptr(ws), _build.ptr(parts), m, n, k, ktp,
-        MODES[mode], stages, plan.bn, plan.splits, plan.kps, plan.grid,
-        _build.device_index(b), _build.stream_ptr(b)),
-        f"units_cuda({mode}, {stages}, wgmma_sp)")
+    WGSP(b.get_device(), packed.data_ptr(), b.data_ptr(), out.data_ptr(),
+         side.data_ptr(), _build.ptr(ws), _build.ptr(parts), m, n, k, ktp,
+         MODES[mode], stages, plan.bn, plan.splits, plan.kps, plan.grid)
     return out, side
 
 
@@ -231,7 +223,7 @@ def units_cuda(v0, v1, codes, b, *, mode: str, stages: int,
         v0, v1, codes, b = (t.contiguous() for t in (v0, v1, codes, b))
         res = _units_mma_sp(v0, v1, codes, b, mode, stages, k4, m, k, n)
     else:
-        plan = k3.card_wg_plan(_build.device_index(b), m, n, k)
+        plan = k3.card_wg_plan(b.get_device(), m, n, k)
         if packed is None:
             packed = pack_wgmma_sp(v0, v1, codes)
         res = _units_wgmma_sp(packed, b.contiguous(), mode, stages, m, k, n,
@@ -323,12 +315,8 @@ def fp1_cuda(v0, v1, codes, bp) -> torch.Tensor:
                          f" got {m}, {n}")
     v0, v1, codes, bp = (t.contiguous() for t in (v0, v1, codes, bp))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=v0.device)
-    # (v0, v1, codes, b, out, M, N, K, K4, device, stream)
-    launch = _build.load("sp24_units", "fp1_launch", FP1_SPEC)
-    _build.check(launch(
-        v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), bp.data_ptr(),
-        out.data_ptr(), m, n, k, k4, _build.device_index(v0),
-        _build.stream_ptr(v0)), "fp1_cuda")
+    FP1(v0.get_device(), v0.data_ptr(), v1.data_ptr(), codes.data_ptr(),
+        bp.data_ptr(), out.data_ptr(), m, n, k, k4)
     fp1_cuda.launches += 1
     return out
 
@@ -436,7 +424,7 @@ def probe_shape(m: int, n: int, k: int, gen: torch.Generator, *,
 
     v0, v1, codes, b = operands(m, n, k, gen)
     bm, bn = units_tile(v0, b)
-    plan = wg_plan(m, n, k, k3.sm_count(_build.device_index(v0)))
+    plan = wg_plan(m, n, k, k3.sm_count(v0.get_device()))
     res = {"shape": f"{m}x{n}x{k}", "tile": f"{bm}x{bn}",
            "wg_plan": plan._asdict(), "ms": {}, "eager_ms": {}, "err": {}}
     ops = (v0, v1, codes, b)
@@ -483,7 +471,7 @@ def plan_sweep(m: int, n: int, k: int, gen: torch.Generator, *,
     packed = pack_wgmma_sp(v0, v1, codes)
     want = k3.spmm24_plain(v0, v1, codes, b, k_logical=k,
                            out_dtype=torch.bfloat16)
-    kt, sms = -(-k // KS), k3.sm_count(_build.device_index(b))
+    kt, sms = -(-k // KS), k3.sm_count(b.get_device())
     out = {}
     for bn in (64, 128):
         for splits in range(1, min(kt, ellk.MAX_SPLITS) + 1):
@@ -512,10 +500,9 @@ def run_ablate(card: str) -> int:
 
     nvcc = _build.find_nvcc()
     _build.build_all()
-    key = ("sp24_units", "fp1_launch")
+    key = FP1.key
     with tempfile.TemporaryDirectory() as tmp:
-        builds = _rebuilt({name: ("sp24_units", "fp1_launch", FP1_SPEC,
-                                  "sp24_expand_tile.cuh", edits)
+        builds = _rebuilt({name: (FP1, "sp24_expand_tile.cuh", edits)
                            for name, edits in FP1_ABLATIONS.items()},
                           nvcc, tmp)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -539,14 +526,13 @@ def run_ablate(card: str) -> int:
 
 def _rebuilt(builds: Dict[str, tuple], nvcc: str, tmp: str) -> dict:
     """``{name: C entry}`` of the sources rebuilt with ``builds[name] =
-    (source, entry, spec, edited file, edits)``, in parallel."""
+    (entry, edited file, edits)``, in parallel."""
     from .coo_probe import _ablated
 
     with ThreadPoolExecutor(len(builds)) as pool:
-        futs = [pool.submit(_ablated, src, entry, spec, edits,
-                            Path(tmp) / str(i) / f"lib{src}.so", nvcc, name)
-                for i, (src, entry, spec, name, edits)
-                in enumerate(builds.values())]
+        futs = [pool.submit(_ablated, e.lib, e.name, e.spec, edits,
+                            Path(tmp) / str(i) / f"lib{e.lib}.so", nvcc, name)
+                for i, (e, name, edits) in enumerate(builds.values())]
         return dict(zip(builds, (f.result() for f in futs)))
 
 
@@ -558,13 +544,12 @@ def run_depths(card: str) -> int:
 
     nvcc = _build.find_nvcc()
     _build.build_all()
-    key = ("sp24_wg_units", "wgsp_launch")
+    key = WGSP.key
     with tempfile.TemporaryDirectory() as tmp:
-        builds = _rebuilt({d: ("sp24_wg_units", "wgsp_launch", WG_SPEC,
-                               "sp24_wg_tile.cuh", [(WG_DEPTH_LINE, (
-                                   "    return launch_kernel<MODE, (ST == 4"
-                                   f" ? {d} : ST), BN>(p, grid, s);"))])
-                           for d in WG_DEPTHS}, nvcc, tmp)
+        builds = _rebuilt({d: (WGSP, "sp24_wg_tile.cuh", [(WG_DEPTH_LINE, (
+            "    return launch_kernel<MODE, (ST == 4"
+            f" ? {d} : ST), BN>(p, grid, s);"))]) for d in WG_DEPTHS},
+            nvcc, tmp)
     gen = torch.Generator(device="cuda").manual_seed(0)
     try:
         for m, n, k in SHAPES:
@@ -598,10 +583,12 @@ def run_host(card: str) -> int:
     """The host's microseconds to queue one call of K3's ``wgmma_sp`` route
     at U (784x256x1024, b = 32) and of its parts: ``spmm_24`` on a packed
     container (the dispatch, its rule and the stale guard included), the
-    route's wrapper, its ctypes launch alone (B's tensor-map encode and
-    the kernel launch), ``torch.empty`` of C, the stream pointer;
-    ``pack_wg`` and the pack's wrapper; ``torch.matmul`` on the dense A.
-    Beside them the route's device time (``time_graph``)."""
+    route's wrapper, its launch through ``_build.Entry`` (the lookup, the
+    stream, the C call and the status check) and the pieces of that: the
+    lookup of the loaded entry, the stream pointer and the ctypes call
+    alone (B's tensor-map encode and the kernel launch); ``torch.empty``
+    of C; ``pack_wg`` and the pack's wrapper; ``torch.matmul`` on the dense
+    A. Beside them the route's device time (``time_graph``)."""
     from ..containers import Sparse24
     from ..ops.sparse24 import pack_wg, spmm_24
     from ..utils.timing import time_graph
@@ -615,22 +602,24 @@ def run_host(card: str) -> int:
     packed = sw.wg.packed
     kw = dict(m=m, k_logical=k, out_dtype=torch.bfloat16)
     k3.spmm24_wg_cuda(packed, b, **kw)  # builds, loads, plans
-    index = _build.device_index(b)
+    index = b.get_device()
     plan = k3.card_wg_plan(index, m, n, k)
-    launch = _build.load("spmm24", "spmm24_wg_launch", k3.WG_SPEC)
+    entry = k3.SPMM24_WG
+    launch = _build._entries[entry.key]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=b.device)
+    args = (packed.data_ptr(), b.data_ptr(), out.data_ptr(), None, m, n, k,
+            packed.shape[0], plan.bn, plan.splits, plan.kps, plan.grid)
     stream = _build.raw_stream(index)
     dense_a = k3.expand_planes(v0, v1, codes).T.contiguous()
     cases = [
         ("spmm_24", lambda: spmm_24(sw, b)),
         ("wrapper", lambda: k3.spmm24_wg_cuda(packed, b, **kw)),
-        ("ctypes launch", lambda: launch(
-            packed.data_ptr(), b.data_ptr(), out.data_ptr(), None, m, n, k,
-            packed.shape[0], plan.bn, plan.splits, plan.kps, plan.grid,
-            index, stream)),
+        ("entry launch", lambda: entry(index, *args)),
+        ("lookup", lambda: _build._entries.get(entry.key)),
+        ("stream", lambda: _build.raw_stream(index)),
+        ("ctypes launch", lambda: launch(*args, index, stream)),
         ("empty", lambda: torch.empty((m, n), dtype=torch.bfloat16,
                                       device=b.device)),
-        ("stream", lambda: _build.raw_stream(index)),
         ("pack_wg", lambda: pack_wg(s)),
         ("pack wrapper", lambda: k3.pack_wgmma_sp_cuda(v0, v1, codes)),
         ("matmul", lambda: torch.matmul(dense_a, b)),

@@ -132,12 +132,14 @@ extern "C" int ell_spmm_launch(const void* values, const void* cols,
                                int ell, float alpha, float beta, int tout,
                                int dtype, int out_dtype, int bn, int bk_step,
                                int stages, int splits, int ctas, int grid,
-                               void* stream) {
+                               int device, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (bs <= 0 || bs % 16 != 0 || M % bs != 0 ||
       !(bk == 16 || bk == 32 || bk == 64 || bk == 128))
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N <= 0) return (int)cudaSuccess;
+  const smt::OnDevice on(device);
+  if (on.error != cudaSuccess) return (int)on.error;
   if (bn != 0)
     return dtype == smt::kBF16
                ? (int)ellt::run<false>(values, cols, b, c, out, ws, M, N, Kb,

@@ -122,10 +122,12 @@ extern "C" int ring24_launch(const void* v0, const void* v1, const void* codes,
                              const void* slot, void* acc, void* out, int M,
                              int N, int K4, int ldp, int first, int last,
                              int dtype, int out_dtype, int tile,
-                             void* stream) {
+                             int device, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if ((!first || !last) && acc == nullptr) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0 || K4 <= 0) return (int)cudaSuccess;
+  const smt::OnDevice on(device);
+  if (on.error != cudaSuccess) return (int)on.error;
   const float* c = first ? nullptr : static_cast<const float*>(acc);
   void* dst = last ? out : acc;
   const int odt = last ? out_dtype : smt::kF32;

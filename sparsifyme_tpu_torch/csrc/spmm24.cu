@@ -139,11 +139,14 @@ extern "C" int spmm24_launch(const void* v0, const void* v1, const void* codes,
                              const void* b, const void* c, void* out, int M,
                              int N, int K, int K4, float alpha, float beta,
                              int tout, int packed, int fold, int dtype,
-                             int out_dtype, int tile, void* stream) {
+                             int out_dtype, int tile, int device,
+                             void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (!(fold == 1 || (fold == 2 && !tout && !packed)))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaSuccess;
+  const smt::OnDevice on(device);
+  if (on.error != cudaSuccess) return (int)on.error;
   const bool fast = dtype == smt::kBF16 && M % 8 == 0 && N % 8 == 0 &&
                     smt::aligned16(v0) && smt::aligned16(v1) &&
                     smt::aligned16(codes) && smt::aligned16(b) &&

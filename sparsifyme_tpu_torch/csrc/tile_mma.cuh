@@ -260,8 +260,8 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // Makes `device` current for its lifetime, and the previous device current
-// again after (the entry points that take a device launch on the card that
-// holds their tensors, whatever the caller's current device is).
+// again after (every entry point takes the card that holds its tensors and
+// launches there, whatever the caller's current device is).
 struct OnDevice {
   int prev = -1;
   cudaError_t error = cudaSuccess;

@@ -39,8 +39,7 @@ from .models.sparse_mlp import (MlpConfig, forward, init_params,
                                 make_train_step, shard_params,
                                 unshard_params)
 from .ops.prune import prune_24, prune_nm
-from .ops.kernels.spmm24_kernel import WG_BM
-from .ops.sparse24 import compress_24, pack_wg, spmm_24
+from .ops.sparse24 import compress_24, pack_refusal, pack_wg, spmm_24
 from .parallel.mesh import make_mesh, shard, shard_batch, start_processes
 from .parallel.ring_kernel import spmm_24_ring_explicit, spmm_24_ring_tiled
 from .parallel.spmm_sharded import pad_rows, shard_planes, spmm_24_ring
@@ -170,9 +169,10 @@ def _wrappers():
 
 
 def _packed(s):
-    """``s`` with K7's wgmma_sp operand packed once where its planes' width
-    is whole 128-row tiles (the rings then take that step), else ``s``."""
-    return pack_wg(s) if s.values0.shape[-1] % WG_BM == 0 else s
+    """``s`` with K7's wgmma_sp operand packed once where
+    :func:`~.ops.sparse24.pack_refusal` allows (the rings then take that
+    step), else ``s``."""
+    return s if pack_refusal(s) else pack_wg(s)
 
 
 def train_mesh_shape(world: int):

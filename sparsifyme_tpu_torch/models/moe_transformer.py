@@ -66,9 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from ..containers import Sparse24
-from ..ops.sparse24 import (decompress_24, pack_wg, prune_compress_24,
-                            spmm_24)
-from ..ops.kernels.spmm24_kernel import WG_BM
+from ..ops.sparse24 import (decompress_24, pack_refusal, pack_wg,
+                            prune_compress_24, spmm_24)
 from ..utils import trace
 
 BF16 = torch.bfloat16
@@ -202,9 +201,10 @@ class Dispatch:
 
 def sparse_weight(w: torch.Tensor) -> Sparse24:
     """A dense weight ``[M, K]`` pruned 2:4 along K and compressed (K2's
-    fused route), packed for K3's ``wgmma_sp`` route where M % 128 == 0."""
+    fused route), packed for K3's ``wgmma_sp`` route where
+    :func:`~..ops.sparse24.pack_refusal` allows."""
     s = prune_compress_24(w)
-    return pack_wg(s) if w.shape[0] % WG_BM == 0 else s
+    return s if pack_refusal(s) else pack_wg(s)
 
 
 def weight_shape(config: MoeTransformerConfig, name: str

@@ -45,6 +45,10 @@ from ... import _build
 from .prune_kernel import DTYPE_CODES
 from .spmm24_kernel import H100_SMS, sm_count
 
+# (vals, cols, starts, b, out, ws, mb, E, bm, m, k, n, batch, kc, n_chunks,
+#  route, splits, chunks_per_split, bdtype, device, stream)
+COO_SPMM = _build.Entry("coo_spmm", "coo_spmm_launch",
+                        "pppppp" "iiiiiiiiiiiiii" "p")
 GROUP = 8  # E must be a multiple of this, as on the TPU
 SLOT_QUANTUM = 128  # the packer pads E to a multiple of this, as on the TPU
 MAX_BLOCK_ROWS = 256  # largest block-row edge
@@ -233,11 +237,9 @@ def coo_plan(mb: int, block_rows: int, k: int, kc: int, nnz: int, cols: int,
     return best[1] if best else None
 
 
-def card_plan(device: torch.device, mb: int, block_rows: int, k: int,
-              kc: int, nnz: int, cols: int, peak: int) -> CooPlan:
-    """:func:`coo_plan` on the card that holds ``device``."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
+def card_plan(index: int, mb: int, block_rows: int, k: int, kc: int,
+              nnz: int, cols: int, peak: int) -> CooPlan:
+    """:func:`coo_plan` on card ``index``."""
     return coo_plan(mb, block_rows, k, kc, nnz, cols, sm_count(index),
                     peak=peak)
 
@@ -373,22 +375,16 @@ def spmm_coo_cuda(vals2, cols2, roff2, b, *, m: int, block_rows: int = 128,
     out =torch.empty((batch, m, n), dtype=torch.float32, device=b.device)
     if out.numel() == 0:
         return out
-    plan = card_plan(b.device, mb, block_rows, k, layout.kc, layout.nnz,
+    plan = card_plan(b.get_device(), mb, block_rows, k, layout.kc, layout.nnz,
                      batch * n, layout.peak)
     ws = (torch.empty((plan.splits, batch, m, n), dtype=torch.float32,
                       device=b.device) if plan.splits > 1 else None)
     b = b.contiguous()
-    # (vals, cols, starts, b, out, ws, mb, E, bm, m, k, n, batch, kc,
-    #  n_chunks, route, splits, chunks_per_split, bdtype, device, stream)
-    launch = _build.load("coo_spmm", "coo_spmm_launch",
-                         "pppppp" "iiiiiiiiiiiiii" "p")
-    _build.check(launch(
-        layout.vals.data_ptr(), layout.cols.data_ptr(),
-        layout.starts.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _build.ptr(ws), mb, e, block_rows, m, k, n, batch, layout.kc,
-        max(1, -(-k // layout.kc)), 0 if plan.route == "staged" else 1,
-        plan.splits, plan.chunks_per_split, DTYPE_CODES[b.dtype],
-        _build.device_index(b), _build.stream_ptr(b)), "coo_spmm")
+    COO_SPMM(b.get_device(), layout.vals.data_ptr(), layout.cols.data_ptr(),
+             layout.starts.data_ptr(), b.data_ptr(), out.data_ptr(),
+             _build.ptr(ws), mb, e, block_rows, m, k, n, batch, layout.kc,
+             max(1, -(-k // layout.kc)), 0 if plan.route == "staged" else 1,
+             plan.splits, plan.chunks_per_split, DTYPE_CODES[b.dtype])
     spmm_coo_cuda.launches += 1
     return out
 

@@ -51,6 +51,14 @@ from .spmm24_kernel import H100_SMS, _epilogue_plain, sm_count
 
 BLOCK_KS = (16, 32, 64, 128)
 MAX_ELL = 1024  # slots per block-row that K5 lists in shared memory
+# (values, cols, b, c, out, ws, M, N, Kb, bs, bk, ell, alpha, beta, tout,
+#  dtype, out_dtype, bn, bk_step, stages, splits, ctas, grid, device, stream)
+ELL_SPMM = _build.Entry("ell_spmm", "ell_spmm_launch",
+                        "pppppp" "iiiiii" "ff" "iii" "iiiiii" "i" "p")
+# (values_km, cols, b, out, ws, M, N, Kb, bs, bk, ell, tout, dtype,
+#  out_dtype, bn, bk_step, stages, splits, ctas, grid, device, stream)
+ELL_EXPAND = _build.Entry("ell_expand", "ell_expand_launch",
+                          "ppppp" "iiiiiii" "ii" "iiiiii" "i" "p")
 
 # --- the plan of the Hopper tile (csrc/ell_tile.cuh) ------------------------
 
@@ -143,12 +151,9 @@ def ell_plan(m: int, n: int, ell: int, bk: int, bs: int,
     return best[1] if best else None
 
 
-def card_plan(device: torch.device, m: int, n: int, ell: int, bk: int,
-              bs: int, widths=TILE_NS,
-              split_counts=None) -> Optional[EllPlan]:
-    """:func:`ell_plan` on the card that holds ``device``."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
+def card_plan(index: int, m: int, n: int, ell: int, bk: int, bs: int,
+              widths=TILE_NS, split_counts=None) -> Optional[EllPlan]:
+    """:func:`ell_plan` on card ``index``."""
     return ell_plan(m, n, ell, bk, bs, sm_count(index), widths, split_counts)
 
 
@@ -182,7 +187,7 @@ def plan_args(plan: Optional[EllPlan]):
             plan.grid)
 
 
-def _plan_for(device, m, n, ell, bk, bs, dtype, tensors, block_n=None,
+def _plan_for(index, m, n, ell, bk, bs, dtype, tensors, block_n=None,
               splits=None):
     """The tile's plan where dtype and alignment allow it, else None.
     ``block_n`` (one of :data:`TILE_NS`) and ``splits`` (1 to
@@ -192,14 +197,14 @@ def _plan_for(device, m, n, ell, bk, bs, dtype, tensors, block_n=None,
     tile_ok = dtype == torch.bfloat16 and not any(
         t is not None and t.data_ptr() % 16 for t in tensors)
     if block_n is None and splits is None:
-        return card_plan(device, m, n, ell, bk, bs) if tile_ok else None
+        return card_plan(index, m, n, ell, bk, bs) if tile_ok else None
     if block_n is not None and block_n not in TILE_NS:
         raise ValueError(f"block_n {block_n} is not one of {TILE_NS}")
     if splits is not None and splits not in range(1, MAX_SPLITS + 1):
         raise ValueError(f"splits {splits} is not in 1..{MAX_SPLITS}")
     plan = None
     if tile_ok:
-        plan = card_plan(device, m, n, ell, bk, bs,
+        plan = card_plan(index, m, n, ell, bk, bs,
                          TILE_NS if block_n is None else (block_n,),
                          None if splits is None else (splits,))
     if plan is None:
@@ -277,28 +282,20 @@ def ell_spmm_cuda(values, cols, b, *, block_size: int, block_k: int,
     if c is not None and beta != 0.0:
         c32 = c.to(torch.float32).reshape(out_shape).contiguous()
     trace.mark("plan")
+    index = values.get_device()
     # C is not among the tensors checked for alignment: a fresh allocation
     # is (the caching allocator hands out blocks of 512 bytes)
-    plan = _plan_for(values.device, m, n, ell, bk, bs, dtype,
+    plan = _plan_for(index, m, n, ell, bk, bs, dtype,
                      (values, b, c32), block_n, splits)
     trace.mark("alloc")
     out = torch.empty(out_shape, dtype=out_dtype, device=values.device)
     ws = _workspace(plan, m, n, values.device)
-    trace.mark("device_guard")
-    # the entry point launches on the current card: make it the tensors'
-    with torch.cuda.device(values.device):
-        trace.mark("launch")
-        # (values, cols, b, c, out, ws, M, N, Kb, bs, bk, ell, alpha, beta,
-        #  tout, dtype, out_dtype, bn, bk_step, stages, splits, ctas, grid,
-        #  stream)
-        launch = _build.load("ell_spmm", "ell_spmm_launch",
-                             "pppppp" "iiiiii" "ff" "iii" "iiiiii" "p")
-        _build.check(launch(
-            values.data_ptr(), cols.data_ptr(), b.data_ptr(),
-            _build.ptr(c32), out.data_ptr(), _build.ptr(ws), m, n, kb, bs,
-            bk, ell, float(alpha), float(beta) if c32 is not None else 0.0,
-            int(transpose_out), DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
-            *plan_args(plan), _build.stream_ptr(values)), "ell_spmm")
+    trace.mark("launch")
+    ELL_SPMM(index, values.data_ptr(), cols.data_ptr(),
+             b.data_ptr(), _build.ptr(c32), out.data_ptr(), _build.ptr(ws),
+             m, n, kb, bs, bk, ell, float(alpha),
+             float(beta) if c32 is not None else 0.0, int(transpose_out),
+             DTYPE_CODES[dtype], DTYPE_CODES[out_dtype], *plan_args(plan))
     ell_spmm_cuda.launches += 1
     return out
 
@@ -370,19 +367,14 @@ def ell_expand_spmm_cuda(values_km, cols, b, *, block_size: int,
     cols = cols.to(torch.int32).contiguous()
     out = torch.empty((n, m) if transpose_out else (m, n), dtype=out_dtype,
                       device=values_km.device)
-    plan = _plan_for(values_km.device, m, n, ell, bk, bs, dtype,
+    index = values_km.get_device()
+    plan = _plan_for(index, m, n, ell, bk, bs, dtype,
                      (values_km, b, out))
     ws = _workspace(plan, m, n, values_km.device)
-    # (values_km, cols, b, out, ws, M, N, Kb, bs, bk, ell, tout, dtype,
-    #  out_dtype, bn, bk_step, stages, splits, ctas, grid, stream)
-    launch = _build.load("ell_expand", "ell_expand_launch",
-                         "ppppp" "iiiiiii" "ii" "iiiiii" "p")
-    with torch.cuda.device(values_km.device):  # as in ell_spmm_cuda
-        _build.check(launch(
-            values_km.data_ptr(), cols.data_ptr(), b.data_ptr(),
-            out.data_ptr(), _build.ptr(ws), m, n, kb, bs, bk, ell,
-            int(transpose_out), DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
-            *plan_args(plan), _build.stream_ptr(values_km)), "ell_expand")
+    ELL_EXPAND(index, values_km.data_ptr(), cols.data_ptr(), b.data_ptr(),
+               out.data_ptr(), _build.ptr(ws), m, n, kb, bs, bk, ell,
+               int(transpose_out), DTYPE_CODES[dtype], DTYPE_CODES[out_dtype],
+               *plan_args(plan))
     ell_expand_spmm_cuda.launches += 1
     return out
 

@@ -32,6 +32,12 @@ from ... import _build
 from ...utils import trace
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (w, out, mask, rows, k, n, m, mode, R, KT, dtype, device, stream)
+PRUNE_NM = _build.Entry("prune_nm", "prune_nm_launch",
+                        "ppp" "l" "iiiiiiii" "p")
+# (w, v0, v1, codes, M, k, K4, R, KT, dtype, device, stream)
+COMPRESS24 = _build.Entry("compress24", "compress24_launch",
+                          "pppp" "iiiiiii" "p")
 
 
 def _round_up(a: int, b: int) -> int:
@@ -83,14 +89,9 @@ def prune_nm_cuda(w: torch.Tensor, n: int = 2,
     out = torch.empty_like(w)
     mask = torch.empty_like(w)
     trace.mark("launch")
-    launch = _build.load("prune_nm", "prune_nm_launch",
-                         "ppp" "l" "iiiiiiii" "p")
-    _build.check(launch(  # (w, out, mask, rows, k, n, m, mode, R, KT,
-        #                     dtype, device, stream)
-        w.data_ptr(), out.data_ptr(), mask.data_ptr(), rows, k, n, m,
-        PRUNE_MODES[plan.mode], plan.rows_per_tile, plan.k_tile,
-        DTYPE_CODES[w.dtype], _build.device_index(w),
-        _build.stream_ptr(w)), "prune_nm")
+    PRUNE_NM(w.get_device(), w.data_ptr(), out.data_ptr(), mask.data_ptr(),
+             rows, k, n, m, PRUNE_MODES[plan.mode], plan.rows_per_tile,
+             plan.k_tile, DTYPE_CODES[w.dtype])
     prune_nm_cuda.launches += 1
     return out, mask
 
@@ -386,13 +387,9 @@ def _compress_launch(
     v1 = torch.empty_like(v0)
     codes = torch.empty((k4, rows), dtype=torch.uint8, device=w2.device)
     trace.mark("launch")
-    launch = _build.load("compress24", "compress24_launch",
-                         "pppp" "iiiiiii" "p")
-    _build.check(launch(  # (w, v0, v1, codes, M, k, K4, R, KT, dtype,
-        #                     device, stream)
-        w2.data_ptr(), v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), rows,
-        k, k4, plan.rows_per_tile, plan.k_tile, DTYPE_CODES[w2.dtype],
-        _build.device_index(w2), _build.stream_ptr(w2)), what)
+    COMPRESS24(w2.get_device(), w2.data_ptr(), v0.data_ptr(), v1.data_ptr(),
+               codes.data_ptr(), rows, k, k4, plan.rows_per_tile,
+               plan.k_tile, DTYPE_CODES[w2.dtype])
     return v0, v1, codes
 
 

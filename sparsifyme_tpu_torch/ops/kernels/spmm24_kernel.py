@@ -32,8 +32,9 @@ planes. ``wgmma_sp`` (:func:`spmm24_wg_cuda`) is the persistent, TMA-fed
 from the planes (:func:`pack_wgmma_sp_cuda`, plain version
 :func:`pack_wgmma_sp`), planned by :func:`wg_plan`. It takes what
 :func:`wg_refusal` lets through: bf16 in and out, no epilogue, C row-major,
-unpacked codes, fold 1, M % 128 == 0 and n % 64 == 0; ``spmm24_cuda``'s
-``design`` knob picks between the two and never falls back from one to the
+unpacked codes, fold 1, M % 128 == 0 and n % 64 == 0. Each wrapper
+launches one design; ``spmm_24`` picks between them, in
+``ops.sparse24.spmm24_design`` alone, and never falls back from one to the
 other. On large products bound by the tensor cores (:func:`wg_tall`: M %
 256 == 0) :func:`wg_plan` may give the tile units of 256 rows instead of
 128 (:class:`WgTallPlan`), walked in bands of m-tiles (:func:`wg_band`) so
@@ -56,6 +57,10 @@ from .prune_kernel import DTYPE_CODES
 # the order of the ``tile`` argument of spmm24_launch and ring24_launch.
 SP_TILES = ((256, 128), (128, 128), (128, 64), (64, 64))
 H100_SMS = 132
+# (v0, v1, codes, b, c, out, M, N, K, K4, alpha, beta, tout, packed, fold,
+#  dtype, out_dtype, tile, device, stream)
+SPMM24 = _build.Entry("spmm24", "spmm24_launch",
+                      "pppppp" "iiii" "ff" "iiiiii" "i" "p")
 
 
 def pick_tile(m: int, n: int, k: int, fold: int = 1,
@@ -86,11 +91,8 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def card_tile(device: torch.device, m: int, n: int, k: int,
-              fold: int = 1) -> int:
-    """:func:`pick_tile` on the card that holds ``device``."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
+def card_tile(index: int, m: int, n: int, k: int, fold: int = 1) -> int:
+    """:func:`pick_tile` on card ``index``."""
     return pick_tile(m, n, k, fold, sm_count(index))
 
 
@@ -336,23 +338,17 @@ def _launch(v0, v1, codes, b, *, k_logical, out_dtype, alpha, beta, c,
     if c is not None and beta != 0.0:
         c32 = c.to(torch.float32).reshape(out_shape).contiguous()
     trace.mark("plan")
+    index = v0.get_device()
     if tile is None:
-        tile = card_tile(v0.device, m, n, k_logical, fold)
+        tile = card_tile(index, m, n, k_logical, fold)
     trace.mark("alloc")
     out = torch.empty(out_shape, dtype=out_dtype, device=v0.device)
     trace.mark("launch")
-    # (v0, v1, codes, b, c, out, M, N, K, K4, alpha, beta, tout, packed,
-    #  fold, dtype, out_dtype, tile, stream)
-    launch = _build.load("spmm24", "spmm24_launch",
-                         "pppppp" "iiii" "ff" "iiiiii" "p")
-    # the entry point launches on the current card: make it the tensors'
-    with torch.cuda.device(v0.device):
-        _build.check(launch(
-            v0.data_ptr(), v1.data_ptr(), codes.data_ptr(), b.data_ptr(),
-            _build.ptr(c32), out.data_ptr(), m, n, k_logical, k4,
-            float(alpha), float(beta) if c32 is not None else 0.0,
-            int(transpose_out), int(packed_codes), fold, DTYPE_CODES[dtype],
-            DTYPE_CODES[out_dtype], tile, _build.stream_ptr(v0)), what)
+    SPMM24(index, v0.data_ptr(), v1.data_ptr(), codes.data_ptr(),
+           b.data_ptr(), _build.ptr(c32), out.data_ptr(), m, n, k_logical,
+           k4, float(alpha), float(beta) if c32 is not None else 0.0,
+           int(transpose_out), int(packed_codes), fold, DTYPE_CODES[dtype],
+           DTYPE_CODES[out_dtype], tile)
     return out
 
 
@@ -360,30 +356,12 @@ def spmm24_cuda(v0, v1, codes, b, *, k_logical: int,
                 out_dtype: torch.dtype, alpha: float = 1.0,
                 beta: float = 0.0, c: Optional[torch.Tensor] = None,
                 transpose_out: bool = False, packed_codes: bool = False,
-                tile: Optional[int] = None, design: Optional[str] = None,
-                wg: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K3. Planes and ``b`` are brought to their promoted type (the
-    kernel multiplies like types); ``c`` goes to the kernel as f32.
-    ``tile`` forces an index of :data:`SP_TILES` on the sparse tile's fast
-    path (``None``: :func:`pick_tile`); the simple kernels ignore it.
-
-    ``design`` picks K3's tile: ``"mma_sp"`` the sparse tile on the planes,
-    ``"wgmma_sp"`` :func:`spmm24_wg_cuda` on ``wg`` (the planes'
-    :func:`pack_wgmma_sp_cuda`), raising where :func:`wg_refusal` refuses
-    the call; ``None`` takes ``wgmma_sp`` where ``wg`` is given and the call
-    qualifies, else ``mma_sp``."""
-    if design not in (None,) + DESIGNS:
-        raise ValueError(f"design {design!r} is not one of {DESIGNS}")
-    if design == "wgmma_sp" or (design is None and wg is not None):
-        why = ("no packed operand (wg)" if wg is None else wg_refusal(
-            fold=1, planes_dtype=v0.dtype, b=b, out_dtype=out_dtype,
-            alpha=alpha, beta=beta, c=c, transpose_out=transpose_out,
-            packed_codes=packed_codes, tile=tile, m=v0.shape[-1]))
-        if why is None:
-            return spmm24_wg_cuda(wg, b, m=v0.shape[-1], k_logical=k_logical,
-                                  out_dtype=out_dtype)
-        if design == "wgmma_sp":
-            raise ValueError(f"design 'wgmma_sp' cannot take this call: {why}")
+                tile: Optional[int] = None) -> torch.Tensor:
+    """Launch K3's ``mma_sp`` tile on the planes. Planes and ``b`` are
+    brought to their promoted type (the kernel multiplies like types);
+    ``c`` goes to the kernel as f32. ``tile`` forces an index of
+    :data:`SP_TILES` on the sparse tile's fast path (``None``:
+    :func:`pick_tile`); the simple kernels ignore it."""
     out = _launch(v0, v1, codes, b, k_logical=k_logical, out_dtype=out_dtype,
                   alpha=alpha, beta=beta, c=c, transpose_out=transpose_out,
                   packed_codes=packed_codes, fold=1, tile=tile,
@@ -420,14 +398,15 @@ WG_BM = 128  # rows of a wgmma_sp tile: two warpgroups of 64
 WG_TALL_BM = 256  # rows of its tall unit: two tiles of 128, one a warpgroup
 WG_KS = 64  # logical k of one of its k-steps
 WG_WORDS = 2304  # 32-bit words of a tile's k-step: 8 KB of A, 1 KB of meta
-# spmm24_wg_launch's ctypes spec: (a, b, out, ws, M, N, K, KTP, bn, splits,
-# kps, grid, device, stream)
-WG_SPEC = "pppp" "iiii" "iiii" "i" "p"
-# spmm24_wg256_launch's: (a, b, out, ws, M, N, K, KTP, bn, splits, kps,
-# band, grid, device, stream)
-WG256_SPEC = "pppp" "iiii" "iiii" "ii" "p"
-# spmm24_pack_launch's: (v0, v1, codes, out, M, K4, KTP, device, stream)
-PACK_SPEC = "pppp" "iii" "i" "p"
+# (a, b, out, ws, M, N, K, KTP, bn, splits, kps, grid, device, stream)
+SPMM24_WG = _build.Entry("spmm24", "spmm24_wg_launch",
+                         "pppp" "iiii" "iiii" "i" "p")
+# (a, b, out, ws, M, N, K, KTP, bn, splits, kps, band, grid, device, stream)
+SPMM24_WG256 = _build.Entry("spmm24", "spmm24_wg256_launch",
+                            "pppp" "iiii" "iiii" "ii" "p")
+# (v0, v1, codes, out, M, K4, KTP, device, stream)
+SPMM24_PACK = _build.Entry("spmm24", "spmm24_pack_launch",
+                           "pppp" "iii" "i" "p")
 
 
 class WgPlan(NamedTuple):
@@ -724,10 +703,8 @@ def pack_wgmma_sp_cuda(v0, v1, codes) -> torch.Tensor:
     out = torch.empty((ktp, m // WG_BM, WG_WORDS), dtype=torch.int32,
                       device=v0.device)
     trace.mark("launch")
-    launch = _build.load("spmm24", "spmm24_pack_launch", PACK_SPEC)
-    _build.check(launch(v0.data_ptr(), v1.data_ptr(), codes.data_ptr(),
-                        out.data_ptr(), m, k4, ktp, _build.device_index(v0),
-                        _build.stream_ptr(v0)), "pack_wgmma_sp_cuda")
+    SPMM24_PACK(v0.get_device(), v0.data_ptr(), v1.data_ptr(),
+                codes.data_ptr(), out.data_ptr(), m, k4, ktp)
     pack_wgmma_sp_cuda.launches += 1
     return out
 
@@ -773,8 +750,9 @@ def wg_refusal(*, fold: int, planes_dtype: torch.dtype, b: torch.Tensor,
                packed_codes: bool, tile: Optional[int], m: int
                ) -> Optional[str]:
     """Why the ``wgmma_sp`` route cannot take a call (``None``: it can):
-    the rule by which ``spmm_24`` and :func:`spmm24_cuda` pick K3's tile.
-    The route's epilogue writes bf16 C row-major, nothing else."""
+    the rule by which ``spmm_24`` picks K3's tile
+    (``ops.sparse24.spmm24_design``). The route's epilogue writes bf16 C
+    row-major, nothing else."""
     if fold != 1:
         return "fold=2 planes"
     if tile is not None:
@@ -856,19 +834,15 @@ def spmm24_wg_cuda(wg, b, *, m: int, k_logical: int,
                       device=b.device) if plan.splits > 1 else None)
     trace.mark("launch")
     if plan.band:  # the 256-row unit
-        launch = _build.load("spmm24", "spmm24_wg256_launch", WG256_SPEC)
-        _build.check(launch(
-            wg.data_ptr(), b.data_ptr(), out.data_ptr(), _build.ptr(ws), m,
-            n, k_logical, ktp, plan.bn, plan.splits, plan.kps, plan.band,
-            plan.grid, index, _build.raw_stream(index)), "spmm24_wg_cuda")
+        SPMM24_WG256(index, wg.data_ptr(), b.data_ptr(), out.data_ptr(),
+                     _build.ptr(ws), m, n, k_logical, ktp, plan.bn,
+                     plan.splits, plan.kps, plan.band, plan.grid)
         trace.count("spmm24.wg256")
         spmm24_wg_cuda.wg256_launches += 1
     else:
-        launch = _build.load("spmm24", "spmm24_wg_launch", WG_SPEC)
-        _build.check(launch(
-            wg.data_ptr(), b.data_ptr(), out.data_ptr(), _build.ptr(ws), m,
-            n, k_logical, ktp, plan.bn, plan.splits, plan.kps, plan.grid,
-            index, _build.raw_stream(index)), "spmm24_wg_cuda")
+        SPMM24_WG(index, wg.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  _build.ptr(ws), m, n, k_logical, ktp, plan.bn, plan.splits,
+                  plan.kps, plan.grid)
     spmm24_wg_cuda.launches += 1
     return out
 

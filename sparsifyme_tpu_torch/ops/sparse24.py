@@ -102,23 +102,32 @@ def prune_compress_24(w: torch.Tensor, rank_mxu: bool = False,
             trace.end(call)
 
 
+def pack_refusal(s: Sparse24) -> Optional[str]:
+    """Why :func:`pack_wg` cannot pack ``s`` (``None``: it can): the
+    ``wgmma_sp`` operand is made from fold=1 bf16 planes whose width M is
+    whole tiles of ``spmm24_kernel.WG_BM`` rows. Code that packs where it
+    can asks this rather than redo the test."""
+    if s.fold != 1:
+        return "fold=2 planes (the wgmma_sp route has no fold mode)"
+    if s.values0.dtype != torch.bfloat16 or s.values1.dtype != torch.bfloat16:
+        return f"{s.values0.dtype} planes (bf16 only)"
+    if s.values0.shape[-1] % WG_BM:
+        return f"M {s.values0.shape[-1]} is not a multiple of {WG_BM}"
+    return None
+
+
 def pack_wg(s: Sparse24) -> Sparse24:
     """``s`` with its ``wg`` set: the operand of K3's ``wgmma_sp`` route,
     derived once from the planes (the pack kernel on CUDA planes, its plain
     version on CPU ones) and bound to them, so that :func:`spmm_24` refuses
-    it once a plane is replaced or written in place. Takes fold=1 bf16
-    planes whose width M is a multiple of 128; raises otherwise."""
+    it once a plane is replaced or written in place. Raises where
+    :func:`pack_refusal` refuses ``s``."""
     call = trace.begin("sparsifyme.pack_wg", "prep")
     try:
-        if s.fold != 1:
-            raise ValueError("pack_wg takes fold=1 planes (the wgmma_sp "
-                             "route has no fold mode)")
+        why = pack_refusal(s)
+        if why is not None:
+            raise ValueError(f"pack_wg cannot take {why}")
         v0, v1, codes = s.values0, s.values1, s.codes
-        if v0.dtype != torch.bfloat16 or v1.dtype != torch.bfloat16:
-            raise ValueError(f"pack_wg takes bf16 planes, not {v0.dtype}")
-        if v0.shape[-1] % WG_BM:
-            raise ValueError(f"pack_wg needs M % {WG_BM} == 0, got "
-                             f"{v0.shape[-1]}")
         if _build.use_kernel(v0):
             packed = pack_wgmma_sp_cuda(v0, v1, codes)
         elif any(t.device.type != "cpu" for t in (v1, codes)):

@@ -135,6 +135,12 @@ def plane_window(v0: torch.Tensor, src: int, k4s: int, c0: int) -> int:
     return src * k4s * v0.stride(0) + c0
 
 
+# (v0, v1, codes, slot, acc, out, M, N, K4, ldp, first, last, dtype,
+#  out_dtype, tile, device, stream)
+RING24 = _build.Entry("ring24", "ring24_launch",
+                      "pppppp" "iiii" "iiiii" "i" "p")
+
+
 def _launch(v0, v1, codes, slot, acc, out, *, src, c0, mt, first, last,
             what) -> None:
     if not (v0.is_cuda and slot.is_cuda and out.is_cuda):
@@ -175,20 +181,17 @@ def _launch(v0, v1, codes, slot, acc, out, *, src, c0, mt, first, last,
     if acc is None and not (first and last):
         raise ValueError(f"{what}: only a first-and-last step may omit acc")
     off = plane_window(v0, src, k4s, c0)
-    # (v0, v1, codes, slot, acc, out, M, N, K4, ldp, first, last, dtype,
-    #  out_dtype, tile, stream)
-    fn = _build.load("ring24", "ring24_launch", "pppppp" "iiii" "iiiii" "p")
-    with torch.cuda.device(dev):
-        _build.check(fn(
-            v0.data_ptr() + off * v0.element_size(),
-            v1.data_ptr() + off * v1.element_size(),
-            codes.data_ptr() + off,
-            slot.data_ptr(),
-            None if acc is None else acc.data_ptr() + c0 * n * 4,
-            out.data_ptr() + c0 * n * out.element_size(),
-            mt, n, k4s, v0.stride(0), int(first), int(last),
-            DTYPE_CODES[v0.dtype], DTYPE_CODES[out.dtype],
-            card_tile(dev, mt, n, 4 * k4s), _build.stream_ptr(v0)), what)
+    index = v0.get_device()
+    RING24(index,
+           v0.data_ptr() + off * v0.element_size(),
+           v1.data_ptr() + off * v1.element_size(),
+           codes.data_ptr() + off,
+           slot.data_ptr(),
+           None if acc is None else acc.data_ptr() + c0 * n * 4,
+           out.data_ptr() + c0 * n * out.element_size(),
+           mt, n, k4s, v0.stride(0), int(first), int(last),
+           DTYPE_CODES[v0.dtype], DTYPE_CODES[out.dtype],
+           card_tile(index, mt, n, 4 * k4s))
 
 
 def ring_step_cuda(v0, v1, codes, slot, acc, out, *, src: int, c0: int,
@@ -218,10 +221,10 @@ ring_step_tiled_cuda.launches = 0
 # --- the wgmma_sp step -------------------------------------------------------
 
 WG_GROUPS = WG_KS // 4  # k-groups of one k-step of the packed operand
-# ring24_wg_launch's ctypes spec: (a, slot, acc, out, ws, a_ktp, a_tiles,
-# kt0, mt0, M, N, K, first, last, out_dtype, bn, splits, kps, grid, device,
-# stream)
-RING_WG_SPEC = "ppppp" "iiii" "iii" "iii" "iiii" "i" "p"
+# (a, slot, acc, out, ws, a_ktp, a_tiles, kt0, mt0, M, N, K, first, last,
+#  out_dtype, bn, splits, kps, grid, device, stream)
+RING24_WG = _build.Entry("ring24_wg", "ring24_wg_launch",
+                         "ppppp" "iiii" "iii" "iii" "iiii" "i" "p")
 
 
 def ring_wg_refusal(s: Sparse24, b: torch.Tensor, *, out_dtype, mloc: int,
@@ -382,14 +385,12 @@ def _launch_wg(wg, tile0, slot, acc, out, *, src, c0, mt, first, last,
     plan = card_ring_wg_plan(index, mt, n, k)
     ws = (torch.empty((plan.splits, mt, n), dtype=torch.float32,
                       device=out.device) if plan.splits > 1 else None)
-    fn = _build.load("ring24_wg", "ring24_wg_launch", RING_WG_SPEC)
-    _build.check(fn(
-        wg.data_ptr(), slot.data_ptr(),
-        None if acc is None else acc.data_ptr() + c0 * n * 4,
-        out.data_ptr() + c0 * n * out.element_size(), _build.ptr(ws),
-        wg.shape[0], wg.shape[1], kt0, mt0, mt, n, k, int(first), int(last),
-        DTYPE_CODES[out.dtype], plan.bn, plan.splits, plan.kps, plan.grid,
-        index, _build.stream_ptr(out)), what)
+    RING24_WG(index, wg.data_ptr(), slot.data_ptr(),
+              None if acc is None else acc.data_ptr() + c0 * n * 4,
+              out.data_ptr() + c0 * n * out.element_size(), _build.ptr(ws),
+              wg.shape[0], wg.shape[1], kt0, mt0, mt, n, k, int(first),
+              int(last), DTYPE_CODES[out.dtype], plan.bn, plan.splits,
+              plan.kps, plan.grid)
 
 
 def ring_step_wg_cuda(wg, tile0, slot, acc, out, *, src: int, c0: int,

@@ -592,7 +592,7 @@ def test_coo_spmm_kernel_routes_at_resnet_widths(gen, monkeypatch, route,
     packed = pack_coo(coo_from_dense(prune_threshold(w, thr)[0]))
     lay = coo_kernel.coo_layout(*packed, k=k)
     if sparsity == 0.995:
-        assert coo_kernel.card_plan(w.device, 2, 128, k, lay.kc, lay.nnz,
+        assert coo_kernel.card_plan(w.get_device(), 2, 128, k, lay.kc, lay.nnz,
                                     batch * n, lay.peak).route == "gather"
     plan = coo_kernel.coo_plan(2, 128, k, lay.kc, lay.nnz, batch * n,
                                routes=(route,), split_counts=(splits,),
@@ -2101,10 +2101,6 @@ def test_wgmma_sp_route_refuses_on_the_card(gen):
         torch.bfloat16)
     with pytest.raises(ValueError, match="wgmma_sp"):
         spmm_24(sw, b72, design="wgmma_sp")  # n % 64
-    with pytest.raises(ValueError, match="wgmma_sp"):
-        spmm24_kernel.spmm24_cuda(s.values0, s.values1, s.codes, b,
-                                  k_logical=256, out_dtype=torch.bfloat16,
-                                  design="wgmma_sp")
     for bad in (prune_compress_24(a, fold=2), prune_compress_24(a.float()),
                 prune_compress_24(a[:, :100])):
         with pytest.raises(ValueError):
@@ -2225,8 +2221,8 @@ def test_wgmma_sp_tall_unit_refuses_on_the_card(gen, monkeypatch):
     v0, v1, codes, b = _wg_operands(gen, m, n, k)
     packed = spmm24_kernel.pack_wgmma_sp_cuda(v0, v1, codes)
     out = torch.full((m, n), 7.0, dtype=torch.bfloat16, device="cuda")
-    launch = _build.load("spmm24", "spmm24_wg256_launch",
-                         spmm24_kernel.WG256_SPEC)
+    entry = spmm24_kernel.SPMM24_WG256
+    launch = _build.load(entry.lib, entry.name, entry.spec)
     index = b.get_device()
     for rows, band in ((m, 1), (256, 0), (256, -2)):
         assert launch(packed.data_ptr(), b.data_ptr(), out.data_ptr(), 0,
@@ -2240,7 +2236,7 @@ def test_wgmma_sp_tall_unit_refuses_on_the_card(gen, monkeypatch):
     before = spmm24_kernel.spmm24_wg_cuda.launches
     tall = spmm24_kernel.spmm24_wg_cuda.wg256_launches
     _forced_plan(monkeypatch, spmm24_kernel.WgTallPlan(128, 1, 4, 1, 1, 1))
-    with pytest.raises(RuntimeError, match="spmm24_wg_cuda"):
+    with pytest.raises(RuntimeError, match="spmm24_wg256_launch"):
         spmm24_kernel.spmm24_wg_cuda(packed, b, **kw)
     assert spmm24_kernel.spmm24_wg_cuda.launches == before
     assert spmm24_kernel.spmm24_wg_cuda.wg256_launches == tall

@@ -6,6 +6,7 @@ The import check is an AST scan, not a subprocess: this environment's
 
 import ast
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ from sparsifyme_tpu.ops import ell as je
 from sparsifyme_tpu.ops import prune as jprune
 from sparsifyme_tpu.ops import sparse24 as js
 from sparsifyme_tpu_torch import _build, convert
+from sparsifyme_tpu_torch.bench import fused_probe, units_probe
 from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
                                               prune_kernel, spmm24_kernel)
 from sparsifyme_tpu_torch.parallel import ring_kernel
@@ -73,6 +75,90 @@ def test_build_key_covers_every_source():
     names = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert names == set(_build.SOURCES)
     assert len(_build.source_hash()) == 16
+
+
+def _c_entries():
+    """``{name: (source, [parameter, ...])}`` of every ``extern "C" int
+    *_launch`` in ``csrc/``."""
+    found = {}
+    decl = re.compile(r'extern "C" int (\w+_launch)\(([^)]*)\)')
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in decl.findall(path.read_text()):
+            found[name] = (path.stem, [" ".join(p.split())
+                                       for p in params.split(",")])
+    return found
+
+
+C_ENTRIES = _c_entries()
+# the C type of each letter of a ctypes spec (_build.argtypes)
+SPEC_TYPES = {"p": r"(const )?void\* \w+", "i": r"int \w+",
+              "l": r"long long \w+", "f": r"float \w+"}
+
+
+def _declared_entries():
+    return {e.name: e
+            for mod in (prune_kernel, spmm24_kernel, ell_kernel, coo_kernel,
+                        ring_kernel, units_probe, fused_probe)
+            for e in vars(mod).values() if isinstance(e, _build.Entry)}
+
+
+@pytest.mark.parametrize("name", sorted(C_ENTRIES))
+def test_every_c_entry_is_declared_with_its_spec(name):
+    """Each C entry point has one ``_build.Entry`` whose spec gives one
+    letter of the right type per parameter, and ends in ``int device,
+    void* stream``; the port declares no entry that ``csrc/`` lacks."""
+    declared = _declared_entries()
+    assert set(declared) == set(C_ENTRIES)
+    source, params = C_ENTRIES[name]
+    entry = declared[name]
+    assert entry.lib == source and entry.key == (source, name)
+    assert len(entry.spec) == len(params)
+    for letter, param in zip(entry.spec, params):
+        assert re.fullmatch(SPEC_TYPES[letter], param), (letter, param)
+    assert params[-2:] == ["int device", "void* stream"]
+
+
+def test_an_entry_call_appends_the_card_and_its_stream(monkeypatch):
+    """``entry(index, *args)`` calls the loaded function with ``(*args,
+    index, stream of index)``, loads it on a miss only (never when
+    declared), and raises naming the entry on a nonzero status."""
+    calls, loads = [], []
+
+    def fn(*args):
+        calls.append(args)
+        return fn.status
+
+    def load(lib, name, spec):
+        loads.append((lib, name, spec))
+        return fn
+
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "raw_stream", lambda index: 1000 + index)
+    entry = _build.Entry("lib", "x_launch", "pi" "ip")
+    assert loads == []
+    fn.status = 0
+    entry(3, 7, 8)
+    assert loads == [("lib", "x_launch", "piip")]
+    _build._entries[entry.key] = fn
+    entry(0, 5, 6)
+    assert calls == [(7, 8, 3, 1003), (5, 6, 0, 1000)] and len(loads) == 1
+    fn.status = 700
+    with pytest.raises(RuntimeError, match="x_launch.*cudaError 700"):
+        entry(1, 7, 8)
+
+
+def test_kernel_wrappers_launch_only_through_entries():
+    """No wrapper loads a C entry or switches cards itself, and no module
+    makes a ``torch.cuda.Stream`` to launch on."""
+    pkg = ROOT / "sparsifyme_tpu_torch"
+    for path in sorted((pkg / "ops").rglob("*.py")) + [
+            pkg / "parallel" / "ring_kernel.py"]:
+        text = path.read_text()
+        assert "_build.load(" not in text, path
+        assert "torch.cuda.device(" not in text, path
+    for path in sorted(pkg.rglob("*.py")):
+        assert "stream_ptr" not in path.read_text(), path
 
 
 def test_dispatch_by_device():

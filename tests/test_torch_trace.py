@@ -262,7 +262,7 @@ def card():
 
 CARD_PHASES = {
     "spmm_24": ["check_wg", "design", "prep", "plan", "alloc", "launch"],
-    "spmm_ell": ["prep", "plan", "alloc", "device_guard", "launch"],
+    "spmm_ell": ["prep", "plan", "alloc", "launch"],
     "pack_wg": ["prep", "alloc", "launch", "bind"],
 }
 

@@ -133,14 +133,21 @@ def test_stale_operand_raises(rng):
 
 
 def test_pack_wg_refuses_what_the_route_cannot_take(rng):
+    """``pack_wg`` raises with ``pack_refusal``'s reason, which the models'
+    set-up asks before it packs."""
+    from sparsifyme_tpu_torch.ops.sparse24 import pack_refusal
+
     a = torch.from_numpy(rng.normal(size=(256, 128)).astype(np.float32))
-    with pytest.raises(ValueError, match="fold"):
-        ts.pack_wg(ts.prune_compress_24(a.to(torch.bfloat16), fold=2))
-    with pytest.raises(ValueError, match="128"):
-        ts.pack_wg(ts.prune_compress_24(a[:200].to(torch.bfloat16)))
-    with pytest.raises(ValueError, match="bf16"):
-        ts.pack_wg(ts.prune_compress_24(a))
+    for bad, match in ((ts.prune_compress_24(a.to(torch.bfloat16), fold=2),
+                        "fold"),
+                       (ts.prune_compress_24(a[:200].to(torch.bfloat16)),
+                        "128"),
+                       (ts.prune_compress_24(a), "bf16")):
+        assert match in pack_refusal(bad)
+        with pytest.raises(ValueError, match=match):
+            ts.pack_wg(bad)
     s = ts.prune_compress_24(a.to(torch.bfloat16))
+    assert pack_refusal(s) is None
     assert s.wg is None and ts.pack_wg(s).wg.packed.shape == (2, 2, 2304)
 
 
