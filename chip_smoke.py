@@ -6,7 +6,7 @@ kernels from ``sparsifyme_tpu_torch/csrc`` with nvcc at first use)
 
 Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
-  2. build the eleven Hopper kernel sources (one nvcc each, in parallel);
+  2. build the twelve Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
      at full ResNet-50 width (b=32) at the six bench shapes: K1 prune (bit
      for bit, also in f32 and as a view at an odd storage offset at
@@ -201,6 +201,12 @@ Phases, each raising on failure:
      split count; the kernels line (step 9) gets six ``spmm_24_wg256``
      entries, at those shapes, with ``graph_ms`` and ``library_graph_ms``,
      launches on path ``mimo``;
+  8d. the MoE combine kernel at MiMo-V2-Flash's shape (32768 tokens, hidden
+     4096, 8 of 256 experts chosen, 32 held; ``bench/moe_combine.py``): one
+     call must move ``moe_combine_cuda.launches`` by one, leave h as it
+     was, and equal the plain version bit for bit on the tokens with at
+     most one held choice and within 1e-6 elsewhere; a ``{"moe_combine":
+     ...}`` line with both device ms and the least time;
   9b. the process path, after the kernels line's measurements (like
      ``profiling_cli`` in step 8, it runs other processes on the card):
      ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
@@ -1860,6 +1866,21 @@ def phase_mimo_path() -> dict:
     return counts
 
 
+def phase_moe_combine() -> dict:
+    """The MoE combine kernel at MiMo-V2-Flash's shape against its plain
+    version, and both device times (step 8d)."""
+    from sparsifyme_tpu_torch.bench import moe_combine
+
+    t0 = time.perf_counter()
+    rec = moe_combine.measure()
+    print(f"  moe_combine       MiMo 32768x4096 top 8 of 256, 32 held      "
+          f"rel_err={rec['rel_err']:.3e} (tol 1e-06); bit for bit on "
+          f"{rec['tokens_one_or_none']} tokens; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"moe_combine": rec}), flush=True)
+    return rec
+
+
 def run_launcher(p: int) -> dict:
     """One ``torch.distributed.run`` job of ``p`` processes running the
     port's entry ``--processes``; rank 0's record. Its process group is
@@ -2516,6 +2537,8 @@ def main() -> int:
     counts["probes"] = phase_probe_path()
     print("mimo path:", flush=True)
     counts["mimo"] = phase_mimo_path()
+    print("moe combine:", flush=True)
+    phase_moe_combine()
     kernels_line = phase_kernel_line(counts)
     print("process path (one rank per process):", flush=True)
     add_path_counts(kernels_line, "procs", phase_process_path())

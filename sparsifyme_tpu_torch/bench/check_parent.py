@@ -84,17 +84,19 @@ def sass_functions(lib: Path) -> Dict[str, str]:
 
 def build_other(root: Path, out: Path) -> None:
     """Compile the other checkout's :data:`LIBS` into ``out``, one ``nvcc``
-    each, in parallel, with this tree's flags."""
+    each, in parallel, with this tree's flags (a library whose source the
+    other checkout lacks is new here, and is skipped)."""
     src = root / "sparsifyme_tpu_torch" / "csrc"
     nvcc = _build.find_nvcc()
+    libs = [name for name in LIBS if (src / f"{name}.cu").exists()]
 
     def one(name):
         return subprocess.run(
             [nvcc, *_build.NVCC_FLAGS, "-I", str(src), "-o",
              str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
             capture_output=True, text=True)
-    with ThreadPoolExecutor(len(LIBS)) as pool:
-        for name, p in zip(LIBS, pool.map(one, LIBS)):
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for name, p in zip(libs, pool.map(one, libs)):
             if p.returncode:
                 raise _build.KernelBuildError(
                     f"nvcc failed on the other {name}.cu:\n{p.stdout}\n"
@@ -104,6 +106,10 @@ def build_other(root: Path, out: Path) -> None:
 def same_sass(other: Path) -> bool:
     ok = True
     for name in LIBS:
+        if not (other / f"lib{name}.so").exists():
+            print(f"SASS {name}: new here, not in the other build",
+                  flush=True)
+            continue
         a = collections.Counter(
             sass_functions(other / f"lib{name}.so").values())
         b = collections.Counter(
@@ -140,6 +146,8 @@ def bitwise(fn: Callable, other: Path, csrc: Path) -> bool:
     new = fn()
     saved = {key: e for key, e in _build._entries.items() if key[0] in LIBS}
     for (name, entry), e in saved.items():
+        if not (other / f"lib{name}.so").exists():
+            continue  # a library the other build does not have
         lib = ctypes.CDLL(str(other / f"lib{name}.so"))
         if not hasattr(lib, entry):
             continue  # an entry the other build does not have

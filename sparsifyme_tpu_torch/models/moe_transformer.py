@@ -38,16 +38,22 @@ The MoE layer is three public steps that :func:`forward` composes:
 :func:`moe_route` (router, selection, tokens grouped by held expert, each
 group padded to a multiple of ``PAD_ROWS`` so that K3's ``wgmma_sp`` route
 takes every call), :func:`moe_experts` (two 2:4 products an expert) and
-:func:`moe_combine` (the weighted scatter back into the residual stream).
-The expert layer gathers and scatters token-major ``[tokens, hidden]``
-rows, each a contiguous run, and turns each expert's rows feature-major
-for its products: on the H100, gathering and scattering columns of the
-feature-major tensors instead (``index_select`` / ``index_add_`` on dim
-1, a strided access a column) took 96 ms of a 323 ms pass, against 44 ms
-for these transposes, the cat and the row scatter. They record one
+:func:`moe_combine` (each token's rows weighted, summed and added to the
+residual stream). The expert layer gathers token-major ``[tokens,
+hidden]`` rows, each a contiguous run, and turns each expert's rows
+feature-major for its products: on the H100, gathering and scattering
+columns of the feature-major tensors instead (``index_select`` /
+``index_add_`` on dim 1, a strided access a column) took 96 ms of a 323
+ms pass, against 44 ms for these transposes, the cat and a scatter of
+rows. On a card the combine is one hand-written kernel
+(:mod:`~..ops.kernels.moe_kernel`) that reads each token's held rows
+through the dispatch's slot map and writes ``h + sum w * y`` in one pass
+over h; on the CPU its plain version scatters the weighted rows into an
+f32 accumulator (``index_add_``) and adds its transpose. They record one
 program span ``sparsifyme.moe`` (phases ``router``, ``select``,
 ``dispatch``, ``experts``, ``combine``) and the counters
-``moe.rows`` / ``moe.pad_rows``; :func:`attention` records
+``moe.rows`` / ``moe.pad_rows`` (and ``moe.combine_kernel``, one a
+kernel launch); :func:`attention` records
 ``sparsifyme.attention`` (``proj``, ``rope``, ``core``, ``out``).
 :func:`attention` and :func:`dense_ffn` enter an optional ``products()``
 context around their 2:4 products, so a caller can time them apart (a
@@ -65,7 +71,9 @@ from typing import (Callable, ContextManager, List, Optional, Tuple,
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from ..containers import Sparse24
+from ..ops.kernels import moe_kernel
 from ..ops.sparse24 import (decompress_24, pack_refusal, pack_wg,
                             prune_compress_24, spmm_24)
 from ..utils import trace
@@ -186,14 +194,17 @@ class Dispatch:
     ``weight[r]`` its routing weight (0 on the padding rows, which repeat
     token 0); held expert e's rows are ``bounds[e]``, ``rows[e]`` of them
     real. ``selected [tokens, top]`` holds every token's chosen experts
-    (of all). ``call`` is the open ``sparsifyme.moe`` record, which
-    :func:`moe_combine` closes."""
+    (of all). ``slot [tokens, top]`` int32 is the inverse map: the row of
+    each (token, choice) whose expert this card holds, -1 where another
+    card holds it; no padding row is named. ``call`` is the open
+    ``sparsifyme.moe`` record, which :func:`moe_combine` closes."""
 
     index: torch.Tensor
     weight: torch.Tensor
     bounds: List[Tuple[int, int]]
     rows: List[int]
     selected: torch.Tensor
+    slot: torch.Tensor
     call: Optional[int] = None
 
 
@@ -494,8 +505,9 @@ def moe_route(p: Moe, h: torch.Tensor, config: MoeTransformerConfig
     scores, the top ``num_experts_per_tok`` of score + bias with their
     scores as weights (over their sum where ``norm_topk_prob``), and the
     (token, expert) pairs of the held experts grouped by expert in token
-    order, each group padded to a multiple of ``PAD_ROWS`` rows. One copy
-    to the host (the group sizes). Opens the ``sparsifyme.moe`` record."""
+    order, each group padded to a multiple of ``PAD_ROWS`` rows, and each
+    held (token, choice)'s row (``Dispatch.slot``). One copy to the host
+    (the group sizes). Opens the ``sparsifyme.moe`` record."""
     call = trace.begin("sparsifyme.moe", "router")
     x = rms_norm(h, p.norm, config.layernorm_epsilon).T.contiguous()
     logits = product_f32(x, p.router.T)  # [tokens, experts]
@@ -526,11 +538,15 @@ def moe_route(p: Moe, h: torch.Tensor, config: MoeTransformerConfig
     index[dest] = first // top
     weight = torch.zeros(total, dtype=torch.float32, device=g.device)
     weight[dest] = w.reshape(-1)[first]
+    slot = torch.full((sel.numel(),), -1, dtype=torch.int32,
+                      device=g.device)
+    slot[first] = dest.to(torch.int32)
     starts = [sum(padded[:e]) for e in range(held)]
     trace.count("moe.rows", real)
     trace.count("moe.pad_rows", total - real)
     bounds = [(s0, s0 + n) for s0, n in zip(starts, padded)]
-    return x, Dispatch(index, weight, bounds, rows, sel, call)
+    return x, Dispatch(index, weight, bounds, rows, sel,
+                       slot.view(sel.shape), call)
 
 
 def moe_experts(p: Moe, x: torch.Tensor, d: Dispatch) -> torch.Tensor:
@@ -552,14 +568,16 @@ def moe_experts(p: Moe, x: torch.Tensor, d: Dispatch) -> torch.Tensor:
 
 def moe_combine(h: torch.Tensor, d: Dispatch, y: torch.Tensor
                 ) -> torch.Tensor:
-    """The MoE layer's last step: ``h`` plus each row of ``y`` times its
-    weight, added at its token (the padding rows add 0). Closes the
-    ``sparsifyme.moe`` record."""
+    """The MoE layer's last step: a new tensor, ``h`` plus each row of
+    ``y`` times its weight, added at its token (the padding rows add 0):
+    the combine kernel through ``d.slot`` on a card, its plain version
+    through ``d.index`` on the CPU. Closes the ``sparsifyme.moe``
+    record."""
     trace.mark("combine")
     try:
-        acc = h.new_zeros((h.shape[1], h.shape[0]))
-        acc.index_add_(0, d.index, y * d.weight[:, None])
-        return h + acc.T
+        if _build.use_kernel(h):
+            return moe_kernel.moe_combine_cuda(h, d.slot, d.weight, y)
+        return moe_kernel.moe_combine_plain(h, d.index, d.weight, y)
     finally:
         if d.call:
             trace.end(d.call)

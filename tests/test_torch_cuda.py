@@ -2266,3 +2266,96 @@ def test_wgmma_sp_enqueue_is_under_its_device_time(gen):
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / 50
     torch.cuda.synchronize()
     assert enqueue_ms < device_ms, (enqueue_ms, device_ms)
+
+
+# --- the MoE combine kernel (ops/kernels/moe_kernel.py) ----------------------
+
+# tokens, hidden, experts, held, top, held experts no token chooses
+COMBINE_SHAPES = [
+    (32768, 4096, 256, 32, 8, ()),  # MiMo-V2-Flash, one card of EP8
+    (100, 256, 16, 4, 4, (1,)),  # tokens off the tile, an empty group
+    (1, 256, 8, 8, 8, ()),  # one token, all eight choices held
+    (130, 264, 16, 3, 2, ()),  # hidden off the tile
+    (200, 256, 16, 16, 12, (5,)),  # twelve held choices a token
+]
+
+
+def _combine_operands(shape):
+    from sparsifyme_tpu_torch.bench import moe_combine as probe
+
+    tokens, hidden, experts, held, top, empty = shape
+    return probe.operands(tokens, hidden, experts, held, top, "cuda",
+                          empty=empty)
+
+
+@pytest.mark.parametrize("shape", COMBINE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:5])))
+def test_moe_combine_kernel(gen, shape):
+    """The kernel against the plain version: bit for bit on every token
+    with at most one held choice, within 1e-6 of the largest value
+    elsewhere (f32 sums in another order), the same on a second call; h
+    left as it was and not the output."""
+    from sparsifyme_tpu_torch.ops.kernels import moe_kernel
+
+    h, d, y = _combine_operands(shape)
+    keep = h.clone()
+    got = moe_kernel.moe_combine_cuda(h, d.slot, d.weight, y)
+    want = moe_kernel.moe_combine_plain(h, d.index, d.weight, y)
+    again = moe_kernel.moe_combine_cuda(h, d.slot, d.weight, y)
+    torch.cuda.synchronize()
+    assert torch.equal(h, keep)
+    assert got.shape == h.shape and got.dtype == torch.float32
+    assert got.data_ptr() != h.data_ptr()
+    assert got.untyped_storage().data_ptr() != h.untyped_storage().data_ptr()
+    held = (d.slot >= 0).sum(1)
+    one = held <= 1
+    assert torch.equal(got[:, one], want[:, one])
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+    assert torch.equal(got, again)
+    for e in shape[5]:
+        assert d.rows[e] == 0
+    if shape[0] == 32768:  # tokens with no, one and several held choices
+        assert {0, 1, 2} <= set(held.clamp(max=2).tolist())
+
+
+def test_moe_combine_counts_its_launches(gen):
+    """Each kernel call moves ``moe_combine_cuda.launches`` and the
+    ``moe.combine_kernel`` counter by one; ``moe_combine`` takes the kernel
+    on a card."""
+    from sparsifyme_tpu_torch.models import moe_transformer as mt
+    from sparsifyme_tpu_torch.ops.kernels import moe_kernel
+    from sparsifyme_tpu_torch.utils import trace
+
+    h, d, y = _combine_operands(COMBINE_SHAPES[1])
+    before = moe_kernel.moe_combine_cuda.launches
+    trace.reset()
+    with trace.recording():
+        got = mt.moe_combine(h, d, y)
+        assert moe_kernel.moe_combine_cuda.launches == before + 1
+        direct = moe_kernel.moe_combine_cuda(h, d.slot, d.weight, y)
+    counters = trace.summary()["counters"]
+    trace.reset()
+    assert moe_kernel.moe_combine_cuda.launches == before + 2
+    assert counters["moe.combine_kernel"] == 2
+    assert torch.equal(got, direct)
+
+
+def test_moe_combine_refuses_what_it_does_not_take(gen):
+    """A non-contiguous or wrongly typed operand raises before any
+    launch."""
+    from sparsifyme_tpu_torch.ops.kernels import moe_kernel
+
+    h, d, y = _combine_operands(COMBINE_SHAPES[1])
+    call = moe_kernel.moe_combine_cuda
+    before = call.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        call(h, d.slot, d.weight, y.T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(h[:, :50], d.slot[:50], d.weight, y)
+    with pytest.raises(TypeError, match="y must be"):
+        call(h, d.slot, d.weight, y.float())
+    with pytest.raises(TypeError, match="slot must be"):
+        call(h, d.slot.long(), d.weight, y)
+    with pytest.raises(ValueError, match="do not agree"):
+        call(h, d.slot, d.weight[:-1], y)
+    assert call.launches == before

@@ -170,6 +170,106 @@ def test_an_expert_that_receives_no_token(small):
     assert _rel(got.T[same], want[same]) < TOL
 
 
+def _routed(small, layer, seed, empty=None):
+    """Layer ``layer``'s MoE on a hidden state of ``seed``: ``(moe, h
+    [hidden, tokens], x, d, y)``; held expert ``empty`` biased below every
+    score, so that no token chooses it."""
+    moe = small.params.layers[layer][1]
+    if empty is not None:
+        bias = moe.bias.clone()
+        bias[small.spec["held_experts"][empty]] = -100.0
+        moe = dataclasses.replace(moe, bias=bias)
+    h = _hidden(seed).T.contiguous()
+    x, d = mt.moe_route(moe, h, small.cfg)
+    return moe, h, x, d, mt.moe_experts(moe, x, d)
+
+
+@pytest.mark.parametrize("layer,empty", [(1, None), (6, None), (2, 1)],
+                         ids=["layer1", "layer6", "empty_group"])
+def test_the_slot_map_names_each_held_choice_row(small, layer, empty):
+    """``Dispatch.slot`` is the inverse of ``index``: each held (token,
+    choice) names a real row of its expert's group whose token is that
+    token and whose weight is that choice's routing weight; -1 exactly
+    where another card holds the expert; every real row named once, no
+    padding row."""
+    moe, h, x, d, _ = _routed(small, layer, 21 + layer, empty)
+    tokens, top = d.selected.shape
+    assert d.slot.shape == (tokens, top) and d.slot.dtype == torch.int32
+    local = moe.local[d.selected]
+    held = local >= 0
+    assert torch.equal(d.slot >= 0, held)
+    rows = d.slot[held].long()
+    token = torch.arange(tokens)[:, None].expand(tokens, top)[held]
+    assert torch.equal(d.index[rows], token)
+    scores = mt.product_f32(x, moe.router.T).sigmoid_()
+    w = scores.gather(1, d.selected)
+    w = w / w.sum(-1, keepdim=True)
+    assert torch.equal(d.weight[rows], w[held])
+    real = torch.cat([torch.arange(s0, s0 + n)
+                      for (s0, _), n in zip(d.bounds, d.rows)])
+    assert torch.equal(rows.sort().values, real)
+    starts = torch.tensor([s0 for s0, _ in d.bounds])
+    ends = starts + torch.tensor(d.rows)
+    assert bool(((rows >= starts[local[held]])
+                 & (rows < ends[local[held]])).all())
+    if empty is not None:
+        assert d.rows[empty] == 0
+    assert {0, 1, 2} <= set(held.sum(1).clamp(max=2).tolist())
+
+
+def _combine_by_slot(h, d, y):
+    """The combine kernel's arithmetic on the CPU: each token's held rows
+    times their weights, each product rounded, summed from zero in choice
+    order, then added to ``h``."""
+    acc = torch.zeros(h.shape[1], h.shape[0])
+    for j in range(d.slot.shape[1]):
+        s = d.slot[:, j].long()
+        on = s >= 0
+        acc[on] += y[s[on]].float() * d.weight[s[on], None]
+    return h + acc.T
+
+
+@pytest.mark.parametrize("layer,empty", [(1, None), (2, 1)],
+                         ids=["layer1", "empty_group"])
+def test_the_plain_combine_is_the_scatter_of_weighted_rows(small, layer,
+                                                          empty):
+    """On the CPU ``moe_combine`` is the scatter formula bit for bit (an f32
+    accumulator, ``index_add_`` of ``y * weight``, its transpose added), in
+    a new tensor, with no kernel launch; the sum through the slot map in
+    choice order, the kernel's arithmetic, gives the same bits on tokens
+    with at most one held choice and agrees within 1e-6 elsewhere."""
+    from sparsifyme_tpu_torch.ops.kernels import moe_kernel
+
+    _, h, _, d, y = _routed(small, layer, 31 + layer, empty)
+    keep, launches = h.clone(), moe_kernel.moe_combine_cuda.launches
+    trace.reset()
+    with trace.recording():
+        got = mt.moe_combine(h, d, y)
+    counters = trace.summary()["counters"]
+    trace.reset()
+    acc = h.new_zeros((h.shape[1], h.shape[0]))
+    acc.index_add_(0, d.index, y * d.weight[:, None])
+    assert torch.equal(got, h + acc.T)
+    assert torch.equal(h, keep) and got.data_ptr() != h.data_ptr()
+    assert "moe.combine_kernel" not in counters
+    assert moe_kernel.moe_combine_cuda.launches == launches
+    by_slot = _combine_by_slot(h, d, y)
+    one = (d.slot >= 0).sum(1) <= 1
+    assert torch.equal(by_slot[:, one], got[:, one])
+    assert float((by_slot - got).abs().max() / got.abs().max()) <= 1e-6
+
+
+def test_the_combine_kernel_needs_a_card():
+    """The kernel's wrapper refuses CPU tensors (``moe_combine`` takes the
+    plain version there)."""
+    from sparsifyme_tpu_torch.ops.kernels import moe_kernel
+
+    h = torch.zeros(8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_kernel.moe_combine_cuda(h, torch.zeros(4, 2, dtype=torch.int32),
+                                    torch.zeros(0), torch.zeros(0, 8))
+
+
 def test_the_window_edge_and_the_sink():
     """Values one-hot by position: query i's output is its attention row.
     It reaches exactly keys i-15..i, and the sink takes exp(s) /

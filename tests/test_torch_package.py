@@ -20,7 +20,8 @@ from sparsifyme_tpu.ops import sparse24 as js
 from sparsifyme_tpu_torch import _build, convert
 from sparsifyme_tpu_torch.bench import fused_probe, units_probe
 from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
-                                              prune_kernel, spmm24_kernel)
+                                              moe_kernel, prune_kernel,
+                                              spmm24_kernel)
 from sparsifyme_tpu_torch.parallel import ring_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -98,7 +99,7 @@ SPEC_TYPES = {"p": r"(const )?void\* \w+", "i": r"int \w+",
 def _declared_entries():
     return {e.name: e
             for mod in (prune_kernel, spmm24_kernel, ell_kernel, coo_kernel,
-                        ring_kernel, units_probe, fused_probe)
+                        moe_kernel, ring_kernel, units_probe, fused_probe)
             for e in vars(mod).values() if isinstance(e, _build.Entry)}
 
 
