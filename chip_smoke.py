@@ -207,6 +207,21 @@ Phases, each raising on failure:
      was, and equal the plain version bit for bit on the tokens with at
      most one held choice and within 1e-6 elsewhere; a ``{"moe_combine":
      ...}`` line with both device ms and the least time;
+  8e. the DeepSeek-V3 path: K3 at DeepSeek-V3's 2:4 products as one card of
+     its TP4/EP32 prefill runs them (``DSV3_SHAPES``: MLA's q_a 1536x7168,
+     kv_a 576x7168, q_b 6144x1536, kv_b 8192x512 and o 7168x4096, the
+     dense FFN's gate_up 36864x7168 and down 7168x18432, the shared
+     expert's gate_up 4096x7168 and down 7168x2048, at n 32768; a routed
+     expert's gate_up and down at n 1024 and 1088), each weight made by
+     ``models.moe_transformer.sparse_weight`` and multiplied by its
+     ``linear``, counters set to 0 just before: at each shape
+     ``spmm24_design`` must give the shape's route (``mma_sp`` for kv_a,
+     whose 576 rows are no whole 128-row tile; else ``wgmma_sp``), and
+     ``wg_plan`` its unit (128 rows for kv_b, 256 elsewhere), the call must
+     move that route's launch count by one and no other K3 count, and its
+     output must be within 2e-2 of the route's plain version
+     (``spmm24_plain`` on the planes, or ``spmm24_wg_plain`` on the packed
+     words); launches on path ``dsv3``;
   9b. the process path, after the kernels line's measurements (like
      ``profiling_cli`` in step 8, it runs other processes on the card):
      ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
@@ -337,10 +352,25 @@ RING_WG_ROUTES = ("pack_wg", "ring_step_wg", "ring_step_wg_tiled")
 MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
 MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
 PATHS = ("bench", "plan", "coo", "ring", "model", "tune", "probes",
-         "mimo", "procs")
-# K3's 256-row unit: no ResNet shape takes it, so only the MiMo path (and
-# not the kernels phase) launches it
+         "mimo", "dsv3", "procs")
+# K3's 256-row unit: no ResNet shape takes it, so only the MiMo and
+# DeepSeek-V3 paths (and not the kernels phase) launch it
 TALL_ROUTE = "spmm_24_wg256"
+# DeepSeek-V3's 2:4 products on one card of its TP4/EP32 prefill (8 x 4096
+# tokens; a held expert's rows at about 1024, padded to 64): (name, M, K,
+# n, the K3 route spmm_24 takes)
+DSV3_SHAPES = [
+    ("q_a", 1536, 7168, 32768, TALL_ROUTE),
+    ("kv_a", 576, 7168, 32768, "spmm_24"),
+    ("q_b", 6144, 1536, 32768, TALL_ROUTE),
+    ("kv_b", 8192, 512, 32768, "spmm_24_wg"),
+    ("o", 7168, 4096, 32768, TALL_ROUTE),
+    ("dense gate_up", 36864, 7168, 32768, TALL_ROUTE),
+    ("dense down", 7168, 18432, 32768, TALL_ROUTE),
+    ("shared gate_up", 4096, 7168, 32768, TALL_ROUTE),
+    ("shared down", 7168, 2048, 32768, TALL_ROUTE),
+    ("expert gate_up", 4096, 7168, 1024, TALL_ROUTE),
+    ("expert down", 7168, 2048, 1088, TALL_ROUTE)]
 # the process path's kernels that must launch on every rank (K1 and K2
 # build its operands where a card prunes and compresses)
 PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled", "ring_step_wg",
@@ -1866,6 +1896,56 @@ def phase_mimo_path() -> dict:
     return counts
 
 
+def phase_dsv3_path() -> dict:
+    """K3 at DeepSeek-V3's 2:4 product shapes, through the model's own
+    weights and products (step 8e)."""
+    from sparsifyme_tpu_torch.models import moe_transformer as mt
+    from sparsifyme_tpu_torch.ops.kernels import spmm24_kernel as k3
+    from sparsifyme_tpu_torch.ops.sparse24 import spmm24_design
+
+    k3_routes = ("spmm_24", "spmm_24_wg", TALL_ROUTE)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    t0 = time.perf_counter()
+    reset_counts()
+    for name, m, k, n, route in DSV3_SHAPES:
+        tag = f"{name} {m}x{k} n {n} bf16"
+        w = mt.sparse_weight(torch.randn((m, k), generator=gen,
+                                         device="cuda").to(torch.bfloat16))
+        b = torch.randn((k, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        design = spmm24_design(w, b, out_dtype=torch.bfloat16)
+        if design != ("mma_sp" if route == "spmm_24" else "wgmma_sp"):
+            raise AssertionError(f"{route} {tag}: spmm24_design gave "
+                                 f"{design}")
+        if design == "wgmma_sp":
+            plan = k3.card_wg_plan(b.get_device(), m, n, k)
+            if (type(plan) is k3.WgTallPlan) != (route == TALL_ROUTE):
+                raise AssertionError(f"{route} {tag}: wg_plan gave {plan}")
+        before = launch_counts()
+        got = mt.linear(w, b)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        moved = {r: after[r] - before[r] for r in k3_routes}
+        want = {"spmm_24": int(design == "mma_sp"),
+                "spmm_24_wg": int(design == "wgmma_sp"),
+                TALL_ROUTE: int(route == TALL_ROUTE)}
+        if moved != want:
+            raise AssertionError(f"{route} {tag}: launches {moved}, not "
+                                 f"{want}")
+        kw = dict(k_logical=k, out_dtype=torch.bfloat16)
+        ref = (k3.spmm24_plain(w.values0, w.values1, w.codes, b, **kw)
+               if design == "mma_sp" else
+               k3.spmm24_wg_plain(w.wg.packed, b, m=m, **kw))
+        close(route, got, ref, torch.bfloat16, f"{tag} ({design})")
+        del w, b, got, ref
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"dsv3 path: {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {r: counts[r] for r in k3_routes} }", flush=True)
+    return counts
+
+
 def phase_moe_combine() -> dict:
     """The MoE combine kernel at MiMo-V2-Flash's shape against its plain
     version, and both device times (step 8d)."""
@@ -2539,6 +2619,8 @@ def main() -> int:
     counts["mimo"] = phase_mimo_path()
     print("moe combine:", flush=True)
     phase_moe_combine()
+    print("dsv3 path:", flush=True)
+    counts["dsv3"] = phase_dsv3_path()
     kernels_line = phase_kernel_line(counts)
     print("process path (one rank per process):", flush=True)
     add_path_counts(kernels_line, "procs", phase_process_path())

@@ -59,7 +59,8 @@ def operands(tokens: int, hidden: int, experts: int, held: int, top: int,
                router=router.mul_(hidden ** -0.5).to(mt.BF16), bias=bias,
                experts=[None] * held, local=local)
     config = SimpleNamespace(layernorm_epsilon=1e-5, norm_topk_prob=True,
-                             num_experts_per_tok=top)
+                             num_experts_per_tok=top, n_group=1,
+                             routed_scaling_factor=None)
     _, d = mt.moe_route(p, h, config)
     y = torch.randn((d.index.shape[0], hidden), generator=g,
                     device=device).to(mt.BF16)

@@ -1,6 +1,8 @@
-"""A mixture-of-experts transformer with hybrid window / full attention
-and 2:4-pruned linear weights (MiMo-V2-Flash's block), as one card's share
-of a layer that several cards divide.
+"""A mixture-of-experts transformer with 2:4-pruned linear weights, as one
+card's share of a layer that several cards divide: MiMo-V2-Flash's block
+(hybrid window / full GQA attention) and DeepSeek-V3's (multi-head latent
+attention, :mod:`.mla`; a group-limited router, a routed scale and a
+shared expert).
 
 Every linear weight of the blocks (q, k, v, o, the dense FFN, each
 expert's gate, up and down) is pruned 2:4 along its input axis and
@@ -32,12 +34,20 @@ One block (pre-norm, RMSNorm without bias)::
   sigmoid scores, the top ``num_experts_per_tok`` of score + correction
   bias, weights the selected scores over their sum, and adds the share of
   the experts this card holds (``held_experts``); the other experts' share
-  is another card's.
+  is another card's. DeepSeek-V3's router first keeps each token's
+  ``topk_group`` of ``n_group`` expert groups (a group's score: the sum
+  of its two highest score + bias) and chooses only among their experts,
+  multiplies the weights by ``routed_scaling_factor``, and the layer adds
+  a shared expert (a SwiGLU ``n_shared_experts`` experts wide) on every
+  token; MiMo's values (1, 1, None, None) leave these out.
 
-The MoE layer is three public steps that :func:`forward` composes:
+The MoE layer is three public steps that :func:`forward` composes, four
+with a shared expert:
 :func:`moe_route` (router, selection, tokens grouped by held expert, each
 group padded to a multiple of ``PAD_ROWS`` so that K3's ``wgmma_sp`` route
-takes every call), :func:`moe_experts` (two 2:4 products an expert) and
+takes every call), where the layer has one :func:`moe_shared` (the shared
+expert's two 2:4 products on every token, feature-major, added to the
+residual stream), :func:`moe_experts` (two 2:4 products an expert) and
 :func:`moe_combine` (each token's rows weighted, summed and added to the
 residual stream). The expert layer gathers token-major ``[tokens,
 hidden]`` rows, each a contiguous run, and turns each expert's rows
@@ -51,13 +61,16 @@ through the dispatch's slot map and writes ``h + sum w * y`` in one pass
 over h; on the CPU its plain version scatters the weighted rows into an
 f32 accumulator (``index_add_``) and adds its transpose. They record one
 program span ``sparsifyme.moe`` (phases ``router``, ``select``,
-``dispatch``, ``experts``, ``combine``) and the counters
+``dispatch``, ``shared``, ``experts``, ``combine``) and the counters
 ``moe.rows`` / ``moe.pad_rows`` (and ``moe.combine_kernel``, one a
-kernel launch); :func:`attention` records
-``sparsifyme.attention`` (``proj``, ``rope``, ``core``, ``out``).
-:func:`attention` and :func:`dense_ffn` enter an optional ``products()``
-context around their 2:4 products, so a caller can time them apart (a
-profiler's range).
+kernel launch; ``moe.shared_rows``, the tokens through a shared expert;
+``moe.group_tokens``, the tokens whose kept groups hold a held expert,
+read in the group sizes' copy); :func:`attention` records
+``sparsifyme.attention`` (``proj``, ``rope``, ``core``, ``out``) and
+:func:`.mla.mla_attention` ``sparsifyme.mla``.
+:func:`attention`, :func:`.mla.mla_attention` and :func:`dense_ffn` enter
+an optional ``products()`` context around their 2:4 products, so a caller
+can time them apart (a profiler's range).
 """
 
 from __future__ import annotations
@@ -87,59 +100,106 @@ WeightFn = Callable[[str, Tuple[int, ...]], torch.Tensor]
 Products = Callable[[], ContextManager]
 
 
+# the fields of MiMo-V2-Flash's GQA attention, which a config without
+# q_lora_rank has to give
+GQA_FIELDS = ("hybrid_layer_pattern", "head_dim", "swa_head_dim",
+              "swa_v_head_dim", "swa_num_attention_heads",
+              "swa_num_key_value_heads", "sliding_window",
+              "add_swa_attention_sink_bias", "add_full_attention_sink_bias",
+              "partial_rotary_factor", "swa_rope_theta",
+              "attention_value_scale")
+
+
 @dataclasses.dataclass(frozen=True)
 class MoeTransformerConfig:
     """Widths and conventions of the model, and what this card holds:
     ``num_attention_heads`` / ``num_key_value_heads`` (and the ``swa_``
     pair of window layers) count the heads held here, ``held_experts``
-    the experts (of ``n_routed_experts`` the router scores)."""
+    the experts (of ``n_routed_experts`` the router scores). The GQA and
+    window fields are MiMo-V2-Flash's; a model with ``q_lora_rank`` set
+    runs multi-head latent attention (:mod:`.mla`) in every layer
+    instead. ``n_group`` 1, ``topk_group`` 1, ``routed_scaling_factor``
+    None and ``n_shared_experts`` None select the router and expert layer
+    without DeepSeek-V3's group limit, scale and shared expert."""
 
     hidden_size: int
     intermediate_size: int
     moe_intermediate_size: int
     vocab_size: int
-    # per layer: 1 a window (SWA) layer, 0 a full-attention layer
-    hybrid_layer_pattern: Tuple[int, ...]
     # per layer: 1 a MoE layer, 0 a dense FFN
     moe_layer_freq: Tuple[int, ...]
-    head_dim: int
-    v_head_dim: int
-    swa_head_dim: int
-    swa_v_head_dim: int
     num_attention_heads: int
     num_key_value_heads: int
-    swa_num_attention_heads: int
-    swa_num_key_value_heads: int
+    v_head_dim: int
     n_routed_experts: int
     held_experts: Tuple[int, ...]
     num_experts_per_tok: int
     norm_topk_prob: bool
-    sliding_window: int
-    add_swa_attention_sink_bias: bool
-    add_full_attention_sink_bias: bool
-    partial_rotary_factor: float
     rope_theta: float
-    swa_rope_theta: float
-    attention_value_scale: float
     layernorm_epsilon: float
+    # GQA (every field required where q_lora_rank is None): per layer 1 a
+    # window (SWA) layer, 0 a full-attention layer
+    hybrid_layer_pattern: Optional[Tuple[int, ...]] = None
+    head_dim: Optional[int] = None
+    swa_head_dim: Optional[int] = None
+    swa_v_head_dim: Optional[int] = None
+    swa_num_attention_heads: Optional[int] = None
+    swa_num_key_value_heads: Optional[int] = None
+    sliding_window: Optional[int] = None
+    add_swa_attention_sink_bias: Optional[bool] = None
+    add_full_attention_sink_bias: Optional[bool] = None
+    partial_rotary_factor: Optional[float] = None
+    swa_rope_theta: Optional[float] = None
+    attention_value_scale: Optional[float] = None
+    # the router's group limit: the experts fall in n_group equal groups
+    # and a token chooses only in the topk_group of highest group score
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: Optional[float] = None  # times the weights
+    # a shared expert of n_shared_experts experts' width, on every token
+    n_shared_experts: Optional[int] = None
+    # multi-head latent attention where q_lora_rank is set (models/mla.py;
+    # the three widths then required)
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: Optional[int] = None
+    qk_rope_head_dim: Optional[int] = None
+    # YaRN's keys of the source's ``rope_scaling``, as (key, value) pairs
+    rope_scaling: Optional[Tuple[Tuple[str, Union[float, str]], ...]] = None
+
+    def __post_init__(self):
+        mla_kind = self.q_lora_rank is not None
+        need = ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim") \
+            if mla_kind else GQA_FIELDS
+        missing = [n for n in need if getattr(self, n) is None]
+        if missing:
+            raise ValueError(
+                f"{'multi-head latent' if mla_kind else 'GQA'} attention "
+                f"needs {', '.join(missing)}")
+        if not mla_kind and \
+                len(self.hybrid_layer_pattern) != len(self.moe_layer_freq):
+            raise ValueError("hybrid_layer_pattern and moe_layer_freq give "
+                             "different numbers of layers")
 
     @property
     def num_hidden_layers(self) -> int:
-        return len(self.hybrid_layer_pattern)
+        return len(self.moe_layer_freq)
 
     @classmethod
     def from_dict(cls, keys: dict, **over) -> "MoeTransformerConfig":
         """From a dict with the source's ``config.json`` keys (others are
-        ignored), lists as tuples; ``over`` sets fields besides."""
+        ignored), lists as tuples and dicts as sorted (key, value) pairs;
+        ``over`` sets fields besides."""
         names = {f.name for f in dataclasses.fields(cls)}
-        got = {k: tuple(v) if isinstance(v, list) else v
+        got = {k: tuple(v) if isinstance(v, list) else
+               tuple(sorted(v.items())) if isinstance(v, dict) else v
                for k, v in keys.items() if k in names}
         got.update(over)
         return cls(**got)
 
     def attention_shape(self, layer: int):
         """``(heads, kv heads, qk dim, v dim, window, sink, rope theta)``
-        of layer ``layer`` (window 0: full attention)."""
+        of GQA layer ``layer`` (window 0: full attention)."""
         if self.hybrid_layer_pattern[layer]:
             return (self.swa_num_attention_heads,
                     self.swa_num_key_value_heads, self.swa_head_dim,
@@ -163,6 +223,8 @@ class Attention:
     window: int  # 0: full attention
     rope_theta: float
 
+    PRODUCTS = ("q", "k", "v", "o")  # its 2:4 weights
+
 
 @dataclasses.dataclass
 class DenseFfn:
@@ -178,12 +240,14 @@ class Moe:
     bias: torch.Tensor  # [n_routed_experts] float32 correction bias
     experts: List[Tuple[Linear, Linear]]  # per held expert: gate_up, down
     local: torch.Tensor  # [n_routed_experts] int64: held index, or -1
+    shared: Optional[Tuple[Linear, Linear]] = None  # gate_up, down
 
 
 @dataclasses.dataclass
 class Params:
     embed: torch.Tensor  # [vocab, hidden] bf16
-    layers: List[Tuple[Attention, Union[DenseFfn, Moe]]]
+    # each layer's attention block (an Attention, or .mla.Mla) and FFN
+    layers: List[Tuple[object, Union[DenseFfn, Moe]]]
     norm: torch.Tensor
     head: torch.Tensor  # [vocab, hidden] bf16
 
@@ -197,7 +261,10 @@ class Dispatch:
     (of all). ``slot [tokens, top]`` int32 is the inverse map: the row of
     each (token, choice) whose expert this card holds, -1 where another
     card holds it; no padding row is named. ``call`` is the open
-    ``sparsifyme.moe`` record, which :func:`moe_combine` closes."""
+    ``sparsifyme.moe`` record, which :func:`moe_combine` closes.
+    ``normed`` is the layer's normed input feature-major ``[hidden,
+    tokens]`` bf16 where the layer has a shared expert, until
+    :func:`moe_shared` takes it."""
 
     index: torch.Tensor
     weight: torch.Tensor
@@ -206,6 +273,7 @@ class Dispatch:
     selected: torch.Tensor
     slot: torch.Tensor
     call: Optional[int] = None
+    normed: Optional[torch.Tensor] = None
 
 
 # --- set-up ----------------------------------------------------------------
@@ -228,49 +296,56 @@ def weight_shape(config: MoeTransformerConfig, name: str
     if name == "norm":
         return (hid,)
     layer, part = name.split(".", 1)
+    if part.startswith("e") or part.startswith("shared."):
+        kind, proj = part.split(".")
+        part = ("shared_" if kind == "shared" else "expert_") + proj
+    if c.q_lora_rank is not None:
+        from . import mla  # it imports this module
+        if part in mla.SHAPES:
+            return mla.weight_shape(c, part)
+    shared = c.moe_intermediate_size * (c.n_shared_experts or 0)
+    ffn = {"attn_norm": (hid,), "ffn_norm": (hid,),
+           "gate": (c.intermediate_size, hid),
+           "up": (c.intermediate_size, hid),
+           "down": (hid, c.intermediate_size),
+           "router": (c.n_routed_experts, hid),
+           "router_bias": (c.n_routed_experts,),
+           "expert_gate": (c.moe_intermediate_size, hid),
+           "expert_up": (c.moe_intermediate_size, hid),
+           "expert_down": (hid, c.moe_intermediate_size),
+           "shared_gate": (shared, hid), "shared_up": (shared, hid),
+           "shared_down": (hid, shared)}
+    if part in ffn:
+        return ffn[part]
     heads, kv, dqk, dv, _, _, _ = c.attention_shape(int(layer))
-    if part.startswith("e"):
-        part = "expert_" + part.split(".")[1]
-    return {"attn_norm": (hid,), "ffn_norm": (hid,), "q": (heads * dqk, hid),
-            "k": (kv * dqk, hid), "v": (kv * dv, hid),
-            "o": (hid, heads * dv), "sinks": (heads,),
-            "gate": (c.intermediate_size, hid),
-            "up": (c.intermediate_size, hid),
-            "down": (hid, c.intermediate_size),
-            "router": (c.n_routed_experts, hid),
-            "router_bias": (c.n_routed_experts,),
-            "expert_gate": (c.moe_intermediate_size, hid),
-            "expert_up": (c.moe_intermediate_size, hid),
-            "expert_down": (hid, c.moe_intermediate_size)}[part]
+    return {"q": (heads * dqk, hid), "k": (kv * dqk, hid),
+            "v": (kv * dv, hid), "o": (hid, heads * dv),
+            "sinks": (heads,)}[part]
 
 
 def init_params(config: MoeTransformerConfig, weight: WeightFn) -> Params:
     """The model's parameters from ``weight(name, shape)``, one dense bf16
     tensor at a time (names ``embed``, ``head``, ``norm`` and, per layer
     ``i``, ``i.attn_norm``, ``i.q``, ``i.k``, ``i.v``, ``i.o``, ``i.sinks``
-    (window layers), ``i.ffn_norm``, then ``i.gate`` / ``i.up`` /
-    ``i.down`` or ``i.router``, ``i.router_bias`` and ``i.e<expert>.gate``
-    / ``.up`` / ``.down`` for each held expert; shapes by
-    :func:`weight_shape`): each product's weight pruned, compressed and
-    packed (:func:`sparse_weight`), gate and up stacked first; norms,
-    sinks, the router and its bias, the embedding and the head as given
-    (bias and sinks float32). Each dense weight is dropped once
-    prepared."""
+    (window layers) or MLA's (:func:`.mla.init_mla`), ``i.ffn_norm``, then
+    ``i.gate`` / ``i.up`` / ``i.down`` or ``i.router``, ``i.router_bias``,
+    ``i.e<expert>.gate`` / ``.up`` / ``.down`` for each held expert and
+    ``i.shared.gate`` / ``.up`` / ``.down`` where the layer has a shared
+    expert; shapes by :func:`weight_shape`): each product's weight pruned,
+    compressed and packed (:func:`sparse_weight`), gate and up stacked
+    first; norms, sinks, the router and its bias, the embedding and the
+    head as given (bias and sinks float32). Each dense weight is dropped
+    once prepared."""
     def w(name):
         return weight(name, weight_shape(config, name))
 
     def fused(gate, up):
         return sparse_weight(torch.cat([w(gate), w(up)]))
 
+    init_attn, _ = attention_kind(config)
     layers = []
     for i in range(config.num_hidden_layers):
-        heads, kv, _, _, window, sink, theta = config.attention_shape(i)
-        attn = Attention(
-            norm=w(f"{i}.attn_norm"), q=sparse_weight(w(f"{i}.q")),
-            k=sparse_weight(w(f"{i}.k")), v=sparse_weight(w(f"{i}.v")),
-            o=sparse_weight(w(f"{i}.o")),
-            sinks=w(f"{i}.sinks").float() if sink else None,
-            heads=heads, kv_heads=kv, window=window, rope_theta=theta)
+        attn = init_attn(config, w, i)
         if config.moe_layer_freq[i]:
             router = w(f"{i}.router")
             local = torch.full((config.n_routed_experts,), -1,
@@ -283,6 +358,9 @@ def init_params(config: MoeTransformerConfig, weight: WeightFn) -> Params:
                                 sparse_weight(w(f"{i}.e{e}.down")))
                                for e in config.held_experts],
                       local=local)
+            if config.n_shared_experts:
+                ffn.shared = (fused(f"{i}.shared.gate", f"{i}.shared.up"),
+                              sparse_weight(w(f"{i}.shared.down")))
         else:
             ffn = DenseFfn(norm=w(f"{i}.ffn_norm"),
                            gate_up=fused(f"{i}.gate", f"{i}.up"),
@@ -290,6 +368,33 @@ def init_params(config: MoeTransformerConfig, weight: WeightFn) -> Params:
         layers.append((attn, ffn))
     return Params(embed=w("embed"), layers=layers, norm=w("norm"),
                   head=w("head"))
+
+
+def init_attention(config: MoeTransformerConfig,
+                   w: Callable[[str], torch.Tensor], layer: int) -> Attention:
+    """Layer ``layer``'s GQA block from ``w(name)`` (the dense weight of
+    that name and its shape): q, k, v and o through :func:`sparse_weight`,
+    the sinks float32 where the layer has them."""
+    i = layer
+    heads, kv, _, _, window, sink, theta = config.attention_shape(i)
+    return Attention(
+        norm=w(f"{i}.attn_norm"), q=sparse_weight(w(f"{i}.q")),
+        k=sparse_weight(w(f"{i}.k")), v=sparse_weight(w(f"{i}.v")),
+        o=sparse_weight(w(f"{i}.o")),
+        sinks=w(f"{i}.sinks").float() if sink else None,
+        heads=heads, kv_heads=kv, window=window, rope_theta=theta)
+
+
+def attention_kind(config: MoeTransformerConfig):
+    """``(init, step)`` of the configuration's attention block: MiMo's GQA
+    (:func:`init_attention`, :func:`attention`), or multi-head latent
+    attention (:func:`.mla.init_mla`, :func:`.mla.mla_attention`) where
+    ``q_lora_rank`` is set. Each block's dataclass names its 2:4 weights
+    in ``PRODUCTS``."""
+    if config.q_lora_rank is None:
+        return init_attention, attention
+    from . import mla  # it imports this module
+    return mla.init_mla, mla.mla_attention
 
 
 def densify(params: Params) -> Params:
@@ -300,11 +405,12 @@ def densify(params: Params) -> Params:
 
     layers = []
     for attn, ffn in params.layers:
-        attn = dataclasses.replace(attn, q=d(attn.q), k=d(attn.k),
-                                   v=d(attn.v), o=d(attn.o))
+        attn = dataclasses.replace(attn, **{n: d(getattr(attn, n))
+                                            for n in attn.PRODUCTS})
         if isinstance(ffn, Moe):
+            shared = ffn.shared and tuple(d(x) for x in ffn.shared)
             ffn = dataclasses.replace(ffn, experts=[
-                (d(gu), d(dn)) for gu, dn in ffn.experts])
+                (d(gu), d(dn)) for gu, dn in ffn.experts], shared=shared)
         else:
             ffn = dataclasses.replace(ffn, gate_up=d(ffn.gate_up),
                                       down=d(ffn.down))
@@ -369,16 +475,16 @@ def rope(y: torch.Tensor, theta: float, rot: int) -> torch.Tensor:
     return y
 
 
-def full_attention(q, k, v) -> torch.Tensor:
+def full_attention(q, k, v, scale: float) -> torch.Tensor:
     """Causal GQA: ``q [B, heads, S, d]``, ``k [B, kv, S, d]``, ``v [B, kv,
-    S, dv]`` bf16 to ``[B, heads, S, dv]`` bf16, scale ``d ** -0.5``."""
+    S, dv]`` bf16 to ``[B, heads, S, dv]`` bf16, softmax scale ``scale``."""
     b, heads, s, d = q.shape
     g = heads // k.shape[1]
     k = k[:, :, None].expand(-1, -1, g, -1, -1).reshape(b, heads, s, d)
     v = v[:, :, None].expand(-1, -1, g, -1, -1).reshape(
         b, heads, s, v.shape[-1])
     return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                          scale=d ** -0.5)
+                                          scale=scale)
 
 
 @functools.lru_cache(maxsize=16)
@@ -467,7 +573,7 @@ def attention(p: Attention, h: torch.Tensor, config: MoeTransformerConfig,
         if p.window:
             o = window_attention(q, k, v, p.sinks, p.window)
         else:
-            o = full_attention(q, k, v)
+            o = full_attention(q, k, v, q.shape[-1] ** -0.5)
         trace.mark("out")
         o = o.permute(1, 3, 0, 2).reshape(-1, h.shape[1])
         with products():
@@ -506,25 +612,47 @@ def moe_route(p: Moe, h: torch.Tensor, config: MoeTransformerConfig
     scores as weights (over their sum where ``norm_topk_prob``), and the
     (token, expert) pairs of the held experts grouped by expert in token
     order, each group padded to a multiple of ``PAD_ROWS`` rows, and each
-    held (token, choice)'s row (``Dispatch.slot``). One copy to the host
-    (the group sizes). Opens the ``sparsifyme.moe`` record."""
+    held (token, choice)'s row (``Dispatch.slot``). With ``n_group`` > 1
+    a token chooses only among the experts of its ``topk_group`` groups
+    of highest score (:func:`group_limit`); ``routed_scaling_factor``
+    multiplies the weights. One copy to the host (the group sizes, and,
+    while someone measures, the ``moe.group_tokens`` count with them).
+    Opens the ``sparsifyme.moe`` record."""
     call = trace.begin("sparsifyme.moe", "router")
-    x = rms_norm(h, p.norm, config.layernorm_epsilon).T.contiguous()
+    normed = rms_norm(h, p.norm, config.layernorm_epsilon)
+    x = normed.T.contiguous()
+    if p.shared is None:
+        normed = None
     logits = product_f32(x, p.router.T)  # [tokens, experts]
     trace.mark("select")
     scores = logits.sigmoid_()
     top = config.num_experts_per_tok
-    sel = torch.topk(scores + p.bias, top, dim=-1).indices  # [tokens, top]
+    biased = scores + p.bias
+    reach = None
+    if config.n_group > 1:
+        biased, kept = group_limit(biased, config.n_group,
+                                   config.topk_group)
+        if call is not None:  # counted only while someone measures
+            held_group = (p.local.view(config.n_group, -1) >= 0).any(-1)
+            reach = (kept & held_group).any(-1).sum()
+    sel = torch.topk(biased, top, dim=-1).indices  # [tokens, top]
     w = scores.gather(1, sel)
     if config.norm_topk_prob:
         w = w / w.sum(-1, keepdim=True)
+    if config.routed_scaling_factor is not None:
+        w = w * config.routed_scaling_factor
     trace.mark("dispatch")
     held = len(p.experts)
     group = p.local[sel].reshape(-1)
     group = torch.where(group < 0, held, group)  # the others: a last group
     order = torch.argsort(group, stable=True)
     counts = torch.bincount(group, minlength=held + 1)
-    rows = counts.tolist()[:held]
+    if reach is None:
+        rows = counts.tolist()[:held]
+    else:
+        host = torch.cat([counts, reach.view(1)]).tolist()
+        rows = host[:held]
+        trace.count("moe.group_tokens", host[-1])
     real = sum(rows)
     padded = [-(-r // PAD_ROWS) * PAD_ROWS for r in rows]
     total = sum(padded)
@@ -546,7 +674,37 @@ def moe_route(p: Moe, h: torch.Tensor, config: MoeTransformerConfig
     trace.count("moe.pad_rows", total - real)
     bounds = [(s0, s0 + n) for s0, n in zip(starts, padded)]
     return x, Dispatch(index, weight, bounds, rows, sel,
-                       slot.view(sel.shape), call)
+                       slot.view(sel.shape), call, normed)
+
+
+def group_limit(biased: torch.Tensor, groups: int, keep: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's group limit on ``biased [tokens, experts]`` (score +
+    bias): the experts fall in ``groups`` equal groups in id order, a
+    group's score is the sum of its two highest, and every expert outside
+    a token's ``keep`` groups of highest score is set to -inf, as the
+    source's inference code masks them. Returns the masked scores and the
+    kept groups ``[tokens, groups]`` bool."""
+    t = biased.shape[0]
+    by_group = biased.view(t, groups, -1)
+    score = by_group.topk(2, dim=-1).values.sum(-1)
+    kept = torch.zeros_like(score, dtype=torch.bool).scatter_(
+        1, score.topk(keep, dim=-1).indices, True)
+    masked = by_group.masked_fill(~kept[..., None], float("-inf"))
+    return masked.view(t, -1), kept
+
+
+def moe_shared(p: Moe, h: torch.Tensor, d: Dispatch) -> torch.Tensor:
+    """The shared expert's step, between :func:`moe_route` and the
+    combine: a new tensor, ``h`` plus the shared expert's SwiGLU of the
+    layer's normed input (``d.normed``, which it drops), feature-major,
+    on every token (counted by ``moe.shared_rows``)."""
+    trace.mark("shared")
+    gate_up, down = p.shared
+    x, d.normed = d.normed, None
+    y = linear(down, swiglu(linear(gate_up, x)))
+    trace.count("moe.shared_rows", y.shape[1])
+    return h + y
 
 
 def moe_experts(p: Moe, x: torch.Tensor, d: Dispatch) -> torch.Tensor:
@@ -600,11 +758,14 @@ def forward(params: Params, ids: torch.Tensor,
     every token ``[hidden, batch * seq]`` and the last position's logits
     ``[batch, vocab]``."""
     batch = ids.shape[0]
+    _, attend = attention_kind(config)
     h = embed(params, ids)
     for attn, ffn in params.layers:
-        h = attention(attn, h, config, batch)
+        h = attend(attn, h, config, batch)
         if isinstance(ffn, Moe):
             x, d = moe_route(ffn, h, config)
+            if ffn.shared is not None:
+                h = moe_shared(ffn, h, d)
             h = moe_combine(h, d, moe_experts(ffn, x, d))
         else:
             h = dense_ffn(ffn, h, config)

@@ -429,3 +429,101 @@ def test_the_shares_of_eight_cards_add_up_to_the_whole_layer():
         assert _rel(port_attn, want_attn.T) < TOL
         assert int((~same).sum()) <= 2
         assert _rel(port_moe.T[same], want_moe[same]) < TOL
+
+
+def test_mimos_keys_select_the_router_without_group_or_scale(small,
+                                                             monkeypatch):
+    """MiMo's configuration file gives n_group 1, topk_group 1 and no
+    routed scale or shared expert, which the port reads and which select
+    today's path: the group limit is never called, the choice is the top-k
+    of score + bias over every expert, the weights the chosen scores over
+    their sum, no normed input is kept for a shared step and no group
+    count is read."""
+    import json
+    from pathlib import Path
+
+    config = json.loads((Path(__file__).resolve().parents[1] / "perfbench"
+                         / "configs" / "mimo-v2-flash-ep8.json").read_text())
+    cfg = mimo24.model_config(config)
+    assert (cfg.n_group, cfg.topk_group, cfg.routed_scaling_factor,
+            cfg.n_shared_experts, cfg.q_lora_rank) == (1, 1, None, None,
+                                                       None)
+    assert (small.cfg.n_group, small.cfg.routed_scaling_factor) == (1, None)
+    moe = small.params.layers[3][1]
+    assert moe.shared is None
+
+    def refused(*args):
+        raise AssertionError("MiMo's router took the group limit")
+
+    monkeypatch.setattr(mt, "group_limit", refused)
+    h = _hidden(12).T.contiguous()
+    trace.reset()
+    with trace.recording():
+        x, d = mt.moe_route(moe, h, small.cfg)
+        mt.moe_combine(h, d, mt.moe_experts(moe, x, d))
+    counters = trace.summary()["counters"]
+    trace.reset()
+    assert "moe.group_tokens" not in counters
+    assert "moe.shared_rows" not in counters
+    assert d.normed is None
+    scores = mt.product_f32(x, moe.router.T).sigmoid_()
+    assert torch.equal(d.selected,
+                       torch.topk(scores + moe.bias, 4, dim=-1).indices)
+    w = scores.gather(1, d.selected)
+    w = w / w.sum(-1, keepdim=True)
+    held = d.slot >= 0
+    assert torch.equal(d.weight[d.slot[held].long()], w[held])
+
+
+def _mimo_file_without(key):
+    import json
+    from pathlib import Path
+
+    config = json.loads((Path(__file__).resolve().parents[1] / "perfbench"
+                         / "configs" / "mimo-v2-flash-ep8.json").read_text())
+    del config[key]
+    return mimo24.model_config(config)
+
+
+@pytest.mark.parametrize("case", ["file_without_head_dim", "no_sink_flag",
+                                  "pattern_short", "mla_without_widths"])
+def test_a_config_missing_its_attention_keys_is_refused(small, case):
+    """The attention kind that a configuration selects has to be whole: a
+    GQA one (no ``q_lora_rank``) every key of ``GQA_FIELDS`` and a
+    window pattern a layer, an MLA one its three widths; one left out
+    raises instead of building a block of width 0."""
+    cfg = small.cfg
+    make, match = {
+        "file_without_head_dim": (lambda: _mimo_file_without("head_dim"),
+                                  "GQA attention needs head_dim"),
+        "no_sink_flag": (lambda: dataclasses.replace(
+            cfg, add_swa_attention_sink_bias=None),
+            "needs add_swa_attention_sink_bias"),
+        "pattern_short": (lambda: dataclasses.replace(
+            cfg, hybrid_layer_pattern=cfg.hybrid_layer_pattern[:-1]),
+            "different numbers of layers"),
+        "mla_without_widths": (lambda: dataclasses.replace(
+            cfg, q_lora_rank=8),
+            "multi-head latent attention needs kv_lora_rank, "
+            "qk_nope_head_dim, qk_rope_head_dim"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        make()
+    assert dataclasses.replace(cfg) == cfg  # the whole one is taken
+
+
+def test_full_attention_takes_the_callers_scale():
+    """``full_attention`` scales the scores by the scale it is given (MLA
+    passes YaRN's, GQA ``d ** -0.5``): causal softmax of q k^T * scale."""
+    g = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn((1, 2, 16, 8), generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    seen = torch.ones(16, 16, dtype=torch.bool).tril()
+    for scale in (8 ** -0.5, 0.9):
+        got = mt.full_attention(q, k, v, scale).float()
+        s = (q.float() @ k.float().transpose(-1, -2)) * scale
+        want = torch.softmax(s.masked_fill(~seen, float("-inf")), -1) @ \
+            v.float()
+        assert (got - want).abs().max() < 2e-2
+    assert (mt.full_attention(q, k, v, 0.9)
+            - mt.full_attention(q, k, v, 0.1)).abs().max() > 0.1
