@@ -6,7 +6,7 @@ kernels from ``sparsifyme_tpu_torch/csrc`` with nvcc at first use)
 
 Phases, each raising on failure:
   1. print the card (nvidia-smi name and power limit, torch's name);
-  2. build the twelve Hopper kernel sources (one nvcc each, in parallel);
+  2. build the thirteen Hopper kernel sources (one nvcc each, in parallel);
   3. hold every kernel route against its plain PyTorch version on the card,
      at full ResNet-50 width (b=32) at the six bench shapes: K1 prune (bit
      for bit, also in f32 and as a view at an odd storage offset at
@@ -222,6 +222,13 @@ Phases, each raising on failure:
      output must be within 2e-2 of the route's plain version
      (``spmm24_plain`` on the planes, or ``spmm24_wg_plain`` on the packed
      words); launches on path ``dsv3``;
+  8f. the RMSNorm kernel at the model cells' six norm calls at 32768
+     tokens (``bench/rms_norm.py``: hidden 4096 and 7168 float32 in the
+     layouts their callers ask for, the bf16 latents at 1536 and 512): each
+     call must move ``rms_norm_cuda.launches`` by one, leave h as it was,
+     repeat bit for bit and lie within one bf16 ulp of the plain version;
+     one ``{"rms_norm": ...}`` line a shape with the kernel's and the plain
+     version's device ms and the least time;
   9b. the process path, after the kernels line's measurements (like
      ``profiling_cli`` in step 8, it runs other processes on the card):
      ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
@@ -1961,6 +1968,22 @@ def phase_moe_combine() -> dict:
     return rec
 
 
+def phase_rms_norm() -> list:
+    """The RMSNorm kernel at the model cells' norm shapes against its plain
+    version, and both device times (step 8f)."""
+    from sparsifyme_tpu_torch.bench import rms_norm
+
+    recs = rms_norm.measure()
+    for rec in recs:
+        print(f"  rms_norm          {rec['hidden']}x{rec['tokens']} "
+              f"{rec['dtype']:8s} {rec['layouts']:13s} "
+              f"ulps={rec['max_ulps']} (tol 1); {rec['ms']:.4f} ms, "
+              f"least {rec['least_ms']:.4f}, plain {rec['plain_ms']:.4f}",
+              flush=True)
+        print(json.dumps({"rms_norm": rec}), flush=True)
+    return recs
+
+
 def run_launcher(p: int) -> dict:
     """One ``torch.distributed.run`` job of ``p`` processes running the
     port's entry ``--processes``; rank 0's record. Its process group is
@@ -2621,6 +2644,8 @@ def main() -> int:
     phase_moe_combine()
     print("dsv3 path:", flush=True)
     counts["dsv3"] = phase_dsv3_path()
+    print("rms norm:", flush=True)
+    phase_rms_norm()
     kernels_line = phase_kernel_line(counts)
     print("process path (one rank per process):", flush=True)
     add_path_counts(kernels_line, "procs", phase_process_path())

@@ -189,9 +189,9 @@ def mla_attention(p: Mla, h: torch.Tensor, config, batch: int,
         x = mt.rms_norm(h, p.norm, eps)
         with products():
             cq, ckv = mt.linear(p.q_a, x), mt.linear(p.kv_a, x)
-        cq = mt.rms_norm(cq.float(), p.q_a_norm, eps)
+        cq = mt.rms_norm(cq, p.q_a_norm, eps)
         trace.mark("kv_latent")
-        ckv_n = mt.rms_norm(ckv[:lat].float(), p.kv_a_norm, eps)
+        ckv_n = mt.rms_norm(ckv[:lat], p.kv_a_norm, eps)
         with products():
             q, kv = mt.linear(p.q_b, cq), mt.linear(p.kv_b, ckv_n)
         trace.mark("rope")

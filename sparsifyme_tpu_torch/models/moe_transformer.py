@@ -59,7 +59,11 @@ rows. On a card the combine is one hand-written kernel
 (:mod:`~..ops.kernels.moe_kernel`) that reads each token's held rows
 through the dispatch's slot map and writes ``h + sum w * y`` in one pass
 over h; on the CPU its plain version scatters the weighted rows into an
-f32 accumulator (``index_add_``) and adds its transpose. They record one
+f32 accumulator (``index_add_``) and adds its transpose. Every RMSNorm is
+one launch of the norm kernel on a card (:mod:`~..ops.kernels.
+norm_kernel`: h read once, bf16 written feature-major, token-major for
+the expert layer's rows, or both; counter ``norm.kernel``), four float32
+PyTorch ops on the CPU. They record one
 program span ``sparsifyme.moe`` (phases ``router``, ``select``,
 ``dispatch``, ``shared``, ``experts``, ``combine``) and the counters
 ``moe.rows`` / ``moe.pad_rows`` (and ``moe.combine_kernel``, one a
@@ -86,7 +90,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..containers import Sparse24
-from ..ops.kernels import moe_kernel
+from ..ops.kernels import moe_kernel, norm_kernel
 from ..ops.sparse24 import (decompress_24, pack_refusal, pack_wg,
                             prune_compress_24, spmm_24)
 from ..utils import trace
@@ -440,11 +444,29 @@ def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(h: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm of feature-major float32 ``h [hidden, tokens]`` by weight
-    ``w [hidden]``, bf16 out."""
-    ms = torch.linalg.vector_norm(h, dim=0, keepdim=True).square_().div_(
-        h.shape[0])
-    return (h * ms.add_(eps).rsqrt_()).mul_(w.float()[:, None]).to(BF16)
+    """RMSNorm of feature-major ``h [hidden, tokens]`` (float32, or a bf16
+    latent) by weight ``w [hidden]``, bf16 ``[hidden, tokens]`` out."""
+    return rms_norm_layouts(h, w, eps, True, False)[0]
+
+
+def rms_norm_layouts(h: torch.Tensor, w: torch.Tensor, eps: float,
+                     feature: bool, token: bool
+                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """:func:`rms_norm` in the layouts its reader wants: ``(x, x_t)``, ``x
+    [hidden, tokens]`` where ``feature``, ``x_t = x.T`` contiguous
+    ``[tokens, hidden]`` where ``token``, else None. On a card one launch of
+    the norm kernel writes both from one read of h (counted by
+    ``norm.kernel``); on the CPU the plain version runs on h in float32 and
+    ``x_t`` is its transpose."""
+    if _build.use_kernel(h):
+        x = torch.empty(h.shape, dtype=BF16, device=h.device) \
+            if feature else None
+        x_t = torch.empty((h.shape[1], h.shape[0]), dtype=BF16,
+                          device=h.device) if token else None
+        norm_kernel.rms_norm_cuda(h, w, eps, x, x_t)
+        return x, x_t
+    x = norm_kernel.rms_norm_plain(h.float(), w, eps)
+    return (x if feature else None), (x.T.contiguous() if token else None)
 
 
 @functools.lru_cache(maxsize=16)
@@ -619,10 +641,8 @@ def moe_route(p: Moe, h: torch.Tensor, config: MoeTransformerConfig
     while someone measures, the ``moe.group_tokens`` count with them).
     Opens the ``sparsifyme.moe`` record."""
     call = trace.begin("sparsifyme.moe", "router")
-    normed = rms_norm(h, p.norm, config.layernorm_epsilon)
-    x = normed.T.contiguous()
-    if p.shared is None:
-        normed = None
+    normed, x = rms_norm_layouts(h, p.norm, config.layernorm_epsilon,
+                                 p.shared is not None, True)
     logits = product_f32(x, p.router.T)  # [tokens, experts]
     trace.mark("select")
     scores = logits.sigmoid_()

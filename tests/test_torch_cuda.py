@@ -14,9 +14,10 @@ logical ranks of one
 card (P = 1, 2, 3, 4, 8), the sharded SpMMs, the rings' capacity credits
 under a delayed rank, and the rings' CUDA graphs (replay bitwise the eager
 ring, operands read at replay time, launch counts, no capture across
-cards); and the model layer: both conv layers at a ragged shape, the ELL
+cards); the model layer: both conv layers at a ragged shape, the ELL
 layer's gradient, three dp x tp train steps and the entry points on the
-card against the CPU.
+card against the CPU; and the MoE transformer's combine and RMSNorm
+kernels against their plain versions.
 
 These tests need a CUDA card and skip without one. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -2358,4 +2359,127 @@ def test_moe_combine_refuses_what_it_does_not_take(gen):
         call(h, d.slot.long(), d.weight, y)
     with pytest.raises(ValueError, match="do not agree"):
         call(h, d.slot, d.weight[:-1], y)
+    assert call.launches == before
+
+
+# --- the RMSNorm kernel (ops/kernels/norm_kernel.py) -------------------------
+
+# hidden and input dtype of the model cells' norms (bench/rms_norm.py)
+NORM_WIDTHS = [(512, torch.bfloat16), (1536, torch.bfloat16),
+               (4096, torch.float32), (7168, torch.float32)]
+NORM_LAYOUTS = [(True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("hidden,dtype", NORM_WIDTHS + [
+    (512, torch.float32), (7168, torch.bfloat16), (264, torch.float32)],
+    ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("tokens", [32768, 1000, 37])
+@pytest.mark.parametrize("feature,token", NORM_LAYOUTS,
+                         ids=["feature", "token", "both"])
+def test_rms_norm_kernel(gen, hidden, dtype, tokens, feature, token):
+    """The kernel against its plain version at the model's widths (and
+    float32 at 512, bf16 at 7168, 264 off every block's width), at 32768
+    tokens, at 1000 (no whole number of strips) and at 37 (no whole
+    16-byte chunk: element by element): every element within one bf16 ulp
+    (the f32 sum is taken in another order), the same bits on a second
+    call, h left as it was, both layouts the same values."""
+    from sparsifyme_tpu_torch.bench import rms_norm as probe
+    from sparsifyme_tpu_torch.ops.kernels import norm_kernel
+
+    h, w = probe.operands(hidden, tokens, dtype, "cuda")
+    keep = h.clone()
+    got = probe.outputs(h, feature, token)
+    norm_kernel.rms_norm_cuda(h, w, probe.EPS, *got)
+    again = probe.outputs(h, feature, token)
+    norm_kernel.rms_norm_cuda(h, w, probe.EPS, *again)
+    want = probe.plain(h, w, feature, token)
+    torch.cuda.synchronize()
+    assert torch.equal(h, keep)
+    for g, a, p in zip(got, again, want):
+        assert (g is None) == (p is None)
+        if p is not None:
+            assert probe.ulps(g, p) <= 1
+            assert torch.equal(g, a)
+    if feature and token:
+        assert torch.equal(got[0].T, got[1])
+
+
+def test_rms_norm_kernel_reads_an_unaligned_h(gen):
+    """h at an odd storage offset (no 16-byte chunk aligned) is read
+    element by element and gives the aligned h's bits."""
+    from sparsifyme_tpu_torch.bench import rms_norm as probe
+    from sparsifyme_tpu_torch.ops.kernels import norm_kernel
+
+    h, w = probe.operands(512, 1024, torch.float32, "cuda")
+    odd = torch.empty(h.numel() + 1, device="cuda")[1:].view(h.shape)
+    odd.copy_(h)
+    assert odd.data_ptr() % 16
+    outs = [probe.outputs(h, True, True) for _ in range(2)]
+    norm_kernel.rms_norm_cuda(h, w, probe.EPS, *outs[0])
+    norm_kernel.rms_norm_cuda(odd, w, probe.EPS, *outs[1])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_rms_norm_counts_its_launches(gen, monkeypatch):
+    """Each kernel call moves ``rms_norm_cuda.launches`` and the
+    ``norm.kernel`` counter by one, whatever its layouts; on a card the
+    model's norms take the kernel and never the plain version, and
+    ``rms_norm_layouts`` gives the kernel's bits in each layout."""
+    from sparsifyme_tpu_torch.bench import rms_norm as probe
+    from sparsifyme_tpu_torch.models import moe_transformer as mt
+    from sparsifyme_tpu_torch.ops.kernels import norm_kernel
+    from sparsifyme_tpu_torch.utils import trace
+
+    def refuse(*args):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(norm_kernel, "rms_norm_plain", refuse)
+    h, w = probe.operands(4096, 1000, torch.float32, "cuda")
+    before = norm_kernel.rms_norm_cuda.launches
+    trace.reset()
+    with trace.recording():
+        x = mt.rms_norm(h, w, probe.EPS)
+        x2, x_t = mt.rms_norm_layouts(h, w, probe.EPS, True, True)
+        y, y_t = mt.rms_norm_layouts(h, w, probe.EPS, False, True)
+    counters = trace.summary()["counters"]
+    trace.reset()
+    assert norm_kernel.rms_norm_cuda.launches == before + 3
+    assert counters["norm.kernel"] == 3
+    assert y is None and torch.equal(x, x2)
+    assert torch.equal(x_t, x.T) and torch.equal(y_t, x_t)
+
+
+def test_rms_norm_refuses_what_it_does_not_take(gen):
+    """A wrongly typed, non-contiguous or mis-shaped operand, hidden not a
+    multiple of 8 or past the widest plan, and a call asking for no layout
+    raise before any launch."""
+    from sparsifyme_tpu_torch.bench import rms_norm as probe
+    from sparsifyme_tpu_torch.ops.kernels import norm_kernel
+
+    call = norm_kernel.rms_norm_cuda
+    h, w = probe.operands(512, 64, torch.float32, "cuda")
+    out, out_t = probe.outputs(h, True, True)
+    before = call.launches
+    with pytest.raises(TypeError, match="h must be"):
+        call(h.half(), w, 1e-6, out)
+    with pytest.raises(TypeError, match="w must be"):
+        call(h, w.float(), 1e-6, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(h.T.contiguous().T, w, 1e-6, out)
+    with pytest.raises(ValueError, match="w must have shape"):
+        call(h, w[:-8], 1e-6, out)
+    with pytest.raises(ValueError, match="out_t must have shape"):
+        call(h, w, 1e-6, None, out)
+    with pytest.raises(ValueError, match="bf16"):
+        call(h, w, 1e-6, out.float())
+    with pytest.raises(ValueError, match="give out"):
+        call(h, w, 1e-6)
+    h12, _ = probe.operands(12, 64, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="hidden % 8"):
+        call(h12, torch.ones(12, dtype=torch.bfloat16, device="cuda"),
+             1e-6, torch.empty_like(h12, dtype=torch.bfloat16))
+    wide, _ = probe.operands(9224, 8, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="9216"):
+        call(wide, torch.ones(9224, dtype=torch.bfloat16, device="cuda"),
+             1e-6, torch.empty_like(wide, dtype=torch.bfloat16))
     assert call.launches == before

@@ -289,6 +289,29 @@ def test_the_whole_forward_matches_the_reference(small):
                      .float().mean()) < 0.05
 
 
+def test_a_pass_norms_its_latents_as_they_are(small, monkeypatch):
+    """DeepSeek-V3's forward: three norms in each MLA block (the input in
+    float32, the q and kv latents in bf16, with no float32 copy), one in
+    the dense FFN or the router, the final one (45 at the cell's 11
+    layers); the router asks for both layouts (the shared expert reads the
+    feature-major one), every other norm for the feature-major one."""
+    calls, real = [], mt.rms_norm_layouts
+
+    def spy(h, w, eps, feature, token):
+        calls.append((h.dtype, h.shape[0], feature, token))
+        return real(h, w, eps, feature, token)
+    monkeypatch.setattr(mt, "rms_norm_layouts", spy)
+    mt.forward(small.params, small.ids, small.cfg)
+    layers = len(small.params.layers)
+    moe = sum(isinstance(f, mt.Moe) for _, f in small.params.layers)
+    assert len(calls) == 4 * layers + 1
+    assert calls.count((torch.bfloat16, 1536, True, False)) == layers
+    assert calls.count((torch.bfloat16, 512, True, False)) == layers
+    assert calls.count((torch.float32, 256, True, True)) == moe
+    assert calls.count((torch.float32, 256, True, False)) == \
+        2 * layers + 1 - moe
+
+
 def test_the_routes_pass_is_the_models_forward(small):
     """The route's pass gives the model's two outputs, then what each of
     the 3 MoE layers added to the residual stream."""

@@ -270,6 +270,113 @@ def test_the_combine_kernel_needs_a_card():
                                     torch.zeros(0), torch.zeros(0, 8))
 
 
+def _four_ops(h, w, eps):
+    """The model's RMSNorm before the norm kernel: a float32 norm, two
+    float32 multiplies and the cast."""
+    ms = torch.linalg.vector_norm(h, dim=0, keepdim=True).square_().div_(
+        h.shape[0])
+    return (h * ms.add_(eps).rsqrt_()).mul_(w.float()[:, None]).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feature,token", [(True, False), (False, True),
+                                           (True, True)],
+                         ids=["feature", "token", "both"])
+def test_the_plain_norm_is_the_four_float32_ops(dtype, feature, token):
+    """On the CPU every layout is the four float32 ops bit for bit (a bf16
+    latent taken to float32 first, as the callers did), the token-major
+    one their transpose, contiguous; no launch and no ``norm.kernel``
+    count; ``rms_norm`` is the feature-major layout."""
+    from sparsifyme_tpu_torch.ops.kernels import norm_kernel
+
+    g = torch.Generator().manual_seed(5)
+    h = (torch.randn((264, 100), generator=g) * 3).to(dtype)
+    w = (1 + 0.2 * torch.randn(264, generator=g)).to(torch.bfloat16)
+    want = _four_ops(h.float(), w, 1e-6)
+    keep, launches = h.clone(), norm_kernel.rms_norm_cuda.launches
+    trace.reset()
+    with trace.recording():
+        x, x_t = mt.rms_norm_layouts(h, w, 1e-6, feature, token)
+    counters = trace.summary()["counters"]
+    trace.reset()
+    assert "norm.kernel" not in counters
+    assert norm_kernel.rms_norm_cuda.launches == launches
+    assert torch.equal(h, keep)
+    assert (x is None) != feature and (x_t is None) != token
+    if feature:
+        assert x.dtype == torch.bfloat16 and torch.equal(x, want)
+    if token:
+        assert x_t.is_contiguous() and torch.equal(x_t, want.T)
+    assert torch.equal(mt.rms_norm(h, w, 1e-6), want)
+
+
+@pytest.mark.parametrize("hidden,itemsize,token,plan", [
+    (4096, 4, False, (8, 512)), (4096, 4, True, (8, 512)),
+    (7168, 4, False, (13, 576)), (7168, 4, True, (14, 512)),
+    (1536, 2, False, (6, 256)), (512, 2, False, (2, 256)),
+    (7168, 2, True, (16, 448)), (2056, 4, False, (7, 320)),
+    (8, 4, False, (1, 64)), (9216, 4, False, (16, 576))])
+def test_the_norm_plan_covers_hidden(hidden, itemsize, token, plan):
+    """``norm_plan``: blocks of a multiple of 64 rows, as few a cluster as
+    cover ``hidden`` once 8 would take more rows than a block's shared
+    memory holds (its 128 bytes a row and, for out_t, two tiles, within
+    75 KB, so that three share an SM), the rows spread evenly; one block
+    fewer would not cover ``hidden``."""
+    from sparsifyme_tpu_torch.ops.kernels import norm_kernel
+
+    cluster, rows = norm_kernel.norm_plan(hidden, itemsize, token)
+    assert (cluster, rows) == plan
+    assert rows % 64 == 0 and cluster <= norm_kernel.MAX_CLUSTER
+    tiles = 2 * 64 * (128 // itemsize) * 2 if token else 0
+    assert 128 * rows + tiles <= norm_kernel.BLOCK_BYTES
+    assert (cluster - 1) * rows < hidden <= cluster * rows
+
+
+def test_the_norm_kernel_refuses_what_no_plan_holds():
+    """Past 16 blocks of the most rows a block holds no cluster holds the
+    hidden size (8192 with out_t in float32, 9216 without), and the
+    kernel's wrapper refuses CPU tensors (the model takes the plain version
+    there)."""
+    from sparsifyme_tpu_torch.ops.kernels import norm_kernel
+
+    assert norm_kernel.norm_plan(8192, 4, True) == (16, 512)
+    with pytest.raises(ValueError, match="8192"):
+        norm_kernel.norm_plan(8200, 4, True)
+    with pytest.raises(ValueError, match="9216"):
+        norm_kernel.norm_plan(9224, 4, False)
+    h, w = torch.zeros(8, 4), torch.ones(8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        norm_kernel.rms_norm_cuda(h, w, 1e-6, torch.empty(
+            8, 4, dtype=torch.bfloat16))
+
+
+def _norm_calls(monkeypatch):
+    """Record each norm's (input dtype, hidden, feature, token)."""
+    calls, real = [], mt.rms_norm_layouts
+
+    def spy(h, w, eps, feature, token):
+        calls.append((h.dtype, h.shape[0], feature, token))
+        return real(h, w, eps, feature, token)
+    monkeypatch.setattr(mt, "rms_norm_layouts", spy)
+    return calls
+
+
+def test_a_pass_norms_twice_a_layer_and_once_more(small, monkeypatch):
+    """MiMo's forward: one norm in each attention block, one in the dense
+    FFN or the router, the final one (27 at the cell's 13 layers); the
+    router asks for the token-major layout alone (no shared expert reads
+    the feature-major one), every other norm for the feature-major one."""
+    calls = _norm_calls(monkeypatch)
+    mt.forward(small.params, small.ids, small.cfg)
+    layers = len(small.params.layers)
+    moe = sum(isinstance(f, mt.Moe) for _, f in small.params.layers)
+    assert len(calls) == 2 * layers + 1
+    assert calls.count((torch.float32, 256, False, True)) == moe
+    assert calls.count((torch.float32, 256, True, False)) == \
+        2 * layers + 1 - moe
+
+
 def test_the_window_edge_and_the_sink():
     """Values one-hot by position: query i's output is its attention row.
     It reaches exactly keys i-15..i, and the sink takes exp(s) /
