@@ -229,6 +229,27 @@ Phases, each raising on failure:
      repeat bit for bit and lie within one bf16 ulp of the plain version;
      one ``{"rms_norm": ...}`` line a shape with the kernel's and the plain
      version's device ms and the least time;
+  8g. Kimi Delta Attention's kernels at Kimi Linear's prefill
+     (``bench/kda.py``): the recurrence at 8 sequences of 4096 tokens, 32
+     heads of 128, strong and weak decays, and at 8 of 128 with weak ones:
+     each call must move ``kda_chunk_cuda.launches`` by one, repeat bit for
+     bit and lie within ``TOL`` 6e-3 (relative) of the plain chunked form
+     in float64, and within ``ROUNDED_TOL`` of that form rounded to bf16,
+     where the plain form with its state rounded to bf16 each chunk must
+     not (at weak decays); the conv (12288 rows, 8192 L2-normed), decay and
+     gated norm kernels (4096 rows) at 32768 tokens in 8 sequences must
+     each move its ``launches`` by one and lie within ``GLUE_TOL`` of its
+     plain version; one ``{"kda": ...}`` line with every reading, the
+     recurrence's ms, each launch's device ms, the least time and the plain
+     form's ms;
+  8h. the Kimi Linear path: K3 at Kimi Linear's eleven 2:4 product shapes
+     (``KIMI_SHAPES``, hidden 2304: KDA's qkv 12288x2304, o 2304x4096,
+     MLA's q 6144x2304, kv_a 576x2304 and kv_b 8192x512, the dense FFN's
+     18432x2304 and 2304x9216, the shared expert's two at n 32768, a
+     routed expert's 2048x2304 and 2304x1024 at n 1024 and 1088), checked
+     as step 8e checks DeepSeek-V3's (kv_a on ``mma_sp``, kv_b and the
+     routed experts on the 128-row unit, the rest on the 256-row unit);
+     launches on path ``kimi``;
   9b. the process path, after the kernels line's measurements (like
      ``profiling_cli`` in step 8, it runs other processes on the card):
      ``python -m torch.distributed.run --standalone --nproc-per-node=P -m
@@ -359,7 +380,7 @@ RING_WG_ROUTES = ("pack_wg", "ring_step_wg", "ring_step_wg_tiled")
 MODEL_CONV_ROUTES = ("prune_nm", "compress_24", "spmm_24", "spmm_ell")
 MODEL_MLP_ROUTES = ("prune_nm", "compress_24", "spmm_24")
 PATHS = ("bench", "plan", "coo", "ring", "model", "tune", "probes",
-         "mimo", "dsv3", "procs")
+         "mimo", "dsv3", "kimi", "procs")
 # K3's 256-row unit: no ResNet shape takes it, so only the MiMo and
 # DeepSeek-V3 paths (and not the kernels phase) launch it
 TALL_ROUTE = "spmm_24_wg256"
@@ -378,6 +399,21 @@ DSV3_SHAPES = [
     ("shared down", 7168, 2048, 32768, TALL_ROUTE),
     ("expert gate_up", 4096, 7168, 1024, TALL_ROUTE),
     ("expert down", 7168, 2048, 1088, TALL_ROUTE)]
+# Kimi Linear's 2:4 products on one card of its DP8/EP8 prefill (8 x 4096
+# tokens, hidden 2304: 18 m-tiles, 2.25 bands; a held expert's rows at
+# about 1024): (name, M, K, n, the K3 route spmm_24 takes)
+KIMI_SHAPES = [
+    ("kda qkv", 12288, 2304, 32768, TALL_ROUTE),
+    ("kda and mla o", 2304, 4096, 32768, TALL_ROUTE),
+    ("mla q", 6144, 2304, 32768, TALL_ROUTE),
+    ("kv_a", 576, 2304, 32768, "spmm_24"),
+    ("kv_b", 8192, 512, 32768, "spmm_24_wg"),
+    ("dense gate_up", 18432, 2304, 32768, TALL_ROUTE),
+    ("dense down", 2304, 9216, 32768, TALL_ROUTE),
+    ("shared gate_up", 2048, 2304, 32768, TALL_ROUTE),
+    ("shared down", 2304, 1024, 32768, TALL_ROUTE),
+    ("expert gate_up", 2048, 2304, 1024, "spmm_24_wg"),
+    ("expert down", 2304, 1024, 1088, "spmm_24_wg")]
 # the process path's kernels that must launch on every rank (K1 and K2
 # build its operands where a card prunes and compresses)
 PROCESS_MUST = ("spmm_24", "ring_step", "ring_step_tiled", "ring_step_wg",
@@ -1903,18 +1939,21 @@ def phase_mimo_path() -> dict:
     return counts
 
 
-def phase_dsv3_path() -> dict:
-    """K3 at DeepSeek-V3's 2:4 product shapes, through the model's own
-    weights and products (step 8e)."""
+def phase_k3_model_path(path: str, shapes, seed: int) -> dict:
+    """K3 at a model's 2:4 product shapes ``shapes`` (name, M, K, n, the
+    route), through the model's own weights and products: each call must
+    take its route and its unit, move that route's launch count by one and
+    no other K3 count, and lie within 2e-2 of the route's plain version;
+    launches on path ``path``."""
     from sparsifyme_tpu_torch.models import moe_transformer as mt
     from sparsifyme_tpu_torch.ops.kernels import spmm24_kernel as k3
     from sparsifyme_tpu_torch.ops.sparse24 import spmm24_design
 
     k3_routes = ("spmm_24", "spmm_24_wg", TALL_ROUTE)
-    gen = torch.Generator(device="cuda").manual_seed(26)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     reset_counts()
-    for name, m, k, n, route in DSV3_SHAPES:
+    for name, m, k, n, route in shapes:
         tag = f"{name} {m}x{k} n {n} bf16"
         w = mt.sparse_weight(torch.randn((m, k), generator=gen,
                                          device="cuda").to(torch.bfloat16))
@@ -1948,9 +1987,19 @@ def phase_dsv3_path() -> dict:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     counts = launch_counts()
-    print(f"dsv3 path: {time.perf_counter() - t0:.1f} s; launches "
+    print(f"{path} path: {time.perf_counter() - t0:.1f} s; launches "
           f"{ {r: counts[r] for r in k3_routes} }", flush=True)
     return counts
+
+
+def phase_dsv3_path() -> dict:
+    """K3 at DeepSeek-V3's 2:4 product shapes (step 8e)."""
+    return phase_k3_model_path("dsv3", DSV3_SHAPES, 26)
+
+
+def phase_kimi_path() -> dict:
+    """K3 at Kimi Linear's 2:4 product shapes (step 8h)."""
+    return phase_k3_model_path("kimi", KIMI_SHAPES, 28)
 
 
 def phase_moe_combine() -> dict:
@@ -1982,6 +2031,45 @@ def phase_rms_norm() -> list:
               flush=True)
         print(json.dumps({"rms_norm": rec}), flush=True)
     return recs
+
+
+def phase_kda() -> dict:
+    """Kimi Delta Attention's recurrence kernel at Kimi Linear's prefill
+    against its plain chunked form in float64 (and a bf16 state refused by
+    the same tolerance), its three glue kernels against their plain
+    versions at the model's shapes, the recurrence's device time beside
+    its least time and the plain form's (step 8g)."""
+    from sparsifyme_tpu_torch.bench import kda
+
+    rec = kda.measure()
+    print(json.dumps({"kda": rec}), flush=True)  # the readings, pass or fail
+    cases = ("", "weak_", "short_")
+    for case in cases:
+        rel, rounded = rec[case + "rel_err"], rec[case + "rounded_err"]
+        if not (rel < kda.TOL and rounded < kda.ROUNDED_TOL):
+            raise AssertionError(f"kda {case or 'strong_'}: {rel:.2e} / "
+                                 f"{rounded:.2e} beyond the rounding, from "
+                                 f"the plain form")
+    for case in ("weak_", "short_"):
+        state16 = rec[case + "state_bf16_rounded_err"]
+        if not state16 > kda.ROUNDED_TOL:
+            raise AssertionError(f"kda {case}: a bf16 state reads "
+                                 f"{state16:.2e}, within the tolerance")
+    for name, (rel, _) in rec["glue_rel_err"].items():
+        if not rel < kda.GLUE_TOL[name]:
+            raise AssertionError(f"kda_{name}: {rel:.2e} from its plain "
+                                 f"version")
+    print(f"  kda               {rec['batch']}x{rec['seq']}x{rec['heads']} "
+          f"rel {rec['rel_err']:.2e} (tol {kda.TOL:g}), beyond bf16 "
+          + " / ".join(f"{rec[c + 'rounded_err']:.2e}" for c in cases)
+          + f" (tol {kda.ROUNDED_TOL:g}; a bf16 state "
+          f"{rec['weak_state_bf16_rounded_err']:.2e}); {rec['ms']:.3f} ms, "
+          f"least {rec['least_ms']:.3f}, plain {rec['plain_ms']:.1f}",
+          flush=True)
+    print("  kda glue          " + ", ".join(
+        f"{n} {r[0]:.2e} (tol {kda.GLUE_TOL[n]:g})"
+        for n, r in rec["glue_rel_err"].items()), flush=True)
+    return rec
 
 
 def run_launcher(p: int) -> dict:
@@ -2646,6 +2734,10 @@ def main() -> int:
     counts["dsv3"] = phase_dsv3_path()
     print("rms norm:", flush=True)
     phase_rms_norm()
+    print("kda recurrence:", flush=True)
+    phase_kda()
+    print("kimi path:", flush=True)
+    counts["kimi"] = phase_kimi_path()
     kernels_line = phase_kernel_line(counts)
     print("process path (one rank per process):", flush=True)
     add_path_counts(kernels_line, "procs", phase_process_path())

@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("prune_nm", "compress24", "spmm24", "ell_spmm", "ell_expand",
            "coo_spmm", "ring24", "ring24_wg", "sp24_units",
-           "sp24_wg_units", "compress_units", "moe_combine", "rms_norm")
+           "sp24_wg_units", "compress_units", "moe_combine", "rms_norm",
+           "kda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"

@@ -15,6 +15,13 @@ kv latent ``kv_lora_rank`` 512, per head ``qk_nope_head_dim`` 128 and
     q = [q_nope, rope(q_pe)],  k = [k_nope, rope(k_pe)]
     out = W_o concat(softmax(q k^T * scale, causal) v)
 
+Two forms that a configuration selects (Kimi Linear's NoPE layers take
+both): where ``q_lora_rank`` is None, q is one product ``[q_nope|q_pe] =
+W_q x`` in place of the latent, its norm and ``W_qb``
+(:data:`PRODUCTS_NO_Q_LATENT`); where ``mla_use_nope`` is set, nothing is
+rotated (:func:`uses_rope`) and ``k_pe`` joins every head's key as it
+comes.
+
 This is the prefill's decompressed form: k and v per head, q and k 192
 wide and v 128 through ``scaled_dot_product_attention``, as
 :func:`.moe_transformer.full_attention` runs MiMo's full layers. Decode's
@@ -42,7 +49,8 @@ the q_a and kv_a products, the q latent's norm), ``kv_latent`` (the kv
 latent's norm, the q_b and kv_b products), ``rope`` (heads split, RoPE,
 k assembled), ``core`` and ``out`` (the o product and the residual add),
 and enters ``products()`` around its three groups of 2:4 products (q_a
-with kv_a; q_b with kv_b; o).
+with kv_a; q_b with kv_b; o; without a q latent: q with kv_a; kv_b; o).
+The phases keep their names in both forms.
 """
 
 from __future__ import annotations
@@ -60,22 +68,28 @@ from . import moe_transformer as mt
 
 # the block's 2:4 weights, and the parts whose shapes are MLA's own
 PRODUCTS = ("q_a", "q_b", "kv_a", "kv_b", "o")
-SHAPES = PRODUCTS + ("q_a_norm", "kv_a_norm")
+PRODUCTS_NO_Q_LATENT = ("q", "kv_a", "kv_b", "o")  # q_lora_rank None
+SHAPES = PRODUCTS + ("q", "q_a_norm", "kv_a_norm")
 
 
 @dataclasses.dataclass
 class Mla:
     norm: torch.Tensor  # [hidden]
-    q_a: mt.Linear  # [q_lora_rank, hidden]
-    q_a_norm: torch.Tensor  # [q_lora_rank]
-    q_b: mt.Linear  # [heads * (nope + rope), q_lora_rank]
+    q_a: Optional[mt.Linear]  # [q_lora_rank, hidden]
+    q_a_norm: Optional[torch.Tensor]  # [q_lora_rank]
+    q_b: Optional[mt.Linear]  # [heads * (nope + rope), q_lora_rank]
     kv_a: mt.Linear  # [kv_lora_rank + rope, hidden]: c_kv rows, then k_pe
     kv_a_norm: torch.Tensor  # [kv_lora_rank]
     kv_b: mt.Linear  # [heads * (nope + v), kv_lora_rank]: per head k_nope, v
     o: mt.Linear  # [hidden, heads * v]
     heads: int
+    # [heads * (nope + rope), hidden] without a q latent (q_a, q_a_norm and
+    # q_b then None)
+    q: Optional[mt.Linear] = None
 
-    PRODUCTS = PRODUCTS  # its 2:4 weights, as moe_transformer's blocks
+    # its 2:4 weights, as moe_transformer's blocks (those of the other form
+    # are None)
+    PRODUCTS = PRODUCTS + ("q",)
 
 
 def weight_shape(config, part: str) -> Tuple[int, ...]:
@@ -85,19 +99,37 @@ def weight_shape(config, part: str) -> Tuple[int, ...]:
     return {"q_a": (c.q_lora_rank, hid),
             "q_a_norm": (c.q_lora_rank,),
             "q_b": (heads * (nope + rot), c.q_lora_rank),
+            "q": (heads * (nope + rot), hid),
             "kv_a": (c.kv_lora_rank + rot, hid),
             "kv_a_norm": (c.kv_lora_rank,),
             "kv_b": (heads * (nope + c.v_head_dim), c.kv_lora_rank),
             "o": (hid, heads * c.v_head_dim)}[part]
 
 
+def products(config) -> Tuple[str, ...]:
+    """The 2:4 weights of the configuration's form: :data:`PRODUCTS`, or
+    :data:`PRODUCTS_NO_Q_LATENT` where ``q_lora_rank`` is None."""
+    return PRODUCTS if config.q_lora_rank is not None else \
+        PRODUCTS_NO_Q_LATENT
+
+
+def uses_rope(config) -> bool:
+    """Whether the rope dims of q and k are rotated: not where
+    ``mla_use_nope`` is set."""
+    return not config.mla_use_nope
+
+
 def init_mla(config, w: Callable[[str], torch.Tensor], layer: int) -> Mla:
     """Layer ``layer``'s block from ``w(name)``, a dense bf16 tensor of
     :func:`weight_shape`'s shape (names ``<layer>.<part>``): the products
     pruned, compressed and packed one at a time, the norms as given."""
-    sparse = {n: mt.sparse_weight(w(f"{layer}.{n}")) for n in PRODUCTS}
+    sparse = {n: mt.sparse_weight(w(f"{layer}.{n}"))
+              for n in products(config)}
+    if config.q_lora_rank is None:
+        sparse.update(q_a=None, q_a_norm=None, q_b=None)
+    else:
+        sparse["q_a_norm"] = w(f"{layer}.q_a_norm")
     return Mla(norm=w(f"{layer}.attn_norm"),
-               q_a_norm=w(f"{layer}.q_a_norm"),
                kv_a_norm=w(f"{layer}.kv_a_norm"),
                heads=config.num_attention_heads, **sparse)
 
@@ -179,7 +211,9 @@ def mla_attention(p: Mla, h: torch.Tensor, config, batch: int,
     """``h + MLA(RMSNorm(h))`` for ``batch`` sequences of equal length,
     ``h [hidden, tokens]`` float32: the heads this card holds, the output
     projection's partial sum. ``products()`` is entered around the 2:4
-    products (q_a, kv_a; q_b, kv_b; o)."""
+    products (q_a, kv_a; q_b, kv_b; o; without a q latent q, kv_a; kv_b;
+    o). Without a q latent q is one product; with ``mla_use_nope`` nothing
+    is rotated."""
     call = trace.begin("sparsifyme.mla", "q_latent")
     try:
         eps = config.layernorm_epsilon
@@ -187,23 +221,33 @@ def mla_attention(p: Mla, h: torch.Tensor, config, batch: int,
         lat, t = config.kv_lora_rank, h.shape[1]
         seq = t // batch
         x = mt.rms_norm(h, p.norm, eps)
+        latent = p.q is None
         with products():
-            cq, ckv = mt.linear(p.q_a, x), mt.linear(p.kv_a, x)
-        cq = mt.rms_norm(cq, p.q_a_norm, eps)
+            q, ckv = (mt.linear(p.q_a if latent else p.q, x),
+                      mt.linear(p.kv_a, x))
+        if latent:
+            q = mt.rms_norm(q, p.q_a_norm, eps)
         trace.mark("kv_latent")
         ckv_n = mt.rms_norm(ckv[:lat], p.kv_a_norm, eps)
         with products():
-            q, kv = mt.linear(p.q_b, cq), mt.linear(p.kv_b, ckv_n)
+            if latent:
+                q = mt.linear(p.q_b, q)
+            kv = mt.linear(p.kv_b, ckv_n)
         trace.mark("rope")
-        cos, sin = _yarn_table(seq, rot, float(config.rope_theta),
-                               config.rope_scaling, str(h.device))
+        rotate = uses_rope(config)
+        if rotate:
+            cos, sin = _yarn_table(seq, rot, float(config.rope_theta),
+                                   config.rope_scaling, str(h.device))
         q = mt.split_heads(q, p.heads, batch)  # [B, heads, S, nope + rope]
-        rope_pairs(q[..., nope:], cos, sin)
+        if rotate:
+            rope_pairs(q[..., nope:], cos, sin)
         kv = kv.view(p.heads, -1, batch, seq).permute(2, 0, 3, 1)
         k = torch.empty_like(q)
         k[..., :nope] = kv[..., :nope]
         k_pe = ckv[lat:].view(rot, batch, seq).permute(1, 2, 0).contiguous()
-        k[..., nope:] = rope_pairs(k_pe, cos, sin)[:, None]
+        if rotate:
+            k_pe = rope_pairs(k_pe, cos, sin)
+        k[..., nope:] = k_pe[:, None]
         v = kv[..., nope:].contiguous()
         trace.mark("core")
         o = mt.full_attention(q, k, v, softmax_scale(config))

@@ -1,8 +1,10 @@
 """A mixture-of-experts transformer with 2:4-pruned linear weights, as one
 card's share of a layer that several cards divide: MiMo-V2-Flash's block
-(hybrid window / full GQA attention) and DeepSeek-V3's (multi-head latent
+(hybrid window / full GQA attention), DeepSeek-V3's (multi-head latent
 attention, :mod:`.mla`; a group-limited router, a routed scale and a
-shared expert).
+shared expert) and Kimi Linear's (Kimi Delta Attention, :mod:`.kda`, in
+the layers that ``linear_attn_config`` names, NoPE MLA without a q latent
+in the others; the router and shared expert of DeepSeek-V3's).
 
 Every linear weight of the blocks (q, k, v, o, the dense FFN, each
 expert's gate, up and down) is pruned 2:4 along its input axis and
@@ -70,11 +72,12 @@ program span ``sparsifyme.moe`` (phases ``router``, ``select``,
 kernel launch; ``moe.shared_rows``, the tokens through a shared expert;
 ``moe.group_tokens``, the tokens whose kept groups hold a held expert,
 read in the group sizes' copy); :func:`attention` records
-``sparsifyme.attention`` (``proj``, ``rope``, ``core``, ``out``) and
-:func:`.mla.mla_attention` ``sparsifyme.mla``.
-:func:`attention`, :func:`.mla.mla_attention` and :func:`dense_ffn` enter
-an optional ``products()`` context around their 2:4 products, so a caller
-can time them apart (a profiler's range).
+``sparsifyme.attention`` (``proj``, ``rope``, ``core``, ``out``),
+:func:`.mla.mla_attention` ``sparsifyme.mla`` and :func:`.kda.kda_attention`
+``sparsifyme.kda``.
+:func:`attention`, :func:`.mla.mla_attention`, :func:`.kda.kda_attention`
+and :func:`dense_ffn` enter an optional ``products()`` context around their
+2:4 products, so a caller can time them apart (a profiler's range).
 """
 
 from __future__ import annotations
@@ -104,6 +107,9 @@ WeightFn = Callable[[str, Tuple[int, ...]], torch.Tensor]
 Products = Callable[[], ContextManager]
 
 
+# the keys of linear_attn_config that a Kimi Delta Attention config gives
+KDA_FIELDS = ("num_heads", "head_dim", "short_conv_kernel_size",
+              "kda_layers", "full_attn_layers")
 # the fields of MiMo-V2-Flash's GQA attention, which a config without
 # q_lora_rank has to give
 GQA_FIELDS = ("hybrid_layer_pattern", "head_dim", "swa_head_dim",
@@ -120,9 +126,11 @@ class MoeTransformerConfig:
     ``num_attention_heads`` / ``num_key_value_heads`` (and the ``swa_``
     pair of window layers) count the heads held here, ``held_experts``
     the experts (of ``n_routed_experts`` the router scores). The GQA and
-    window fields are MiMo-V2-Flash's; a model with ``q_lora_rank`` set
-    runs multi-head latent attention (:mod:`.mla`) in every layer
-    instead. ``n_group`` 1, ``topk_group`` 1, ``routed_scaling_factor``
+    window fields are MiMo-V2-Flash's; a model with ``q_lora_rank`` or
+    ``kv_lora_rank`` set runs multi-head latent attention (:mod:`.mla`)
+    instead, and one with ``linear_attn_config`` Kimi Delta Attention
+    (:mod:`.kda`) in the layers it lists (:meth:`attention_kind_of`).
+    ``n_group`` 1, ``topk_group`` 1, ``routed_scaling_factor``
     None and ``n_shared_experts`` None select the router and expert layer
     without DeepSeek-V3's group limit, scale and shared expert."""
 
@@ -170,9 +178,17 @@ class MoeTransformerConfig:
     qk_rope_head_dim: Optional[int] = None
     # YaRN's keys of the source's ``rope_scaling``, as (key, value) pairs
     rope_scaling: Optional[Tuple[Tuple[str, Union[float, str]], ...]] = None
+    # MLA with nothing rotated (Kimi Linear's)
+    mla_use_nope: bool = False
+    # Kimi Delta Attention in the layers of ``kda_layers`` (1-indexed), as
+    # (key, value) pairs of the source's ``linear_attn_config``:
+    # ``num_heads``, ``head_dim``, ``short_conv_kernel_size``,
+    # ``kda_layers``, ``full_attn_layers``
+    linear_attn_config: Optional[Tuple[Tuple[str, object], ...]] = None
 
     def __post_init__(self):
-        mla_kind = self.q_lora_rank is not None
+        mla_kind = self.q_lora_rank is not None or \
+            self.kv_lora_rank is not None
         need = ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim") \
             if mla_kind else GQA_FIELDS
         missing = [n for n in need if getattr(self, n) is None]
@@ -180,6 +196,16 @@ class MoeTransformerConfig:
             raise ValueError(
                 f"{'multi-head latent' if mla_kind else 'GQA'} attention "
                 f"needs {', '.join(missing)}")
+        if self.linear_attn_config is not None:
+            lin = dict(self.linear_attn_config)
+            missing = [n for n in KDA_FIELDS if n not in lin]
+            if missing:
+                raise ValueError("Kimi Delta Attention needs "
+                                 f"{', '.join(missing)}")
+            every = sorted(lin["kda_layers"] + lin["full_attn_layers"])
+            if every != list(range(1, len(self.moe_layer_freq) + 1)):
+                raise ValueError("kda_layers and full_attn_layers do not "
+                                 "name every layer once")
         if not mla_kind and \
                 len(self.hybrid_layer_pattern) != len(self.moe_layer_freq):
             raise ValueError("hybrid_layer_pattern and moe_layer_freq give "
@@ -192,14 +218,30 @@ class MoeTransformerConfig:
     @classmethod
     def from_dict(cls, keys: dict, **over) -> "MoeTransformerConfig":
         """From a dict with the source's ``config.json`` keys (others are
-        ignored), lists as tuples and dicts as sorted (key, value) pairs;
-        ``over`` sets fields besides."""
+        ignored), lists as tuples and dicts as sorted (key, value) pairs
+        (a list among their values a tuple); ``over`` sets fields
+        besides."""
+        def frozen(v):
+            return tuple(v) if isinstance(v, list) else v
+
         names = {f.name for f in dataclasses.fields(cls)}
-        got = {k: tuple(v) if isinstance(v, list) else
-               tuple(sorted(v.items())) if isinstance(v, dict) else v
+        got = {k: tuple(sorted((a, frozen(b)) for a, b in v.items()))
+               if isinstance(v, dict) else frozen(v)
                for k, v in keys.items() if k in names}
         got.update(over)
         return cls(**got)
+
+    def attention_kind_of(self, layer: int) -> str:
+        """Layer ``layer``'s (0-indexed) attention: ``"kda"`` where
+        ``linear_attn_config`` lists it among ``kda_layers`` (1-indexed),
+        else ``"mla"`` where the config has latent widths, else
+        ``"gqa"``."""
+        if self.linear_attn_config is not None and \
+                layer + 1 in dict(self.linear_attn_config)["kda_layers"]:
+            return "kda"
+        if self.q_lora_rank is not None or self.kv_lora_rank is not None:
+            return "mla"
+        return "gqa"
 
     def attention_shape(self, layer: int):
         """``(heads, kv heads, qk dim, v dim, window, sink, rope theta)``
@@ -303,7 +345,12 @@ def weight_shape(config: MoeTransformerConfig, name: str
     if part.startswith("e") or part.startswith("shared."):
         kind, proj = part.split(".")
         part = ("shared_" if kind == "shared" else "expert_") + proj
-    if c.q_lora_rank is not None:
+    attn = c.attention_kind_of(int(layer))
+    if attn == "kda":
+        from . import kda  # it imports this module
+        if part in kda.SHAPES:
+            return kda.weight_shape(c, part)
+    if attn == "mla":
         from . import mla  # it imports this module
         if part in mla.SHAPES:
             return mla.weight_shape(c, part)
@@ -335,7 +382,8 @@ def init_params(config: MoeTransformerConfig, weight: WeightFn) -> Params:
     ``i.gate`` / ``i.up`` / ``i.down`` or ``i.router``, ``i.router_bias``,
     ``i.e<expert>.gate`` / ``.up`` / ``.down`` for each held expert and
     ``i.shared.gate`` / ``.up`` / ``.down`` where the layer has a shared
-    expert; shapes by :func:`weight_shape`): each product's weight pruned,
+    expert; a KDA layer's names are :func:`.kda.init_kda`'s; shapes by
+    :func:`weight_shape`): each product's weight pruned,
     compressed and packed (:func:`sparse_weight`), gate and up stacked
     first; norms, sinks, the router and its bias, the embedding and the
     head as given (bias and sinks float32). Each dense weight is dropped
@@ -346,9 +394,9 @@ def init_params(config: MoeTransformerConfig, weight: WeightFn) -> Params:
     def fused(gate, up):
         return sparse_weight(torch.cat([w(gate), w(up)]))
 
-    init_attn, _ = attention_kind(config)
     layers = []
     for i in range(config.num_hidden_layers):
+        init_attn, _ = attention_kind(config, i)
         attn = init_attn(config, w, i)
         if config.moe_layer_freq[i]:
             router = w(f"{i}.router")
@@ -389,16 +437,21 @@ def init_attention(config: MoeTransformerConfig,
         heads=heads, kv_heads=kv, window=window, rope_theta=theta)
 
 
-def attention_kind(config: MoeTransformerConfig):
-    """``(init, step)`` of the configuration's attention block: MiMo's GQA
-    (:func:`init_attention`, :func:`attention`), or multi-head latent
-    attention (:func:`.mla.init_mla`, :func:`.mla.mla_attention`) where
-    ``q_lora_rank`` is set. Each block's dataclass names its 2:4 weights
-    in ``PRODUCTS``."""
-    if config.q_lora_rank is None:
+def attention_kind(config: MoeTransformerConfig, layer: int):
+    """``(init, step)`` of layer ``layer``'s attention block
+    (:meth:`MoeTransformerConfig.attention_kind_of`): MiMo's GQA
+    (:func:`init_attention`, :func:`attention`), multi-head latent
+    attention (:func:`.mla.init_mla`, :func:`.mla.mla_attention`) or Kimi
+    Delta Attention (:func:`.kda.init_kda`, :func:`.kda.kda_attention`).
+    Each block's dataclass names its 2:4 weights in ``PRODUCTS``."""
+    kind = config.attention_kind_of(layer)
+    if kind == "gqa":
         return init_attention, attention
-    from . import mla  # it imports this module
-    return mla.init_mla, mla.mla_attention
+    if kind == "mla":
+        from . import mla  # it imports this module
+        return mla.init_mla, mla.mla_attention
+    from . import kda  # it imports this module
+    return kda.init_kda, kda.kda_attention
 
 
 def densify(params: Params) -> Params:
@@ -778,9 +831,9 @@ def forward(params: Params, ids: torch.Tensor,
     every token ``[hidden, batch * seq]`` and the last position's logits
     ``[batch, vocab]``."""
     batch = ids.shape[0]
-    _, attend = attention_kind(config)
     h = embed(params, ids)
-    for attn, ffn in params.layers:
+    for i, (attn, ffn) in enumerate(params.layers):
+        _, attend = attention_kind(config, i)
         h = attend(attn, h, config, batch)
         if isinstance(ffn, Moe):
             x, d = moe_route(ffn, h, config)

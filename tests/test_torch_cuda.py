@@ -17,7 +17,8 @@ ring, operands read at replay time, launch counts, no capture across
 cards); the model layer: both conv layers at a ragged shape, the ELL
 layer's gradient, three dp x tp train steps and the entry points on the
 card against the CPU; and the MoE transformer's combine and RMSNorm
-kernels against their plain versions.
+kernels and Kimi Delta Attention's recurrence kernel against their plain
+versions.
 
 These tests need a CUDA card and skip without one. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -2483,3 +2484,176 @@ def test_rms_norm_refuses_what_it_does_not_take(gen):
         call(wide, torch.ones(9224, dtype=torch.bfloat16, device="cuda"),
              1e-6, torch.empty_like(wide, dtype=torch.bfloat16))
     assert call.launches == before
+
+
+# (sequences, tokens a sequence) of the KDA recurrence's card tests: the
+# cell's 4096-token sequences and short ones of two chunks, one and eight
+# sequences packed, 32 heads
+KDA_SHAPES = [(1, 4096), (8, 4096), (1, 128), (8, 128)]
+
+
+@pytest.mark.parametrize("batch,seq", KDA_SHAPES)
+@pytest.mark.parametrize("strong", [False, True], ids=["weak", "strong"])
+def test_kda_kernel_matches_the_plain_chunked_form(gen, batch, seq, strong):
+    """The recurrence kernel against the plain chunked form in float64 on
+    the same inputs (which the CPU tests hold to the token recurrence):
+    weak decays (a chunk's state kept nearly whole) and strong ones (-1.6 a
+    token on average, a chunk's sum past float32's exp range), the output
+    within bf16's rounding, and beyond it within what a float32 state
+    keeps; finite, the same on a second call."""
+    from sparsifyme_tpu_torch.bench import kda as probe
+
+    rel, worst, rounded = probe.check(batch, seq, strong)
+    assert rel < probe.TOL and worst < 2e-2, (rel, worst)
+    assert rounded < probe.ROUNDED_TOL, rounded
+
+
+@pytest.mark.parametrize("batch,seq", [(1, 4096), (8, 128)])
+def test_kda_tolerance_refuses_a_bf16_state(gen, batch, seq):
+    """The plain chunked form with its state rounded to bf16 after each
+    chunk, a precision one step below the kernel's, reads beyond the
+    kernel's tolerance where the decays are weak and the state carries."""
+    from sparsifyme_tpu_torch.bench import kda as probe
+
+    assert probe.state_bf16_err(batch, seq, False) > probe.ROUNDED_TOL
+
+
+def test_kda_kernel_resets_the_state_at_each_sequence(gen):
+    """Each sequence of a packed batch reads what it reads alone: the
+    state starts at zero at every boundary."""
+    from sparsifyme_tpu_torch.bench import kda as probe
+    from sparsifyme_tpu_torch.ops.kernels import kda_kernel
+
+    q, k, v, g, beta = probe.operands(3, 256, False, "cuda", heads=2)
+    packed = kda_kernel.kda_chunk_cuda(q, k, v, g, beta, 3)
+    for b in range(3):
+        cols = slice(256 * b, 256 * (b + 1))
+        alone = kda_kernel.kda_chunk_cuda(
+            *(t[:, cols].contiguous() for t in (q, k, v, g, beta)), 1)
+        assert torch.equal(packed[:, cols], alone), b
+
+
+def test_kda_counts_its_launches_and_tokens(gen, monkeypatch):
+    """The model's recurrence on a card launches the kernel once a call
+    (``kda.kernel``, ``kda_chunk_cuda.launches``) and counts tokens x heads
+    (``kda.tokens``); the plain version never runs on a card tensor."""
+    from sparsifyme_tpu_torch.bench import kda as probe
+    from sparsifyme_tpu_torch.models import kda
+    from sparsifyme_tpu_torch.ops.kernels import kda_kernel
+    from sparsifyme_tpu_torch.utils import trace
+
+    def refuse(*args):
+        raise AssertionError("the plain chunked form ran on the card")
+
+    monkeypatch.setattr(kda_kernel, "kda_chunk_plain", refuse)
+    q, k, v, g, beta = probe.operands(2, 128, True, "cuda", heads=4)
+    before = kda_kernel.kda_chunk_cuda.launches
+    trace.reset()
+    with trace.recording():
+        kda.recurrence(q, k, v, g, beta, 2)
+        kda.recurrence(q, k, v, g, beta, 2)
+    counters = trace.summary()["counters"]
+    trace.reset()
+    assert kda_kernel.kda_chunk_cuda.launches == before + 2
+    assert counters["kda.kernel"] == 2
+    assert counters["kda.tokens"] == 2 * 4 * 256
+
+
+def test_kda_refuses_what_it_does_not_take(gen):
+    """Wrong dtypes, a non-contiguous operand, a head dim other than 128,
+    mismatched shapes and sequences that are not whole chunks raise before
+    any launch."""
+    from sparsifyme_tpu_torch.bench import kda as probe
+    from sparsifyme_tpu_torch.ops.kernels import kda_kernel
+
+    call = kda_kernel.kda_chunk_cuda
+    q, k, v, g, beta = probe.operands(2, 128, False, "cuda", heads=2)
+    before = call.launches
+    with pytest.raises(TypeError, match="q must be"):
+        call(q.float(), k, v, g, beta, 2)
+    with pytest.raises(TypeError, match="g must be"):
+        call(q, k, v, g.bfloat16(), beta, 2)
+    with pytest.raises(TypeError, match="beta must be"):
+        call(q, k, v, g, beta.bfloat16(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q, k.T.contiguous().T, v, g, beta, 2)
+    with pytest.raises(ValueError, match="head dim of 128"):
+        call(q[:192], k[:192], v[:192], g[:192], beta, 2)
+    with pytest.raises(ValueError, match="k must have"):
+        call(q, k[:, :192].contiguous(), v, g, beta, 2)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        call(q, k, v, g, beta, 3)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        call(*(t[:, :200].contiguous() for t in (q, k, v, g, beta)), 1)
+    assert call.launches == before
+
+
+@pytest.mark.parametrize("batch,seq", [(2, 128), (1, 4096)])
+def test_kda_glue_kernels_match_their_plain_versions(gen, batch, seq):
+    """The convolution (with SiLU and the q and k L2 norms), the
+    log-decay and the gated output norm against their plain versions on
+    the card: each within bf16's rounding of one float32 result (the
+    decay within float32's), and each sequence's first tokens seeing no
+    earlier sequence."""
+    from sparsifyme_tpu_torch.ops.kernels import kda_kernel
+
+    heads, t = 2, batch * seq
+    x = torch.randn((3 * heads * 128, t), generator=gen, device="cuda")
+    x = x.to(torch.bfloat16)
+    w = (torch.rand((3 * heads * 128, 4), generator=gen, device="cuda")
+         - 0.5).to(torch.bfloat16)
+    got = kda_kernel.kda_conv_cuda(x, w, batch, 2 * heads * 128, 1e-6)
+    want = kda_kernel.kda_conv_plain(x, w, batch, 2 * heads * 128, 1e-6)
+    assert _rel(got, want) < 1e-2
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) < 3e-3
+    f = (torch.randn((heads * 128, t), generator=gen, device="cuda") * 3
+         ).to(torch.bfloat16)
+    a_log = torch.rand(heads, generator=gen, device="cuda") * 2.7
+    dt_bias = torch.rand(heads * 128, generator=gen, device="cuda") * 30 - 7
+    g = kda_kernel.kda_decay_cuda(f, a_log, dt_bias)
+    want = kda_kernel.kda_decay_plain(f, a_log, dt_bias)
+    assert _rel(g, want) < 1e-5 and bool((g <= 0).all())
+    o, gate = (torch.randn((heads * 128, t), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(2))
+    wn = (1 + 0.2 * torch.randn(128, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    y = kda_kernel.kda_gate_norm_cuda(o, gate, wn, 1e-5)
+    want = kda_kernel.kda_gate_norm_plain(o, gate, wn, 1e-5)
+    assert _rel(y, want) < 1e-2
+
+
+def test_kda_glue_kernels_count_their_launches(gen):
+    """The model's conv, decay and gated norm on a card launch their
+    kernels once a call each: the launchers' ``launches`` and the trace
+    counters ``kda.conv``, ``kda.decay`` and ``kda.gate_norm``."""
+    from sparsifyme_tpu_torch.models import kda
+    from sparsifyme_tpu_torch.ops.kernels import kda_kernel
+    from sparsifyme_tpu_torch.utils import trace
+
+    heads, t = 2, 256
+    glue = {"kda.conv": kda_kernel.kda_conv_cuda,
+            "kda.decay": kda_kernel.kda_decay_cuda,
+            "kda.gate_norm": kda_kernel.kda_gate_norm_cuda}
+    before = {name: fn.launches for name, fn in glue.items()}
+    x = torch.randn((3 * heads * 128, t), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.full((3 * heads * 128, 4), 0.25, dtype=torch.bfloat16,
+                   device="cuda")
+    f, o, gate = (torch.randn((heads * 128, t), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(3))
+    a_log = torch.zeros(heads, device="cuda")
+    dt_bias = torch.zeros(heads * 128, device="cuda")
+    wn = torch.ones(128, dtype=torch.bfloat16, device="cuda")
+    trace.reset()
+    with trace.recording():
+        kda.short_conv(x, w, 2, 2 * heads * 128, 128)
+        kda_kernel.kda_decay_cuda(f, a_log, dt_bias)
+        kda.gated_norm(o, wn, gate, 1e-5)
+    counters = trace.summary()["counters"]
+    trace.reset()
+    assert {name: fn.launches - before[name]
+            for name, fn in glue.items()} == dict.fromkeys(glue, 1)
+    assert {name: counters.get(name) for name in glue} == \
+        dict.fromkeys(glue, 1)

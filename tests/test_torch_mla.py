@@ -422,3 +422,119 @@ def test_the_shares_of_four_cards_add_up_to_the_uncut_layer():
     assert _rel(port_attn, want_attn.T) < TOL
     assert int((~same).sum()) <= 2
     assert _rel((port_moe + shared).T[same], want_moe[same]) < TOL
+
+
+# --- the two forms Kimi Linear's layers take: no q latent, NoPE -----------
+
+def _parent_mla_attention(p, h, config, batch):
+    """DeepSeek-V3's MLA as the port ran it before the NoPE and
+    no-q-latent forms: the reference for "unchanged bit for bit"."""
+    eps = config.layernorm_epsilon
+    nope, rot = config.qk_nope_head_dim, config.qk_rope_head_dim
+    lat, t = config.kv_lora_rank, h.shape[1]
+    seq = t // batch
+    x = mt.rms_norm(h, p.norm, eps)
+    cq, ckv = mt.linear(p.q_a, x), mt.linear(p.kv_a, x)
+    cq = mt.rms_norm(cq, p.q_a_norm, eps)
+    ckv_n = mt.rms_norm(ckv[:lat], p.kv_a_norm, eps)
+    q, kv = mt.linear(p.q_b, cq), mt.linear(p.kv_b, ckv_n)
+    cos, sin = mla._yarn_table(seq, rot, float(config.rope_theta),
+                               config.rope_scaling, str(h.device))
+    q = mt.split_heads(q, p.heads, batch)
+    mla.rope_pairs(q[..., nope:], cos, sin)
+    kv = kv.view(p.heads, -1, batch, seq).permute(2, 0, 3, 1)
+    k = torch.empty_like(q)
+    k[..., :nope] = kv[..., :nope]
+    k_pe = ckv[lat:].view(rot, batch, seq).permute(1, 2, 0).contiguous()
+    k[..., nope:] = mla.rope_pairs(k_pe, cos, sin)[:, None]
+    v = kv[..., nope:].contiguous()
+    o = mt.full_attention(q, k, v, mla.softmax_scale(config))
+    o = o.permute(1, 3, 0, 2).reshape(-1, t)
+    return h + mt.linear(p.o, o)
+
+
+@pytest.mark.parametrize("layer", [0, 3])
+def test_deepseeks_mla_is_unchanged_bit_for_bit(small, layer):
+    """DeepSeek-V3's configuration still selects the q latent and RoPE,
+    and its block gives the parent's bits."""
+    assert mla.products(small.cfg) == mla.PRODUCTS
+    assert mla.uses_rope(small.cfg) and not small.cfg.mla_use_nope
+    attn, _ = small.params.layers[layer]
+    assert attn.q is None and attn.q_a is not None
+    h = _hidden(layer + 40).T.contiguous()
+    assert torch.equal(mla.mla_attention(attn, h, small.cfg, BATCH),
+                       _parent_mla_attention(attn, h, small.cfg, BATCH))
+
+
+@pytest.fixture(scope="module")
+def kimi():
+    from perfbench.model_routes import kimilinear24
+    from perfbench.tests.kimi_small import BATCH as KB, SEQ as KS, SMALL as KC
+
+    ctx = SimpleNamespace(device=torch.device("cpu"), seed=SEED, config=KC,
+                          rank=0, traffic={"sequences": KB, "seq_len": KS})
+    params, ids, cfg = kimilinear24.KimiLinear24().setup(ctx, [])
+    return SimpleNamespace(params=params, cfg=cfg, batch=KB, seq=KS,
+                           spec=kimilinear24.ref_spec(KC),
+                           weight=functools.partial(kimilinear24.kept_weight,
+                                                    ctx),
+                           ref=kimilinear24.REF)
+
+
+def test_nope_mla_without_a_q_latent_matches_the_reference(kimi):
+    """Kimi Linear's MLA layer: q one product of the input (no latent, no
+    q norm), k_pe joining every head's key unrotated, against the plain
+    reference's."""
+    from perfbench.tests.kimi_small import MLA_LAYERS
+
+    layer = MLA_LAYERS[0]
+    attn, _ = kimi.params.layers[layer]
+    assert isinstance(attn, mla.Mla)
+    assert attn.q_a is None and attn.q_a_norm is None and attn.q_b is None
+    assert attn.q.shape == (2 * (128 + 64), 256)
+    assert mla.products(kimi.cfg) == mla.PRODUCTS_NO_Q_LATENT
+    h = _hidden(5, kimi.batch * kimi.seq)
+    got = mla.mla_attention(attn, h.T.contiguous(), kimi.cfg,
+                            kimi.batch) - h.T
+    x = _normed(h)
+    want = kimi.ref.mla(x, kimi.spec, layer, kimi.weight, kimi.batch)
+    assert _rel(got.T, want) < TOL
+
+
+def test_nope_rotates_nothing_and_keeps_the_phases(kimi, monkeypatch):
+    """With ``mla_use_nope`` no rope is computed or applied, the record's
+    phases keep their names, and ``products()`` is entered around q with
+    kv_a, kv_b, and o; RoPE applied there departs from the reference."""
+    from perfbench.tests.kimi_small import MLA_LAYERS
+
+    layer = MLA_LAYERS[0]
+    attn, _ = kimi.params.layers[layer]
+    h = _hidden(6, kimi.batch * kimi.seq).T.contiguous()
+    want = mla.mla_attention(attn, h, kimi.cfg, kimi.batch)
+
+    def refused(*args):
+        raise AssertionError("a NoPE layer rotated its rope dims")
+
+    entered = []
+
+    class Tag:
+        def __enter__(self):
+            entered.append(1)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(mla, "rope_pairs", refused)
+    monkeypatch.setattr(mla, "_yarn_table", refused)
+    trace.reset()
+    with trace.recording():
+        got = mla.mla_attention(attn, h, kimi.cfg, kimi.batch, Tag)
+    spans = trace.summary()["spans"]
+    trace.reset()
+    assert torch.equal(got, want) and len(entered) == 3
+    for phase in ("q_latent", "kv_latent", "rope", "core", "out"):
+        assert spans["sparsifyme.mla." + phase]["count"] == 1
+    monkeypatch.undo()
+    rotated = mla.mla_attention(attn, h, dataclasses.replace(
+        kimi.cfg, mla_use_nope=False), kimi.batch)
+    assert _rel(rotated - h, want - h) > 0.02

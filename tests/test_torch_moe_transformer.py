@@ -634,3 +634,112 @@ def test_full_attention_takes_the_callers_scale():
         assert (got - want).abs().max() < 2e-2
     assert (mt.full_attention(q, k, v, 0.9)
             - mt.full_attention(q, k, v, 0.1)).abs().max() > 0.1
+
+
+# --- per-layer attention: Kimi Linear's KDA and NoPE MLA layers ------------
+
+@pytest.fixture(scope="module")
+def kimi():
+    from perfbench.model_routes import kimilinear24
+    from perfbench.tests.kimi_small import BATCH as KB, SEQ as KS, SMALL as KC
+
+    ctx = SimpleNamespace(device=torch.device("cpu"), seed=2 ** 31 + 11,
+                          config=KC, rank=0,
+                          traffic={"sequences": KB, "seq_len": KS})
+    params, ids, cfg = kimilinear24.KimiLinear24().setup(ctx, [])
+    return SimpleNamespace(params=params, ids=ids, cfg=cfg, ctx=ctx,
+                           route=kimilinear24,
+                           spec=kimilinear24.ref_spec(KC),
+                           weight=functools.partial(kimilinear24.kept_weight,
+                                                    ctx))
+
+
+def test_each_layer_takes_its_attention_kind(kimi, monkeypatch):
+    """``linear_attn_config`` (1-indexed ``kda_layers``) selects KDA, the
+    other layers MLA: ``init_params`` builds each layer's block and
+    ``forward`` steps each through its own; a config whose lists miss or
+    repeat a layer is refused."""
+    from perfbench.tests.kimi_small import KDA_LAYERS, MLA_LAYERS
+    from sparsifyme_tpu_torch.models import kda, mla
+
+    cfg = kimi.cfg
+    kinds = [cfg.attention_kind_of(i) for i in range(cfg.num_hidden_layers)]
+    assert [i for i, k in enumerate(kinds) if k == "kda"] == KDA_LAYERS
+    assert [i for i, k in enumerate(kinds) if k == "mla"] == MLA_LAYERS
+    for i, (attn, _) in enumerate(kimi.params.layers):
+        assert isinstance(attn, kda.Kda if i in KDA_LAYERS else mla.Mla), i
+        assert mt.attention_kind(cfg, i)[1] is (
+            kda.kda_attention if i in KDA_LAYERS else mla.mla_attention)
+    steps = []
+
+    def spy(name, fn):
+        def step(p, h, config, batch, *rest):
+            steps.append(name)
+            return fn(p, h, config, batch, *rest)
+        return step
+
+    monkeypatch.setattr(kda, "kda_attention",
+                        spy("kda", kda.kda_attention))
+    monkeypatch.setattr(mla, "mla_attention",
+                        spy("mla", mla.mla_attention))
+    mt.forward(kimi.params, kimi.ids, cfg)
+    assert steps == kinds
+    lin = dict(cfg.linear_attn_config)
+    with pytest.raises(ValueError, match="every layer once"):
+        dataclasses.replace(cfg, linear_attn_config=tuple(
+            dict(lin, kda_layers=lin["kda_layers"] + (3,)).items()))
+    with pytest.raises(ValueError, match="needs head_dim"):
+        dataclasses.replace(cfg, linear_attn_config=tuple(
+            (k, v) for k, v in lin.items() if k != "head_dim"))
+
+
+@pytest.mark.parametrize("model", ["mimo", "dsv3"])
+def test_mimo_and_deepseek_keep_one_kind_in_every_layer(small, model):
+    """MiMo's and DeepSeek-V3's configurations name no linear attention:
+    every layer takes the kind the whole model took before (GQA, MLA),
+    through the same functions, and their weights' shapes and names are
+    as they were."""
+    import json
+    from pathlib import Path
+
+    from perfbench.model_routes import dsv3mla24
+    from sparsifyme_tpu_torch.models import mla
+
+    root = Path(__file__).resolve().parents[1] / "perfbench" / "configs"
+    if model == "mimo":
+        cfg = mimo24.model_config(json.loads(
+            (root / "mimo-v2-flash-ep8.json").read_text()))
+        kind, step, shapes = "gqa", mt.attention, {"0.q": None}
+    else:
+        cfg = dsv3mla24.model_config(json.loads(
+            (root / "deepseek-v3-ep32.json").read_text()))
+        kind, step, shapes = "mla", mla.mla_attention, {
+            "0.q_a": (1536, 7168), "0.q_b": (32 * 192, 1536),
+            "3.kv_a": (576, 7168), "5.o": (7168, 32 * 128)}
+    assert cfg.linear_attn_config is None and not cfg.mla_use_nope
+    for i in range(cfg.num_hidden_layers):
+        assert cfg.attention_kind_of(i) == kind
+        assert mt.attention_kind(cfg, i)[1] is step
+    for name, shape in shapes.items():
+        if shape is not None:
+            assert mt.weight_shape(cfg, name) == shape
+    if model == "mimo":
+        heads, kv, dqk, _, _, _, _ = cfg.attention_shape(0)
+        assert mt.weight_shape(cfg, "0.q") == (heads * dqk, cfg.hidden_size)
+
+
+def test_kimis_whole_forward_matches_the_reference(kimi):
+    """Both outputs within 3e-2 of a reference forward that takes the
+    program's choices (five layers of bf16 rounding), and the route's pass
+    is the model's forward plus each MoE layer's delta."""
+    route = kimi.route.KimiLinear24()
+    state = (kimi.params, kimi.ids, kimi.cfg)
+    got = route.run_pass(state, False)
+    for a, b in zip(got, mt.forward(kimi.params, kimi.ids, kimi.cfg)):
+        assert torch.equal(a, b)
+    assert len(got) == route.outputs(kimi.ctx, []) == 2 + 4
+    choices = [sel for _, _, sel in route._moe]
+    want = kimi.route.REF.forward(kimi.ids, kimi.spec, kimi.weight,
+                                  choices=choices)
+    assert reference.readings(got[0], want[0])[0] < 3e-2
+    assert reference.readings(got[1], want[1])[0] < 3e-2

@@ -20,8 +20,9 @@ from sparsifyme_tpu.ops import sparse24 as js
 from sparsifyme_tpu_torch import _build, convert
 from sparsifyme_tpu_torch.bench import fused_probe, units_probe
 from sparsifyme_tpu_torch.ops.kernels import (coo_kernel, ell_kernel,
-                                              moe_kernel, norm_kernel,
-                                              prune_kernel, spmm24_kernel)
+                                              kda_kernel, moe_kernel,
+                                              norm_kernel, prune_kernel,
+                                              spmm24_kernel)
 from sparsifyme_tpu_torch.parallel import ring_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -99,8 +100,8 @@ SPEC_TYPES = {"p": r"(const )?void\* \w+", "i": r"int \w+",
 def _declared_entries():
     return {e.name: e
             for mod in (prune_kernel, spmm24_kernel, ell_kernel, coo_kernel,
-                        moe_kernel, norm_kernel, ring_kernel, units_probe,
-                        fused_probe)
+                        moe_kernel, norm_kernel, kda_kernel, ring_kernel,
+                        units_probe, fused_probe)
             for e in vars(mod).values() if isinstance(e, _build.Entry)}
 
 
@@ -282,6 +283,24 @@ def test_smoke_ring_bound_counts_what_the_ring_must_move(p, tiles):
                                   design="wgmma_sp") == (
         one - 0.125 * rows * k + p * halo * tiles)
     assert chip_smoke._ring_design_bytes(rows, n, p) == 8 * (p - 1) * rows * n
+
+
+@pytest.mark.parametrize("shapes", ["DSV3_SHAPES", "KIMI_SHAPES"])
+def test_smoke_model_paths_expect_the_route_the_plan_gives(shapes):
+    """Each 2:4 product shape of the smoke's model paths names the K3
+    route that ``spmm_24`` takes on an H100: ``mma_sp`` where the rows are
+    no whole 128-row tile, else the 256-row unit exactly where
+    ``wg_plan`` gives it (132 SMs)."""
+    import chip_smoke
+
+    for name, m, k, n, route in getattr(chip_smoke, shapes):
+        if m % spmm24_kernel.WG_BM:
+            assert route == "spmm_24", name
+            continue
+        plan = spmm24_kernel.wg_plan(m, n, k, spmm24_kernel.H100_SMS)
+        tall = type(plan) is spmm24_kernel.WgTallPlan
+        assert route == (chip_smoke.TALL_ROUTE if tall else "spmm_24_wg"), \
+            (name, plan)
 
 
 def test_no_tuning_table_is_shipped():
